@@ -1,0 +1,80 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, and its entry points run on the card unless told otherwise."""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import chainermn_tpu_torch
+from chainermn_tpu_torch.models import TransformerLM
+from chainermn_tpu_torch.serving import ServingEngine
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "chainermn_tpu_torch"
+SMOKE = ROOT / "chip_smoke.py"
+
+PORT_MODULES = sorted(
+    m.name for m in pkgutil.walk_packages(chainermn_tpu_torch.__path__,
+                                          "chainermn_tpu_torch."))
+
+_BLOCK_AND_IMPORT = """
+import importlib, importlib.util, sys
+for name in ("jax", "jaxlib", "flax", "optax", "chainermn_tpu"):
+    sys.modules[name] = None  # any import of these now raises
+for mod in sys.argv[2:]:
+    importlib.import_module(mod)
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print("ok", len(sys.argv) - 2)
+"""
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    assert "chainermn_tpu_torch.ops.paged_decode" in PORT_MODULES
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCK_AND_IMPORT, str(SMOKE), *PORT_MODULES],
+        capture_output=True, text=True, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok", str(len(PORT_MODULES))]
+
+
+_FORBIDDEN = [
+    # an import of JAX or its libraries, at any indentation
+    re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax)\b", re.M),
+    # an import of the JAX package (chainermn_tpu_torch is the port)
+    re.compile(r"^\s*(from|import)\s+chainermn_tpu(\.|\s|$)", re.M),
+    # a module name of the JAX package handed to importlib
+    re.compile(r"[\'\"]chainermn_tpu(\.|[\'\"])"),
+]
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [SMOKE],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_names_no_jax_and_no_jax_package(path):
+    text = path.read_text()
+    for pattern in _FORBIDDEN:
+        hit = pattern.search(text)
+        assert hit is None, hit.group(0)
+
+
+def test_entry_points_raise_without_a_card_or_a_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TransformerLM(vocab_size=16, num_layers=1, num_heads=2, d_model=8,
+                      d_ff=16, max_len=16)
+    model = TransformerLM(vocab_size=16, num_layers=1, num_heads=2,
+                          d_model=8, d_ff=16, max_len=16, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(model, num_slots=1, max_len=16, kv_block_size=4)
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    out = subprocess.run([sys.executable, str(SMOKE)], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
