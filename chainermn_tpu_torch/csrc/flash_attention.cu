@@ -1,0 +1,639 @@
+// Flash attention, forward and backward, for Hopper (sm_90a).
+//
+// Three kernels replace the Pallas TPU kernels of
+// chainermn_tpu/ops/flash_attention.py:
+//
+// - K1 flash_fwd_kernel  <- _flash_fwd_bhtd (body _fwd_body): online
+//   softmax over key tiles, O and the per-row logsumexp (LSE);
+// - K2 flash_dq_kernel   <- _flash_bwd_bhtd's dq call (_bwd_dq_body):
+//   P = exp(S - LSE), dS = P * (dP - delta) * scale, dq = dS K;
+// - K3 flash_dkv_kernel  <- _flash_bwd_bhtd's dk/dv call (_bwd_dkv_body):
+//   dv = P^T dO, dk = dS^T q, and with bias_grad the full dbias.
+//
+// Options, as in the TPU kernels: causal (with q_offset), a sliding
+// window, GQA (kv head = q head / group), packed segment ids and an
+// additive fp32 bias [B|1, H|1, Tq, Tk] (size-1 dims read through a zero
+// stride), added after the scale and before the mask.
+//
+// What bounds them: operations. At the training shapes (T 2048, head dim
+// 64) each (row, visible key) pair costs 4*D (K1), 6*D (K2) or 8*D (K3)
+// operations on a few bytes of K/V per key that stay on chip for a
+// 64-row tile, far above the ~295 operations per byte where an H100
+// stops being memory-bound. The design follows from that:
+//
+// - the TPU grid's sequential last axis (which carries m/l/acc or the
+//   gradient accumulators in VMEM) becomes a loop INSIDE the CTA, and
+//   each CTA owns its output tile, so nothing is carried between CTAs
+//   and nothing needs atomics;
+// - K1 and K2: one CTA per (q tile, q head, batch row), looping over key
+//   tiles from the window band's first tile (the TPU's _band_k) to the
+//   causal diagonal (its _live block skip);
+// - K3: one CTA per (k tile, KV head, batch row), looping over the
+//   group's q heads and over the q tiles that can see this k tile (the
+//   TPU's _band_q). dk/dv accumulate per kv head inside the CTA, which
+//   removes the TPU version's per-q-head [B, H, Tk, D] buffers and the
+//   group sum after the kernel. With bias_grad the CTA visits every q
+//   tile and writes zeros to the dbias tiles no query of the band reaches;
+// - tiles are 64 x 64 with 256 threads; each thread computes a 4 x 4 block
+//   of scores from fp32 copies of the tiles in shared memory (rows padded
+//   by one float so lane-per-row reads hit distinct banks) and owns a
+//   4 x D/16 block of the output accumulators. Products run on fp32 CUDA
+//   cores: simple and exact for fp32; tensor cores (mma / wgmma), TMA and
+//   pipelining are later work;
+// - the public layout is BTHD and the kernels address it through the
+//   tensors' batch, token and head strides, so no operand is transposed
+//   or copied; ragged tails are masked, so any T runs.
+//
+// Numerics follow the TPU kernels: scores = (q . k in fp32) * scale
+// (+ bias), masked scores = NEG_INF (-1e30), in K1 p = mask ? exp(s -
+// m_new) : 0 with P rounded to V's dtype before PV; K2 and K3 re-derive
+// p = exp(s - lse) WITHOUT re-applying the mask (a masked score gives 0
+// on any row that saw a key), round dS to k's dtype for dq and to q's
+// dtype for dk, and take dv from the fp32 p; fp32 accumulators; O = 0
+// and LSE = NEG_INF where the row sum is 0. dq/dk/dv/dbias are fp32.
+//
+// Each host entry launches on the caller's stream, allocates nothing and
+// returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Mirrored field for field by ops/flash_attention.py::_Params.
+struct FlashParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const int* seg_q;
+  const int* seg_k;
+  const float* bias;
+  const float* lse;
+  const float* delta;
+  void* out;
+  float* lse_out;
+  float* dq;
+  float* dk;
+  float* dv;
+  float* dbias;
+  int64_t q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
+  int64_t do_sb, do_st, do_sh, segq_sb, segk_sb;
+  int64_t bias_sb, bias_sh, bias_sq, bias_sk;
+  int B, Tq, Tk, H, Hkv, D, causal, window, q_offset, dtype;
+  float scale;
+};
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kTile = 64;      // rows of a q tile and of a k tile
+constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 scores each
+constexpr int kPad = kTile + 1;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// x rounded to T's precision (the TPU kernels' astype before a product).
+__device__ __forceinline__ float round_as(float x, const float*) { return x; }
+__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Reductions over the 16 lanes that hold one row (a half warp).
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// Rows [r0, r0 + 64) of one (batch, head) slice of a BTHD tensor into
+// shared memory [64][D + 1] as fp32; rows at or past n are zero.
+template <typename T, int D>
+__device__ void load_rows(float* dst, const T* src, int64_t row_stride,
+                          int r0, int n) {
+  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    float x = 0.f;
+    if (r0 + r < n) x = to_float(src[(int64_t)(r0 + r) * row_stride + d]);
+    dst[r * (D + 1) + d] = x;
+  }
+}
+
+__device__ void load_seg(int* dst, const int* seg, int r0, int n) {
+  for (int i = threadIdx.x; i < kTile; i += kThreads)
+    dst[i] = r0 + i < n ? seg[r0 + i] : 0;
+}
+
+// s[i][j] = sum_d A[ty + 16 i][d] * Bm[tx + 16 j][d] over [64][D + 1] tiles.
+template <int D>
+__device__ __forceinline__ void dot_tile(const float* A, const float* Bm,
+                                         float s[4][4]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * (D + 1) + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = Bm[(tx + 16 * j) * (D + 1) + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] += a[i] * b[j];
+  }
+}
+
+// acc[i][j] += sum_c P[ty + 16 i][c] * X[c][tx + 16 j]: P is [64][65],
+// X is [64][D + 1] (PV in K1, dS K in K2).
+template <int D>
+__device__ __forceinline__ void p_times(const float* P, const float* X,
+                                        float acc[4][D / 16]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll 4
+  for (int c = 0; c < kTile; ++c) {
+    float p[4], x[D / 16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = P[(ty + 16 * i) * kPad + c];
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) x[j] = X[c * (D + 1) + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) acc[i][j] += p[i] * x[j];
+  }
+}
+
+// acc[i][j] += sum_r P[r][ty + 16 i] * X[r][tx + 16 j]: the transposed
+// product of K3 (P^T dO for dv, dS^T q for dk).
+template <int D>
+__device__ __forceinline__ void pt_times(const float* P, const float* X,
+                                         float acc[4][D / 16]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll 4
+  for (int r = 0; r < kTile; ++r) {
+    float p[4], x[D / 16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = P[r * kPad + ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) x[j] = X[r * (D + 1) + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) acc[i][j] += p[i] * x[j];
+  }
+}
+
+// Is key kj visible from query row qi (both in range)?
+__device__ __forceinline__ bool visible(const FlashParams& p, int qi, int kj,
+                                        int sq, int sk) {
+  if (qi >= p.Tq || kj >= p.Tk) return false;
+  if (p.causal) {
+    const int qpos = qi + p.q_offset;
+    if (kj > qpos) return false;
+    if (p.window > 0 && qpos - kj >= p.window) return false;
+  }
+  return p.seg_q == nullptr || sq == sk;
+}
+
+// The masked, scaled score of (qi, kj) for q head h of batch row b.
+__device__ __forceinline__ float score(const FlashParams& p, float dot, int b,
+                                       int h, int qi, int kj, bool ok) {
+  float x = dot * p.scale;
+  if (p.bias != nullptr && ok)
+    x += p.bias[b * p.bias_sb + h * p.bias_sh + (int64_t)qi * p.bias_sq +
+                (int64_t)kj * p.bias_sk];
+  return ok ? x : kNegInf;
+}
+
+// Key tiles [*t0, *t1) that query rows [q0, q0 + 64) can see: from the
+// window band's first key to the causal diagonal (all keys if not causal).
+__device__ __forceinline__ void key_tiles(const FlashParams& p, int q0,
+                                          int* t0, int* t1) {
+  int kbeg = 0, kend = p.Tk;
+  if (p.causal) {
+    const int qlast = min(q0 + kTile, p.Tq) - 1;
+    kend = min(p.Tk, qlast + p.q_offset + 1);
+    if (p.window > 0) kbeg = max(0, q0 + p.q_offset - p.window + 1);
+  }
+  if (kend <= kbeg) {
+    *t0 = *t1 = 0;
+    return;
+  }
+  *t0 = kbeg / kTile;
+  *t1 = (kend + kTile - 1) / kTile;
+}
+
+// Query tiles [*t0, *t1) whose rows can see some key of [k0, k0 + 64).
+__device__ __forceinline__ void query_tiles(const FlashParams& p, int k0,
+                                            int* t0, int* t1) {
+  int qbeg = 0, qend = p.Tq;
+  if (p.causal) {
+    qbeg = max(0, k0 - p.q_offset);
+    if (p.window > 0) {
+      const int klast = min(k0 + kTile, p.Tk) - 1;
+      qend = min(p.Tq, klast + p.window - p.q_offset);
+    }
+  }
+  if (qend <= qbeg) {
+    *t0 = *t1 = 0;
+    return;
+  }
+  *t0 = qbeg / kTile;
+  *t1 = (qend + kTile - 1) / kTile;
+}
+
+// ------------------------------------------------------------------ K1
+
+template <int D>
+__host__ __device__ constexpr size_t fwd_smem() {
+  return sizeof(float) * (3 * kTile * (D + 1) + kTile * kPad) +
+         sizeof(int) * 2 * kTile;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const FlashParams p) {
+  constexpr int DJ = D / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + kTile * (D + 1);
+  float* Vs = Ks + kTile * (D + 1);
+  float* Ps = Vs + kTile * (D + 1);
+  int* sq = reinterpret_cast<int*>(Ps + kTile * kPad);
+  int* sk = sq + kTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.H / p.Hkv);
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  load_rows<T, D>(Qs, qb, p.q_st, q0, p.Tq);
+  if (p.seg_q != nullptr) load_seg(sq, p.seg_q + b * p.segq_sb, q0, p.Tq);
+
+  float m[4], l[4], acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  }
+
+  int t0, t1;
+  key_tiles(p, q0, &t0, &t1);
+  for (int t = t0; t < t1; ++t) {
+    const int k0 = t * kTile;
+    __syncthreads();  // the previous tile's readers are done
+    load_rows<T, D>(Ks, kb, p.k_st, k0, p.Tk);
+    load_rows<T, D>(Vs, vb, p.v_st, k0, p.Tk);
+    if (p.seg_k != nullptr) load_seg(sk, p.seg_k + b * p.segk_sb, k0, p.Tk);
+    __syncthreads();
+
+    float s[4][4];
+    dot_tile<D>(Qs, Ks, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i, qi = q0 + r;
+      bool ok[4];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        ok[j] = visible(p, qi, k0 + c, sq[r], sk[c]);
+        s[i][j] = score(p, s[i][j], b, h, qi, k0 + c, ok[j]);
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // p = mask ? exp(s - m_new) : 0 (a fully masked row would
+        // otherwise give exp(0) = 1 per entry)
+        const float pr = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        sum += pr;
+        Ps[r * kPad + tx + 16 * j] = round_as(pr, static_cast<const T*>(p.v));
+      }
+      const float corr = expf(m[i] - m_new);
+      l[i] = l[i] * corr + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
+    }
+    __syncthreads();
+    p_times<D>(Ps, Vs, acc);
+  }
+
+  T* out = static_cast<T*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= p.Tq) continue;
+    const bool live = l[i] > 0.f;
+    const float denom = fmaxf(l[i], 1e-37f);
+#pragma unroll
+    for (int j = 0; j < DJ; ++j)
+      store(out + (((int64_t)b * p.Tq + qi) * p.H + h) * D + tx + 16 * j,
+            live ? acc[i][j] / denom : 0.f);
+    if (tx == 0)
+      p.lse_out[((int64_t)b * p.H + h) * p.Tq + qi] =
+          live ? m[i] + logf(denom) : kNegInf;
+  }
+}
+
+// ------------------------------------------------------------------ K2
+
+template <int D>
+__host__ __device__ constexpr size_t dq_smem() {
+  return sizeof(float) * (4 * kTile * (D + 1) + kTile * kPad) +
+         sizeof(int) * 2 * kTile;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_kernel(const FlashParams p) {
+  constexpr int DJ = D / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* DOs = Qs + kTile * (D + 1);
+  float* Ks = DOs + kTile * (D + 1);
+  float* Vs = Ks + kTile * (D + 1);
+  float* DSs = Vs + kTile * (D + 1);
+  int* sq = reinterpret_cast<int*>(DSs + kTile * kPad);
+  int* sk = sq + kTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.H / p.Hkv);
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  load_rows<T, D>(Qs, qb, p.q_st, q0, p.Tq);
+  load_rows<T, D>(DOs, dob, p.do_st, q0, p.Tq);
+  if (p.seg_q != nullptr) load_seg(sq, p.seg_q + b * p.segq_sb, q0, p.Tq);
+  float lse[4], delta[4], acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    const int64_t row = ((int64_t)b * p.H + h) * p.Tq + qi;
+    lse[i] = qi < p.Tq ? p.lse[row] : 0.f;
+    delta[i] = qi < p.Tq ? p.delta[row] : 0.f;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  }
+
+  int t0, t1;
+  key_tiles(p, q0, &t0, &t1);
+  for (int t = t0; t < t1; ++t) {
+    const int k0 = t * kTile;
+    __syncthreads();
+    load_rows<T, D>(Ks, kb, p.k_st, k0, p.Tk);
+    load_rows<T, D>(Vs, vb, p.v_st, k0, p.Tk);
+    if (p.seg_k != nullptr) load_seg(sk, p.seg_k + b * p.segk_sb, k0, p.Tk);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    dot_tile<D>(Qs, Ks, s);
+    dot_tile<D>(DOs, Vs, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i, qi = q0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const bool ok = visible(p, qi, k0 + c, sq[r], sk[c]);
+        const float pr = expf(score(p, s[i][j], b, h, qi, k0 + c, ok) - lse[i]);
+        const float ds = pr * (dp[i][j] - delta[i]) * p.scale;
+        DSs[r * kPad + c] = round_as(ds, static_cast<const T*>(p.k));
+      }
+    }
+    __syncthreads();
+    p_times<D>(DSs, Ks, acc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= p.Tq) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j)
+      p.dq[(((int64_t)b * p.Tq + qi) * p.H + h) * D + tx + 16 * j] = acc[i][j];
+  }
+}
+
+// ------------------------------------------------------------------ K3
+
+template <int D>
+__host__ __device__ constexpr size_t dkv_smem() {
+  return sizeof(float) * (4 * kTile * (D + 1) + kTile * kPad + 2 * kTile) +
+         sizeof(int) * 2 * kTile;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_kernel(const FlashParams p) {
+  constexpr int DJ = D / 16;
+  extern __shared__ float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + kTile * (D + 1);
+  float* Qs = Vs + kTile * (D + 1);
+  float* DOs = Qs + kTile * (D + 1);
+  float* Ps = DOs + kTile * (D + 1);
+  float* lse_s = Ps + kTile * kPad;
+  float* delta_s = lse_s + kTile;
+  int* sq = reinterpret_cast<int*>(delta_s + kTile);
+  int* sk = sq + kTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
+  const int group = p.H / p.Hkv;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  load_rows<T, D>(Ks, kb, p.k_st, k0, p.Tk);
+  load_rows<T, D>(Vs, vb, p.v_st, k0, p.Tk);
+  if (p.seg_k != nullptr) load_seg(sk, p.seg_k + b * p.segk_sb, k0, p.Tk);
+
+  float dk[4][DJ], dv[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  int t0, t1;
+  query_tiles(p, k0, &t0, &t1);
+  const int nq = (p.Tq + kTile - 1) / kTile;
+  const bool want_dbias = p.dbias != nullptr;
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+    for (int t = want_dbias ? 0 : t0; t < (want_dbias ? nq : t1); ++t) {
+      const int q0 = t * kTile;
+      if (t < t0 || t >= t1) {
+        // A dbias tile no query of the band reaches: zeros, as the TPU
+        // kernel writes its dead tiles.
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qi = q0 + ty + 16 * i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int kj = k0 + tx + 16 * j;
+            if (qi < p.Tq && kj < p.Tk)
+              p.dbias[(((int64_t)b * p.H + h) * p.Tq + qi) * p.Tk + kj] = 0.f;
+          }
+        }
+        continue;
+      }
+      __syncthreads();  // the previous tile's readers are done
+      load_rows<T, D>(Qs, qb, p.q_st, q0, p.Tq);
+      load_rows<T, D>(DOs, dob, p.do_st, q0, p.Tq);
+      if (p.seg_q != nullptr) load_seg(sq, p.seg_q + b * p.segq_sb, q0, p.Tq);
+      for (int i = threadIdx.x; i < kTile; i += kThreads) {
+        const int qi = q0 + i;
+        const int64_t row = ((int64_t)b * p.H + h) * p.Tq + qi;
+        lse_s[i] = qi < p.Tq ? p.lse[row] : 0.f;
+        delta_s[i] = qi < p.Tq ? p.delta[row] : 0.f;
+      }
+      __syncthreads();
+
+      float s[4][4], dp[4][4];
+      dot_tile<D>(Qs, Ks, s);
+      dot_tile<D>(DOs, Vs, dp);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i, qi = q0 + r;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          const bool ok = visible(p, qi, k0 + c, sq[r], sk[c]);
+          s[i][j] = expf(score(p, s[i][j], b, h, qi, k0 + c, ok) - lse_s[r]);
+          Ps[r * kPad + c] = s[i][j];  // dv takes the fp32 p
+        }
+      }
+      __syncthreads();
+      pt_times<D>(Ps, DOs, dv);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i, qi = q0 + r;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j, kj = k0 + c;
+          const float ds = s[i][j] * (dp[i][j] - delta_s[r]);
+          if (want_dbias && qi < p.Tq && kj < p.Tk)
+            // dbias is dS before the scale (the bias adds after it)
+            p.dbias[(((int64_t)b * p.H + h) * p.Tq + qi) * p.Tk + kj] = ds;
+          Ps[r * kPad + c] = round_as(ds * p.scale, static_cast<const T*>(p.q));
+        }
+      }
+      __syncthreads();
+      pt_times<D>(Ps, Qs, dk);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kj = k0 + ty + 16 * i;
+    if (kj >= p.Tk) continue;
+    const int64_t base = (((int64_t)b * p.Tk + kj) * p.Hkv + hk) * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      p.dk[base + tx + 16 * j] = dk[i][j];
+      p.dv[base + tx + 16 * j] = dv[i][j];
+    }
+  }
+}
+
+// ------------------------------------------------------------------ host
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, size_t smem, dim3 grid,
+                   const FlashParams& p, cudaStream_t stream) {
+  // Above 48 KB a block may only use dynamic shared memory after this
+  // opt-in (per device, so it is repeated on every launch).
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+enum Which { kFwd, kDq, kDkv };
+
+template <typename T, int D>
+cudaError_t launch_d(Which which, const FlashParams& p, cudaStream_t s) {
+  const dim3 q_grid((p.Tq + kTile - 1) / kTile, p.H, p.B);
+  const dim3 k_grid((p.Tk + kTile - 1) / kTile, p.Hkv, p.B);
+  switch (which) {
+    case kFwd:
+      return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), q_grid, p, s);
+    case kDq:
+      return launch(flash_dq_kernel<T, D>, dq_smem<D>(), q_grid, p, s);
+    default:
+      return launch(flash_dkv_kernel<T, D>, dkv_smem<D>(), k_grid, p, s);
+  }
+}
+
+template <typename T>
+cudaError_t launch_t(Which which, const FlashParams& p, cudaStream_t s) {
+  switch (p.D) {
+    case 32:
+      return launch_d<T, 32>(which, p, s);
+    case 64:
+      return launch_d<T, 64>(which, p, s);
+    case 128:
+      return launch_d<T, 128>(which, p, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int dispatch(Which which, const FlashParams* p, void* stream) {
+  if (p->H % p->Hkv != 0) return (int)cudaErrorInvalidValue;
+  // An empty grid is not a launch: nothing to compute, nothing written.
+  if (p->B == 0 || p->H == 0 || (which == kDkv ? p->Tk : p->Tq) == 0)
+    return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (p->dtype == 0)
+    err = launch_t<float>(which, *p, s);
+  else if (p->dtype == 1)
+    err = launch_t<__nv_bfloat16>(which, *p, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window; null
+// seg_q/bias/dbias pointers mean no segments, no bias, no bias gradient.
+// Outputs are contiguous: out [B, Tq, H, D] (q's dtype), lse [B, H, Tq],
+// dq [B, Tq, H, D], dk/dv [B, Tk, Hkv, D], dbias [B, H, Tq, Tk], all fp32.
+extern "C" int flash_fwd_launch(const FlashParams* p, void* stream) {
+  return dispatch(kFwd, p, stream);
+}
+extern "C" int flash_dq_launch(const FlashParams* p, void* stream) {
+  return dispatch(kDq, p, stream);
+}
+extern "C" int flash_dkv_launch(const FlashParams* p, void* stream) {
+  return dispatch(kDkv, p, stream);
+}

@@ -1,0 +1,1 @@
+"""Examples of the port: twins of the JAX package's ``examples/``."""

@@ -1,0 +1,200 @@
+"""Transformer LM training, the port's twin of
+``examples/transformer/train_transformer_lm.py``: the same flags, data and
+``VOCAB``, the packed and the plain data-parallel modes.
+
+    python -m chainermn_tpu_torch.examples.transformer.train_transformer_lm \\
+        --packed --iterations 40
+    python -m chainermn_tpu_torch.examples.transformer.train_transformer_lm \\
+        --device cpu --communicator naive --iterations 8 --num-layers 2 \\
+        --d-model 64 --seq-len 128 --batchsize 2 --window 24
+
+``--device`` defaults to the CUDA card (and raises without one); the
+communicator defaults to ``pure_nccl`` there and to ``naive`` (gloo) on
+the CPU. Compute is bf16 on the card and fp32 on the CPU. The packed mode
+and ``--window`` attend through the flash kernels; the plain mode takes
+the blockwise reference.
+
+Left for later, each refused with an error naming its ROADMAP item:
+``--sequence-parallel`` (queue 6.5), ``--local-sgd`` and
+``--error-feedback`` (queue 3.3), ``--mlm``, ``--generate`` and ``--beam``
+(queue 1, items 1-2).
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import time
+
+import numpy as np
+import torch
+
+from chainermn_tpu_torch._device import resolve_device
+from chainermn_tpu_torch.communicators import create_communicator
+from chainermn_tpu_torch.models import TransformerLM, lm_loss
+from chainermn_tpu_torch.ops.flash_attention import flash_attention
+from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
+from chainermn_tpu_torch.training import create_train_state, make_train_step
+
+VOCAB = 1024
+
+_LATER = {
+    "sequence_parallel": "ROADMAP queue 6.5 (ring/Ulysses/local attention)",
+    "local_sgd": "ROADMAP queue 3.3 (LocalSGDOptimizer)",
+    "error_feedback": "ROADMAP queue 3.3 (error feedback on the int8 wire)",
+    "mlm": "ROADMAP queue 1, item 2 (the bidirectional MLM encoder)",
+    "generate": "ROADMAP queue 1, item 1 (the dense decode ring, generate)",
+    "beam": "ROADMAP queue 1, item 1 (beam_search)",
+}
+
+
+def synthetic_tokens(rng, batch, seqlen):
+    """Markov-ish synthetic text: next token correlates with current."""
+    x = np.zeros((batch, seqlen), np.int32)
+    x[:, 0] = rng.integers(0, VOCAB, size=batch)
+    drift = rng.integers(1, 17, size=batch)
+    for t in range(1, seqlen):
+        stay = rng.random(batch) < 0.8
+        x[:, t] = np.where(stay, (x[:, t - 1] + drift) % VOCAB,
+                           rng.integers(0, VOCAB, size=batch))
+    return x
+
+
+def pack_documents(rng, batch, seqlen):
+    """Pack 2-5 variable-length synthetic documents per row: returns
+    ``(tokens, segment_ids)``."""
+    if seqlen < 32:
+        raise SystemExit(
+            f"--packed needs --seq-len >= 32 (got {seqlen}): rows hold up "
+            "to 5 documents with 8-token margins")
+    tokens = np.zeros((batch, seqlen), np.int32)
+    seg = np.zeros((batch, seqlen), np.int32)
+    for b in range(batch):
+        n_docs = rng.integers(2, 6)
+        cuts = np.sort(rng.choice(np.arange(8, seqlen - 8), n_docs - 1,
+                                  replace=False))
+        bounds = [0, *cuts.tolist(), seqlen]
+        for d in range(n_docs):
+            lo, hi = bounds[d], bounds[d + 1]
+            tokens[b:b + 1, lo:hi] = synthetic_tokens(rng, 1, hi - lo)
+            seg[b, lo:hi] = d
+    return tokens, seg
+
+
+def _make_optimizer(args, model, comm):
+    """AdamW with optax.adamw's defaults (betas 0.9/0.999, eps 1e-8,
+    weight decay 1e-4; torch's own default decay is 1e-2), wrapped for
+    the multi-node reduction."""
+    inner = torch.optim.AdamW(model.parameters(), lr=args.lr,
+                              betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=1e-4)
+    return create_multi_node_optimizer(
+        inner, comm, double_buffering=args.double_buffering)
+
+
+def _parser():
+    p = argparse.ArgumentParser(
+        description="chainermn_tpu_torch example: Transformer LM")
+    p.add_argument("--communicator", default=None,
+                   help="default: pure_nccl on cuda, naive on cpu")
+    p.add_argument("--device", default=None,
+                   help="default: the current CUDA card")
+    p.add_argument("--batchsize", type=int, default=8,
+                   help="per-rank batch size")
+    p.add_argument("--seq-len", type=int, default=256)
+    p.add_argument("--iterations", type=int, default=40)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--double-buffering", action="store_true")
+    p.add_argument("--allreduce-grad-dtype", default="bfloat16")
+    p.add_argument("--mlm", action="store_true")
+    p.add_argument("--local-sgd", type=int, default=0, metavar="H")
+    p.add_argument("--error-feedback", action="store_true")
+    p.add_argument("--sequence-parallel", action="store_true")
+    p.add_argument("--packed", action="store_true",
+                   help="pack variable-length documents into each row with "
+                        "segment-id flash-attention masks (cross-document "
+                        "attention and loss are masked)")
+    p.add_argument("--num-kv-heads", type=int, default=None)
+    p.add_argument("--pos-encoding", default="learned",
+                   choices=("learned", "rope"))
+    p.add_argument("--num-layers", type=int, default=6)
+    p.add_argument("--d-model", type=int, default=512)
+    p.add_argument("--generate", type=int, default=0, metavar="N")
+    p.add_argument("--window", type=int, default=0, metavar="W",
+                   help="causal sliding-window attention of width W via the "
+                        "flash kernels (0 = full causal)")
+    p.add_argument("--beam", type=int, default=0, metavar="K")
+    return p
+
+
+def main(argv=None):
+    """Train; returns the last step's metrics (0-dim tensors)."""
+    p = _parser()
+    args = p.parse_args(argv)
+    for flag, item in _LATER.items():
+        if getattr(args, flag):
+            p.error(f"--{flag.replace('_', '-')} is not ported yet ({item})")
+    device = resolve_device(args.device)
+    comm = create_communicator(
+        args.communicator or ("pure_nccl" if device.type == "cuda"
+                              else "naive"),
+        allreduce_grad_dtype=args.allreduce_grad_dtype or None,
+        device=device)
+    if comm.rank == 0:
+        print(f"communicator: {comm}")
+    compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    rng = np.random.default_rng(0)
+    attention_fn = None
+    if args.packed or args.window:
+        attention_fn = functools.partial(flash_attention,
+                                         window=args.window or None)
+    model = TransformerLM(
+        vocab_size=VOCAB, num_layers=args.num_layers, d_model=args.d_model,
+        d_ff=4 * args.d_model, max_len=args.seq_len,
+        compute_dtype=compute_dtype, attention_fn=attention_fn,
+        num_kv_heads=args.num_kv_heads, pos_encoding=args.pos_encoding,
+        window=args.window or None, seed=0, device=device)
+    optimizer = _make_optimizer(args, model, comm)
+    state = create_train_state(model, optimizer, comm)
+
+    if args.packed:
+        def loss_fn(model, batch):
+            tokens, seg = batch
+            logits = model(tokens, segment_ids=seg)
+            # mask targets that would cross a document boundary
+            valid = torch.cat([torch.ones_like(seg[:, :1]),
+                               (seg[:, 1:] == seg[:, :-1]).to(seg.dtype)],
+                              dim=1)
+            return lm_loss(logits, tokens, mask=valid)
+
+        def make_batch():
+            return tuple(torch.from_numpy(x).to(device) for x in
+                         pack_documents(rng, args.batchsize, args.seq_len))
+    else:
+        def loss_fn(model, tokens):
+            return lm_loss(model(tokens), tokens)
+
+        def make_batch():
+            return torch.from_numpy(synthetic_tokens(
+                rng, args.batchsize, args.seq_len)).to(device)
+
+    step = make_train_step(loss_fn, optimizer, comm)
+    mode = "packed" if args.packed else "data-parallel"
+    metrics = None
+    t0 = time.perf_counter()
+    for it in range(args.iterations):
+        state, metrics = step(state, make_batch())
+        if comm.rank == 0 and ((it + 1) % 10 == 0
+                               or it + 1 == args.iterations):
+            loss = float(metrics["loss"])  # waits for the step
+            tps = (args.batchsize * comm.size * args.seq_len * (it + 1)
+                   / (time.perf_counter() - t0))
+            print(f"iter {it + 1}/{args.iterations} loss={loss:.4f} "
+                  f"({tps:,.0f} tok/s, {mode})")
+    if comm.rank == 0:
+        print(f"done ({mode})")
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

@@ -6,6 +6,8 @@ from chainermn_tpu_torch.models.transformer import (
     TransformerBlock,
     TransformerLM,
     apply_rope,
+    lm_loss,
 )
 
-__all__ = ["LayerNorm", "TransformerBlock", "TransformerLM", "apply_rope"]
+__all__ = ["LayerNorm", "TransformerBlock", "TransformerLM", "apply_rope",
+           "lm_loss"]

@@ -3,8 +3,12 @@
 d_ff 2048 by default; pre-LN; bf16 compute over fp32 parameters.
 
 What is ported: the dense-FFN block with GQA (``num_kv_heads``), learned
-or rotary positions, the causal forward with plain PyTorch attention,
-and the serving engine's paged slot-decode path with both attend impls —
+or rotary positions, the training forward through a pluggable
+``attention_fn`` (default :func:`~chainermn_tpu_torch.ops.attention.
+blockwise_attention`; pass :func:`~chainermn_tpu_torch.ops.
+flash_attention.flash_attention` for packed ``segment_ids`` or a
+``window``), ``return_hidden``, :func:`lm_loss`, and the serving
+engine's paged slot-decode path with both attend impls —
 ``'fused'`` (the paged flash-decoding CUDA kernel,
 :mod:`chainermn_tpu_torch.ops.paged_decode`) and ``'xla'`` (gather the
 dense view, then masked softmax in torch ops). The numerics follow the
@@ -13,21 +17,23 @@ GELU, parameters cast to the compute dtype for each product, and the
 tied head computed in the compute dtype.
 
 Left for later: the dense ``_decode_attend`` ring and ``generate`` /
-``beam_search``, MoE, tensor parallelism, LoRA adapters, ``sow_kv``,
-dropout and remat.
+``beam_search``, MoE, tensor parallelism, LoRA adapters, ``sow_kv``;
+for training: dropout, remat, ``lm_loss_fused`` and the bidirectional
+MLM encoder (``causal=False``, ``mlm_loss``, ``mlm_corrupt``) — each
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from chainermn_tpu_torch._device import resolve_device
-from chainermn_tpu_torch.ops.attention import NEG_INF
+from chainermn_tpu_torch.ops.attention import blockwise_attention
 from chainermn_tpu_torch.ops.paged_decode import paged_flash_decode
 from chainermn_tpu_torch.ops.paged_kv import paged_lookup, paged_update
 
@@ -83,30 +89,12 @@ def _dense(layer: nn.Linear, x, dtype):
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
-def _causal_attention(qh, kh, vh, scale: float, window: Optional[int]):
-    """Plain causal softmax attention over ``[B, T, H, Dh]`` queries and
-    ``[B, T, Hkv, Dh]`` keys/values, fp32 scores, the q-head group sharing
-    each kv head."""
-    B, T, H, Dh = qh.shape
-    Hkv = kh.shape[2]
-    q = qh.float().reshape(B, T, Hkv, H // Hkv, Dh)
-    s = torch.einsum("btngd,blnd->btngl", q, kh.float()) * scale
-    pos = torch.arange(T, device=qh.device)
-    mask = pos[None, :] <= pos[:, None]  # [Tq, Tk]
-    if window is not None:
-        mask &= pos[None, :] > pos[:, None] - window
-    s = torch.where(mask[None, :, None, None, :], s,
-                    torch.full_like(s, NEG_INF))
-    o = torch.einsum("btngl,blnd->btngd", torch.softmax(s, dim=-1),
-                     vh.float())
-    return o.reshape(B, T, H, Dh).to(qh.dtype)
-
-
 class TransformerBlock(nn.Module):
     """Pre-LN block: ``x + proj(attn(LN(x)))`` then ``x + FFN(LN(x))``."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int, *,
                  compute_dtype=torch.bfloat16,
+                 attention_fn: Optional[Callable] = None,
                  num_kv_heads: Optional[int] = None,
                  window: Optional[int] = None,
                  decode_attend_impl: str = "xla", device=None) -> None:
@@ -118,6 +106,11 @@ class TransformerBlock(nn.Module):
         self.num_heads = num_heads
         self.d_ff = d_ff
         self.compute_dtype = compute_dtype
+        #: the training forward's attention, called as ``attention_fn(q,
+        #: k, v, causal=True, scale=..., [segment_ids=...])`` on BTHD
+        #: heads; None means the blockwise reference, which takes neither
+        #: a window nor segment ids
+        self.attention_fn = attention_fn
         self.num_kv_heads = num_kv_heads
         self.window = window
         self.decode_attend_impl = decode_attend_impl
@@ -182,8 +175,9 @@ class TransformerBlock(nn.Module):
         o = torch.einsum("btngl,blnd->btngd", w, vals.float())
         return o.reshape(B, T, self.num_heads, self.head_dim).to(dt)
 
-    def forward(self, x, rope_positions=None, decode: bool = False,
-                decode_positions=None, block_tables=None, cache=None):
+    def forward(self, x, segment_ids=None, rope_positions=None,
+                decode: bool = False, decode_positions=None,
+                block_tables=None, cache=None):
         dt = self.compute_dtype
         kv_heads = self.num_kv_heads or self.num_heads
         hd = self.head_dim
@@ -201,7 +195,14 @@ class TransformerBlock(nn.Module):
             o = self._slot_decode_attend(qh, kh, vh, decode_positions,
                                          block_tables, cache)
         else:
-            o = _causal_attention(qh, kh, vh, hd ** -0.5, self.window)
+            if self.window is not None and self.attention_fn is None:
+                raise ValueError(
+                    "window needs a window-honouring attention_fn (e.g. "
+                    "flash_attention(..., window=W)); the default blockwise "
+                    "reference has no window support")
+            attn = self.attention_fn or blockwise_attention
+            kw = {} if segment_ids is None else {"segment_ids": segment_ids}
+            o = attn(qh, kh, vh, causal=True, scale=hd ** -0.5, **kw)
         x = x + _dense(self.proj, o.reshape(B, T, self.num_heads * hd), dt)
         h = F.gelu(_dense(self.ff_up, self.ln2(x), dt), approximate="tanh")
         return x + _dense(self.ff_down, h, dt)
@@ -210,6 +211,10 @@ class TransformerBlock(nn.Module):
 class TransformerLM(nn.Module):
     """Causal LM over integer tokens ``[B, T]`` -> logits
     ``[B, T, vocab]`` in the compute dtype.
+
+    ``attention_fn`` is the training forward's attention (see
+    :class:`TransformerBlock`); ``return_hidden=True`` skips the tied head
+    and returns the final post-LN hidden states.
 
     Weights are drawn from a ``torch.Generator`` seeded with ``seed``
     (the flax initialisers' scales: embedding ``1/sqrt(d_model)``, dense
@@ -221,12 +226,28 @@ class TransformerLM(nn.Module):
     def __init__(self, vocab_size: int = 32000, num_layers: int = 6,
                  num_heads: int = 8, d_model: int = 512, d_ff: int = 2048,
                  max_len: int = 2048, compute_dtype=torch.bfloat16,
+                 attention_fn: Optional[Callable] = None,
+                 return_hidden: bool = False,
                  num_kv_heads: Optional[int] = None,
                  pos_encoding: str = "learned",
                  window: Optional[int] = None,
                  decode_attend_impl: str = "xla", *, seed: int = 0,
-                 device=None) -> None:
+                 dropout_rate: float = 0.0, remat: bool = False,
+                 causal: bool = True, device=None) -> None:
         super().__init__()
+        if dropout_rate:
+            raise NotImplementedError(
+                "dropout_rate is not ported yet (ROADMAP queue 1, item 2: "
+                "training items left out of the second slice)")
+        if remat:
+            raise NotImplementedError(
+                "remat is not ported yet (ROADMAP queue 1, item 2: training "
+                "items left out of the second slice)")
+        if not causal:
+            raise NotImplementedError(
+                "the bidirectional MLM encoder (causal=False) is not ported "
+                "yet (ROADMAP queue 1, item 2: training items left out of "
+                "the second slice)")
         if pos_encoding not in ("learned", "rope"):
             raise ValueError(f"pos_encoding must be 'learned' or 'rope', "
                              f"got {pos_encoding!r}")
@@ -240,6 +261,8 @@ class TransformerLM(nn.Module):
         self.d_ff = d_ff
         self.max_len = max_len
         self.compute_dtype = compute_dtype
+        self.attention_fn = attention_fn
+        self.return_hidden = return_hidden
         self.num_kv_heads = num_kv_heads
         self.pos_encoding = pos_encoding
         self.window = window
@@ -255,6 +278,7 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList([
             TransformerBlock(d_model, num_heads, d_ff,
                              compute_dtype=compute_dtype,
+                             attention_fn=attention_fn,
                              num_kv_heads=num_kv_heads, window=window,
                              decode_attend_impl=decode_attend_impl,
                              device=device)
@@ -305,9 +329,13 @@ class TransformerLM(nn.Module):
             b.decode_attend_impl = impl
         return new
 
-    def forward(self, tokens, *, positions=None, decode: bool = False,
-                decode_positions=None, block_tables=None, cache=None):
-        """``positions`` (optional ``[T]`` or ``[B, T]``) overrides
+    def forward(self, tokens, *, segment_ids=None, positions=None,
+                decode: bool = False, decode_positions=None,
+                block_tables=None, cache=None):
+        """``segment_ids`` (optional ``[B, T]``) confines attention to
+        packed documents and needs a segment-capable ``attention_fn``
+        (:func:`~chainermn_tpu_torch.ops.flash_attention.flash_attention`).
+        ``positions`` (optional ``[T]`` or ``[B, T]``) overrides
         ``arange(T)``. ``decode=True`` with ``decode_positions`` (``[B]``
         int32 first-new-token positions), ``block_tables`` (``[B, M]``
         int32) and ``cache`` (:func:`~chainermn_tpu_torch.serving.
@@ -322,6 +350,11 @@ class TransformerLM(nn.Module):
                 "dense slot layout, generate and beam_search)")
         if decode_positions is not None and not decode:
             raise ValueError("decode_positions requires decode=True")
+        if segment_ids is not None and self.attention_fn is None:
+            raise ValueError(
+                "segment_ids needs a segment-capable attention_fn: pass "
+                "attention_fn=flash_attention (the default blockwise "
+                "reference does not take segment masks)")
         B, T = tokens.shape
         dt = self.compute_dtype
         dev = tokens.device
@@ -342,8 +375,27 @@ class TransformerLM(nn.Module):
                 pos = pos[None]
             x = x + pos.to(dt)
         for i, blk in enumerate(self.blocks):
-            x = blk(x, rope_positions, decode, decode_positions,
-                    block_tables, None if cache is None else cache[i])
+            x = blk(x, segment_ids, rope_positions, decode,
+                    decode_positions, block_tables,
+                    None if cache is None else cache[i])
         x = self.ln_f(x)
+        if self.return_hidden:
+            return x
         # weight-tied head, in the compute dtype (flax Embed.attend)
         return F.linear(x.to(dt), self.tok_emb.weight.to(dt))
+
+
+def lm_loss(logits, tokens, mask=None):
+    """Next-token cross-entropy: predict ``tokens[:, 1:]`` from positions
+    ``[:, :-1]``; optional ``mask`` (tokens' shape, 1 = real target) gives
+    the masked mean ``sum(loss * m) / max(sum(m), 1)``. The softmax runs
+    in fp32 whatever the logits' dtype."""
+    targets = tokens[:, 1:].long()
+    logits = logits[:, :-1].float()
+    losses = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                             targets.reshape(-1), reduction="none")
+    losses = losses.reshape(targets.shape)
+    if mask is None:
+        return losses.mean()
+    m = mask[:, 1:].to(losses.dtype)
+    return (losses * m).sum() / m.sum().clamp_min(1.0)

@@ -1,0 +1,104 @@
+"""The multi-node optimizer wrapper (counterpart of
+``chainermn_tpu/optimizers.py``'s ``MultiNodeOptimizer`` and
+``create_multi_node_optimizer``).
+
+The wrapper holds a ``torch.optim.Optimizer`` and a communicator.
+``step()`` averages every parameter's ``.grad`` over the ranks through
+``comm.allreduce_grad`` (on the wire dtype), then steps the inner
+optimizer. ``double_buffering=True`` keeps the JAX package's staleness-1
+semantics exactly: each step applies the gradients reduced at the
+previous step (zeros at the first step, still run through the inner
+optimizer) and banks this step's reduced gradients for the next.
+
+Left for later (ROADMAP queue 3.3, optimizer and reduction):
+``error_feedback`` and ``reduction_schedule`` (the four schedules,
+``'zero'`` among them, and ``'auto'``), which raise
+``NotImplementedError``, and ``LocalSGDOptimizer`` / ``create_local_sgd``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from chainermn_tpu_torch.communicators.base import (
+    CommunicatorBase,
+    _wire_dtype,
+)
+
+
+def _later(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue 3.3, optimizer and "
+        "reduction)")
+
+
+class MultiNodeOptimizer:
+    """A ``torch.optim.Optimizer`` whose ``step()`` first reduces the
+    gradients over the communicator. Unknown attributes (``param_groups``,
+    ``state``, ``zero_grad``, ...) are the inner optimizer's."""
+
+    #: protocol marker for make_train_step: this wrapper reduces the
+    #: gradients itself, so the step must not reduce them again
+    handles_cross_rank_sync = True
+
+    def __init__(self, actual_optimizer: torch.optim.Optimizer,
+                 communicator: CommunicatorBase, *,
+                 double_buffering: bool = False, compress_dtype=None,
+                 error_feedback: bool = False,
+                 reduction_schedule=None) -> None:
+        if error_feedback:
+            raise _later("error_feedback (EF-SGD over the int8 wire)")
+        if reduction_schedule is not None:
+            raise _later(f"reduction_schedule={reduction_schedule!r}")
+        self.actual_optimizer = actual_optimizer
+        self.communicator = communicator
+        self.double_buffering = double_buffering
+        # None falls back to the communicator's wire, as in the JAX
+        # wrapper
+        self.compress_dtype = (communicator.allreduce_grad_dtype
+                               if compress_dtype is None
+                               else _wire_dtype(compress_dtype))
+        #: the gradients reduced at the previous step (double buffering)
+        self._bank = None
+
+    def _params(self) -> list:
+        return [p for g in self.actual_optimizer.param_groups
+                for p in g["params"]]
+
+    @torch.no_grad()
+    def step(self) -> None:
+        params = self._params()
+        self.communicator.allreduce_grad(params, dtype=self.compress_dtype)
+        if self.double_buffering:
+            # staleness 1: apply last step's reduced gradients (zeros at
+            # the first step), bank this step's
+            if self._bank is None:
+                self._bank = [torch.zeros_like(p) for p in params]
+            for i, p in enumerate(params):
+                p.grad, self._bank[i] = self._bank[i], p.grad
+        self.actual_optimizer.step()
+
+    def __getattr__(self, item):
+        # Guard against re-entry while __dict__ is still empty (copy,
+        # unpickling).
+        if item.startswith("__") or "actual_optimizer" not in self.__dict__:
+            raise AttributeError(item)
+        return getattr(self.actual_optimizer, item)
+
+
+def create_multi_node_optimizer(actual_optimizer: torch.optim.Optimizer,
+                                communicator: CommunicatorBase, *,
+                                double_buffering: bool = False,
+                                allreduce_grad_dtype=None,
+                                error_feedback: bool = False,
+                                reduction_schedule=None
+                                ) -> MultiNodeOptimizer:
+    """Factory mirroring the reference signature
+    (``create_multi_node_optimizer(opt, comm, double_buffering)``)."""
+    return MultiNodeOptimizer(
+        actual_optimizer, communicator, double_buffering=double_buffering,
+        compress_dtype=allreduce_grad_dtype, error_feedback=error_feedback,
+        reduction_schedule=reduction_schedule)
+
+
+__all__ = ["MultiNodeOptimizer", "create_multi_node_optimizer"]

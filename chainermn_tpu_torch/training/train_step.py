@@ -1,0 +1,139 @@
+"""The data-parallel train step (counterpart of
+``chainermn_tpu/training/train_step.py``).
+
+Where the JAX package compiles forward, backward, gradient mean and
+optimizer update into one program over the mesh, the port runs them
+eagerly in one process per rank: ``loss_fn(model, batch)`` forward,
+``backward()``, the gradient mean over the communicator (inside a
+:class:`~chainermn_tpu_torch.optimizers.MultiNodeOptimizer`, or in the
+step for a plain optimizer), ``optimizer.step()``, and the rank-mean of
+the metrics.
+
+Left for later: ``plan=``, ``param_specs`` and ``pipeline`` (ROADMAP queue
+6, parallelism library), the error-feedback state, ``make_eval_step`` and
+the ``Trainer`` (ROADMAP queue 3.5).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+from torch import nn
+
+from chainermn_tpu_torch.communicators.base import CommunicatorBase
+
+
+class TrainState(NamedTuple):
+    """What the step carries: the module (parameters and buffers, which
+    hold what the JAX ``params``/``model_state`` hold), the optimizer
+    (its state is the JAX ``opt_state``) and the step count."""
+
+    model: nn.Module
+    optimizer: Any
+    step: int = 0
+
+
+def create_train_state(model: nn.Module, optimizer,
+                       comm: CommunicatorBase) -> TrainState:
+    """Broadcast the model's parameters and buffers from rank 0 (the
+    reference's first-update ``bcast_data``) and wrap model and optimizer
+    into a :class:`TrainState`. The optimizer must hold exactly the
+    model's parameters."""
+    owned = {id(p) for p in model.parameters()}
+    held = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    if owned != held:
+        raise ValueError("the optimizer must be built over exactly the "
+                         "model's parameters")
+    comm.bcast_data(model)
+    return TrainState(model=model, optimizer=optimizer, step=0)
+
+
+def normalize_loss_fn(loss_fn: Callable) -> Callable:
+    """Wrap ``loss_fn(model, batch)`` into ``(loss, metrics)``, accepting
+    every documented return shape: ``loss``, ``(loss, metrics)`` or
+    ``(loss, (metrics, new_model_state))`` — the module's buffers ARE its
+    model state and its forward updates them in place, so the third
+    form's state is dropped."""
+    def _loss_with_aux(model, batch):
+        out = loss_fn(model, batch)
+        if not isinstance(out, tuple):
+            return out, {}
+        loss, aux = out
+        if isinstance(aux, tuple) and len(aux) == 2:
+            aux = aux[0]
+        return loss, aux
+
+    return _loss_with_aux
+
+
+def _later(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue 6, parallelism library)")
+
+
+def _split(batch, n: int):
+    """``n`` microbatches of every tensor leaf of ``batch`` (dim 0)."""
+    if isinstance(batch, torch.Tensor):
+        if batch.shape[0] % n:
+            raise ValueError(f"local batch dim {batch.shape[0]} not "
+                             f"divisible by accum_steps={n}")
+        return list(batch.chunk(n))
+    if isinstance(batch, (tuple, list)):
+        parts = [_split(x, n) for x in batch]
+        return [type(batch)(p[i] for p in parts) for i in range(n)]
+    if isinstance(batch, dict):
+        parts = {k: _split(x, n) for k, x in batch.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    raise TypeError(f"cannot split a batch leaf of type {type(batch)}")
+
+
+def make_train_step(loss_fn: Callable, optimizer, comm: CommunicatorBase,
+                    *, accum_steps: int = 1, plan=None, param_specs=None,
+                    pipeline=None):
+    """Build the data-parallel train step.
+
+    ``loss_fn(model, batch)`` returns the LOCAL-batch mean loss (or one of
+    the tuple forms of :func:`normalize_loss_fn`); the step averages over
+    the ranks. ``optimizer`` is a
+    :class:`~chainermn_tpu_torch.optimizers.MultiNodeOptimizer` (it
+    reduces the gradients itself) or any ``torch.optim.Optimizer`` (the
+    step then reduces them through ``comm.allreduce_grad``).
+    ``accum_steps`` splits the batch into microbatches along dim 0, each
+    backward adding ``grad / accum_steps``, and reduces once.
+
+    Returns ``step(state, batch) -> (state, metrics)``; ``metrics`` maps
+    ``'loss'`` and the loss function's metrics to 0-dim fp32 tensors,
+    averaged over the ranks and over the microbatches.
+    """
+    if plan is not None or param_specs is not None or pipeline is not None:
+        raise _later("plan=/param_specs=/pipeline= (the ParallelPlan path)")
+    if comm is None:
+        raise ValueError("pass a communicator (or plan=)")
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    reduce_in_step = not getattr(optimizer, "handles_cross_rank_sync", False)
+    loss_with_aux = normalize_loss_fn(loss_fn)
+
+    def step(state: TrainState, batch):
+        model = state.model
+        optimizer.zero_grad(set_to_none=True)
+        micro = [batch] if accum_steps == 1 else _split(batch, accum_steps)
+        totals: dict = {}
+        for mb in micro:
+            loss, metrics = loss_with_aux(model, mb)
+            (loss / len(micro)).backward()
+            for name, val in {"loss": loss, **metrics}.items():
+                val = torch.as_tensor(val).detach().float()
+                totals[name] = totals.get(name, 0.0) + val / len(micro)
+        if reduce_in_step:
+            comm.allreduce_grad(model)
+        optimizer.step()
+        names = list(totals)
+        means = comm.allreduce_mean(torch.stack([totals[n].reshape(())
+                                                 for n in names]))
+        return (state._replace(step=state.step + 1),
+                dict(zip(names, means.unbind())))
+
+    return step
+

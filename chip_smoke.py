@@ -7,8 +7,9 @@ Phases, each printed before the next starts; any failure raises and the
 script exits non-zero without its final ``ok`` line:
 
 1. Environment: the card's name and power limit (``nvidia-smi``), torch
-   and CUDA versions, and the build of every CUDA kernel of the path from
-   ``chainermn_tpu_torch/csrc`` (timed).
+   and CUDA versions, and the build of every CUDA library from
+   ``chainermn_tpu_torch/csrc`` — ``paged_decode`` and ``flash_attention``,
+   one ``nvcc`` each, started together (timed).
 2. Kernel vs plain version on the card: the paged flash-decoding kernel
    (K4) against ``paged_flash_decode_reference`` at the serving path's
    shapes — decode (16 slots, positions over [0, 2047], two all-scratch
@@ -29,18 +30,41 @@ script exits non-zero without its final ``ok`` line:
 5. Where the time goes: a ``torch.profiler`` window over 16 more
    requests on the bf16 engine — wall vs device-busy time and the device
    time of the busiest kernels.
+6. K1–K3 (flash attention forward, dq, dk/dv) against their plain
+   versions on the card, fp32 and bf16: the training path's shape
+   (B 8, T 2048, 8 heads, head dim 64, causal), packed segments as the
+   example twin's ``pack_documents`` makes them, GQA (2 kv heads), a
+   256-wide window, a bias with its gradient (B 2, T 256), odd T = 1000,
+   and the block entries with ``q_offset = 1536``. In bf16 each kernel,
+   the plain versions and one library call (``scaled_dot_product_attention``
+   forward, and its backward as forward+backward minus forward — a
+   yardstick the port never calls) are timed, with each shape's least
+   possible time (``bound_ms``).
+7. Training at full width: the Transformer-base LM (the module defaults,
+   bf16, seeded weights) with ``attention_fn=flash_attention`` trains 30
+   steps on packed synthetic documents (B 8 x T 2048 = 16,384 tokens per
+   step) through ``create_communicator('pure_nccl')`` ->
+   ``create_multi_node_optimizer(AdamW(3e-4, weight_decay=1e-4))`` ->
+   ``create_train_state`` -> ``make_train_step``. The loss must be finite
+   and fall, and K1, K2 and K3 must each launch ``num_layers x 30``
+   times; then a ``torch.profiler`` window over one more step.
+8. Gradient equivalence: at fp32 (TF32 off), 2 layers at full width,
+   B 2 x T 512 with segments, the loss and every parameter gradient with
+   ``attention_fn=flash_attention`` against ``attention(impl='xla')``.
 
-The line before the last is the ``kernels`` JSON; the last line is
-``{"ok": true, "device": {...}}``.
+The ``kernels`` JSON and the card's name and power limit come on the two
+lines before the last; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -51,11 +75,20 @@ PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 #: kernel vs plain version: fp32 accumulation on both sides, sums in
 #: another order (fp32); bf16 output and P rounded to bf16 at different
 #: points of the online vs one-pass softmax (a few bf16 ulps of O(1)).
+#: K4 holds the max abs error to it; K1-K3 to it times max(1, max |plain|)
+#: per output (O, LSE, dq, dk, dv, dbias), since their gradients grow
+#: with T (their backward gets the same LSE and delta on both sides).
 TOLERANCE = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 #: a greedy divergence between the fp32 engines is accepted only at a
 #: true near-tie of the top-2 logits.
 NEAR_TIE = 1e-4
 TIMING_REPS = 20
+#: flash vs xla attention through 2 fp32 layers: every gradient's max
+#: error over its max |value|, and the loss's relative error.
+GRAD_EQ_TOL = 1e-4
+LOSS_EQ_TOL = 1e-5
+TRAIN_STEPS = 30
+TRAIN_WARMUP = 5
 
 
 def _nvidia_smi() -> str:
@@ -329,16 +362,228 @@ def phase_equivalence(torch, np):
 
 def phase_profile(torch, np, engine):
     """Where the serving time goes: a torch.profiler window over 16 more
-    requests on the bf16 engine — wall vs device-busy time (the sum of
-    the kernels' device time; one stream, so they do not overlap) and the
-    device time of the busiest kernels, K4 among them."""
+    requests on the bf16 engine — wall vs device-busy time and the device
+    time of the busiest kernels, K4 among them."""
+    reqs = [(p, 16) for p, _ in _requests(np, 16, 3, 32000)]
+    out = {}
+
+    def serve():
+        out["sched"] = _serve(engine, reqs)[1]
+
+    _, _, kernels = _profile_window(torch, serve, "profile",
+                                    ("paged_decode_kernel",))
+    s = out["sched"].summary()
+    forwards = s["prefills"] + s["decode_steps"]
+    launched = sum(k[1] for k in kernels)
+    print(f"profile: {s['prefills']} prefills + {s['decode_steps']} decode "
+          f"steps, {launched} device ops ({launched / forwards:.1f} per "
+          "forward)", flush=True)
+
+
+# ---------------------------------------------------------------- phase 6
+
+def _flash_cases():
+    """(name, shape and options) of each K1-K3 case; (b) is the main
+    path's inputs (packed training rows)."""
+    full = dict(B=8, T=2048, H=8, Hkv=8)
+    return [
+        ("causal", full),
+        ("packed", dict(full, seg=True)),
+        ("gqa", dict(full, Hkv=2)),
+        ("window256", dict(full, window=256)),
+        ("bias_grad", dict(B=2, T=256, H=8, Hkv=8, bias=True)),
+        ("odd_T1000", dict(full, T=1000)),
+        ("block_q_offset", dict(full, T=512, Tk=2048, q_offset=1536)),
+    ]
+
+
+def _flash_inputs(torch, np, dtype, seed, *, B, T, H, Hkv, Tk=None,
+                  seg=False, bias=False, window=None, q_offset=0):
+    from chainermn_tpu_torch.examples.transformer.train_transformer_lm \
+        import pack_documents
+
+    D = 64
+    Tk = Tk or T
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, do = randn(B, T, H, D), randn(B, Tk, Hkv, D), \
+        randn(B, Tk, Hkv, D), randn(B, T, H, D)
+    segs = None
+    if seg:
+        _, s = pack_documents(np.random.default_rng(seed), B, T)
+        segs = torch.from_numpy(s).cuda()
+    kw = dict(causal=True, scale=D ** -0.5, seg_q=segs, seg_k=segs,
+              bias=(torch.randn(1, H, T, Tk, generator=gen, device="cuda")
+                    * 0.5 if bias else None),
+              window=window, q_offset=q_offset)
+    return q, k, v, do, kw
+
+
+def _flash_work(fa, q, k, kw):
+    """Bytes and operations K1, K2 and K3 must move and do on THESE
+    inputs: every input read once and every output written once; 4, 6
+    and 8 * D operations per (query row, visible key) pair, counted over
+    the causal/window/segment mask of this run's data."""
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    mask = fa._mask(q, k, kw["seg_q"], kw["seg_k"], kw["causal"],
+                    kw["window"], kw["q_offset"])
+    pairs = H * int(mask.expand(B, 1, Tq, Tk).sum())
+    esz = q.element_size()
+    qo = B * Tq * H * D * esz        # q, O or dO
+    kv = 2 * B * Tk * Hkv * D * esz  # k and v
+    rows = B * H * Tq * 4            # LSE or delta
+    bias = kw["bias"]
+    b_in = 0 if bias is None else bias.numel() * 4
+    b_out = 0 if bias is None else B * H * Tq * Tk * 4  # fp32 dbias
+    return {"fwd": (2 * qo + kv + rows + b_in, 4 * D * pairs),
+            "dq": (2 * qo + kv + 2 * rows + b_in + B * Tq * H * D * 4,
+                   6 * D * pairs),
+            "dkv": (2 * qo + kv + 2 * rows + b_in + b_out
+                    + 2 * B * Tk * Hkv * D * 4, 8 * D * pairs)}, pairs
+
+
+def _sdpa_attention(torch, F, fa, q, k, v, do, kw):
+    """One library call computing the same attention (forward; and
+    forward+backward), over BHTD views: ``is_causal`` where that is the
+    whole mask, else the explicit mask (+ the bias)."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    plain_causal = (kw["seg_q"] is None and kw["bias"] is None
+                    and kw["window"] is None and kw["q_offset"] == 0
+                    and q.shape[1] == k.shape[1])
+    if plain_causal:
+        mkw = {"is_causal": True}
+    else:
+        mask = fa._mask(q, k, kw["seg_q"], kw["seg_k"], kw["causal"],
+                        kw["window"], kw["q_offset"])
+        if kw["bias"] is None:
+            mkw = {"attn_mask": mask}
+        else:
+            mkw = {"attn_mask": kw["bias"].to(q.dtype).masked_fill(
+                ~mask, float("-inf"))}
+    qr, kr, vr = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=gqa,
+                                              **mkw)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qr, kr, vr, enable_gqa=gqa,
+                                             **mkw)
+        torch.autograd.grad(out, (qr, kr, vr), dot)
+
+    return fwd, fwd_bwd
+
+
+def phase_flash_kernels(torch, np, F):
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flush = torch.empty(24 * 2**20, dtype=torch.float32, device="cuda")
+    rows = []
+    for ci, (name, shape) in enumerate(_flash_cases()):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, kw = _flash_inputs(torch, np, dtype, ci, **shape)
+            bias_grad = kw["bias"] is not None
+            if name == "block_q_offset":  # the ring's block entries
+                bkw = dict(causal=True, scale=kw["scale"],
+                           q_offset=kw["q_offset"])
+                out, lse = fa.flash_block_fwd(q, k, v, **bkw)
+            else:
+                out, lse = fa.flash_fwd(q, k, v, **kw)
+            delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+            if name == "block_q_offset":
+                got = fa.flash_block_bwd(q, k, v, do, lse, delta, **bkw)
+            else:
+                got = fa.flash_bwd(q, k, v, do, lse, delta,
+                                   bias_grad=bias_grad, **kw)
+            torch.cuda.synchronize()
+            ro, rl = fa.flash_attention_fwd_reference(q, k, v, **kw)
+            want = fa.flash_attention_bwd_reference(
+                q, k, v, do, lse, delta, bias_grad=bias_grad, **kw)
+            names = ["O", "lse", "dq", "dk", "dv", "dbias"][:2 + len(want)]
+            tol = TOLERANCE[str(dtype)]
+            err, ok = {}, True
+            for n, a, b in zip(names, (out, lse, *got), (ro, rl, *want)):
+                err[n] = (a.float() - b.float()).abs().max().item()
+                ok &= (err[n] <= tol * max(1.0, b.abs().max().item())
+                       and bool(torch.isfinite(a).all()))
+            row = {"case": name, "dtype": str(dtype).split(".")[-1],
+                   "shape": shape, "max_abs_err": err, "tolerance": tol}
+            if dtype == torch.bfloat16:  # the training dtype: time it
+                work, pairs = _flash_work(fa, q, k, kw)
+                lib_fwd, lib_fwd_bwd = _sdpa_attention(torch, F, fa, q, k,
+                                                       v, do, kw)
+                ms = {"fwd": _time_ms(torch, lambda: fa.flash_fwd(
+                          q, k, v, **kw), flush),
+                      "dq": _time_ms(torch, lambda: fa.flash_bwd_dq(
+                          q, k, v, do, lse, delta, **kw), flush),
+                      "dkv": _time_ms(torch, lambda: fa.flash_bwd_dkv(
+                          q, k, v, do, lse, delta, bias_grad=bias_grad,
+                          **kw), flush)}
+                plain_fwd = _time_ms(torch, lambda: fa.
+                                     flash_attention_fwd_reference(
+                                         q, k, v, **kw), flush)
+                plain_bwd = _time_ms(torch, lambda: fa.
+                                     flash_attention_bwd_reference(
+                                         q, k, v, do, lse, delta,
+                                         bias_grad=bias_grad, **kw), flush)
+                lib_f = _time_ms(torch, lib_fwd, flush)
+                lib_fb = _time_ms(torch, lib_fwd_bwd, flush)
+                row.update(
+                    ms=ms, pairs=pairs,
+                    # the plain backward computes dq, dk and dv in one
+                    # pass, and SDPA's backward all of them: K2 and K3
+                    # share those two numbers
+                    plain_ms={"fwd": plain_fwd, "dq": plain_bwd,
+                              "dkv": plain_bwd},
+                    library_ms={"fwd": lib_f, "dq": lib_fb - lib_f,
+                                "dkv": lib_fb - lib_f},
+                    bound={kn: dict(zip(("bound_ms", "bound_by"),
+                                        _bound(nb, ops, dtype)),
+                                    bytes=nb, ops=ops)
+                           for kn, (nb, ops) in work.items()})
+            print("K1-K3", json.dumps(row), flush=True)
+            if not ok:
+                raise AssertionError(
+                    f"K1-K3 {name} {dtype}: max abs errors {err} vs "
+                    f"tolerance {tol} x max(1, max |plain|)")
+            rows.append(row)
+            del q, k, v, do, out, lse, got, ro, rl, want
+    return rows
+
+
+# ---------------------------------------------------------------- phase 7
+
+def _packed_loss(model, batch):
+    """The example twin's packed loss: next-token cross-entropy, targets
+    that cross a document boundary masked."""
+    import torch
+
+    from chainermn_tpu_torch.models import lm_loss
+
+    tokens, seg = batch
+    valid = torch.cat([torch.ones_like(seg[:, :1]),
+                       (seg[:, 1:] == seg[:, :-1]).to(seg.dtype)], dim=1)
+    return lm_loss(model(tokens, segment_ids=seg), tokens, mask=valid)
+
+
+def _profile_window(torch, fn, label, markers):
+    """Wall vs device-busy time of ``fn()`` under torch.profiler (the sum
+    of the kernels' device time; one stream, so they do not overlap) and
+    the busiest kernels; ``markers`` name kernels whose share to print."""
     from torch.profiler import ProfilerActivity, profile
 
-    reqs = [(p, 16) for p, _ in _requests(np, 16, 3, 32000)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, sched = _serve(engine, reqs)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []  # device-side events only: CPU ops would count twice
@@ -349,20 +594,130 @@ def phase_profile(torch, np, engine):
                 dev = ev.self_cuda_time_total
             kernels.append((dev / 1e3, ev.count, ev.key))
     kernels.sort(reverse=True)
-    busy = sum(k[0] for k in kernels)
-    k4 = sum(k[0] for k in kernels if "paged_decode_kernel" in k[2])
-    s = sched.summary()
-    forwards = s["prefills"] + s["decode_steps"]
-    launched = sum(k[1] for k in kernels)
-    print(f"profile: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
-          f"({busy / wall_ms:.4f} of wall), K4 {k4:.3f} ms "
-          f"({k4 / busy:.4f} of busy), {s['prefills']} prefills + "
-          f"{s['decode_steps']} decode steps, {launched} device ops "
-          f"({launched / forwards:.1f} per forward)", flush=True)
-    for ms, count, name in kernels[:12]:
-        print(f"profile: {ms:10.3f} ms {count:6d}x {name[:100]}", flush=True)
+    busy = sum(kc[0] for kc in kernels)
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
+    shares = {m: sum(kc[0] for kc in kernels if m in kc[2]) for m in markers}
+    print(f"{label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+          f"({busy / wall_ms:.4f} of wall), " + ", ".join(
+              f"{m} {t:.3f} ms ({t / busy:.4f} of busy)"
+              for m, t in shares.items()), flush=True)
+    for ms, count, name in kernels[:12]:
+        print(f"{label}: {ms:10.3f} ms {count:6d}x {name[:100]}", flush=True)
+    return wall_ms, busy, kernels
+
+
+def phase_training(torch, np):
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.examples.transformer.train_transformer_lm \
+        import pack_documents
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
+    from chainermn_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+
+    model = TransformerLM(seed=0, attention_fn=fa.flash_attention)
+    comm = create_communicator("pure_nccl")
+    opt = create_multi_node_optimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4), comm)
+    state = create_train_state(model, opt, comm)
+    step = make_train_step(_packed_loss, opt, comm)
+    rng = np.random.default_rng(0)
+    batches = [tuple(torch.from_numpy(x).cuda()
+                     for x in pack_documents(rng, 8, 2048))
+               for _ in range(TRAIN_STEPS + 1)]  # set-up, not timed
+    tokens_per_step = batches[0][0].numel()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    losses, step_ms = [], []
+    for batch in batches[:TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(step_ms[TRAIN_WARMUP:])
+    p50 = statistics.median(steady)
+    p99 = steady[min(len(steady) - 1, -(-99 * len(steady) // 100) - 1)]
+    expected = model.num_layers * TRAIN_STEPS
+    summary = {
+        "steps": TRAIN_STEPS, "tokens_per_step": tokens_per_step,
+        "loss": {str(i): losses[i - 1] for i in (1, 10, 20, 30)},
+        "step_ms_p50": p50, "step_ms_p99": p99,
+        "step_ms_first": step_ms[0], "tokens_per_s": tokens_per_step
+        / (p50 / 1e3), "peak_memory_bytes": peak, "launches": launches,
+        "expected_launches": expected}
+    print("training summary", json.dumps(summary), flush=True)
+    print(f"training: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+          f"{TRAIN_STEPS} steps, step p50 {p50:.3f} ms p99 {p99:.3f} ms "
+          f"(after {TRAIN_WARMUP} warm-up steps), "
+          f"{tokens_per_step / (p50 / 1e3):,.0f} tokens/s, peak memory "
+          f"{peak / 2**30:.3f} GiB, launches {launches} (expected "
+          f"{expected} each)", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses[0]} -> "
+                             f"{losses[-1]}")
+    if any(n != expected for n in launches.values()):
+        raise AssertionError(f"K1/K2/K3 launches {launches} != num_layers "
+                             f"x steps = {expected}")
+
+    def one_step():
+        nonlocal state
+        state, metrics = step(state, batches[TRAIN_STEPS])
+        float(metrics["loss"])
+
+    _profile_window(torch, one_step, "training profile",
+                    ("flash_fwd_kernel", "flash_dq_kernel",
+                     "flash_dkv_kernel"))
+    return launches, summary
+
+
+# ---------------------------------------------------------------- phase 8
+
+def phase_grad_equivalence(torch, np):
+    import functools
+
+    from chainermn_tpu_torch.examples.transformer.train_transformer_lm \
+        import pack_documents
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.ops.attention import attention
+    from chainermn_tpu_torch.ops.flash_attention import flash_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = tuple(torch.from_numpy(x).cuda() for x in
+                  pack_documents(np.random.default_rng(1), 2, 512))
+    out = {}
+    for name, fn in (("flash", flash_attention),
+                     ("xla", functools.partial(attention, impl="xla"))):
+        model = TransformerLM(num_layers=2, compute_dtype=torch.float32,
+                              seed=1, attention_fn=fn)
+        loss = _packed_loss(model, batch)
+        loss.backward()
+        out[name] = (loss.item(), {n: p.grad for n, p in
+                                   model.named_parameters()})
+    (lf, gf), (lx, gx) = out["flash"], out["xla"]
+    loss_err = abs(lf - lx) / abs(lx)
+    errs = {n: ((gf[n] - gx[n]).abs().max() / gx[n].abs().max()).item()
+            for n in gx}
+    worst = max(errs, key=errs.get)
+    print(f"grad equivalence: fp32 flash vs xla attention, 2 layers, B2 "
+          f"T512 packed: loss {lf:.6f} vs {lx:.6f} (rel err {loss_err:.3e}),"
+          f" max grad err / max |grad| {errs[worst]:.3e} ({worst}) over "
+          f"{len(errs)} tensors (tolerance {GRAD_EQ_TOL})", flush=True)
+    if loss_err > LOSS_EQ_TOL or errs[worst] > GRAD_EQ_TOL:
+        raise AssertionError(f"flash and xla attention disagree: loss rel "
+                             f"err {loss_err}, {worst} grad err "
+                             f"{errs[worst]}")
 
 
 # ---------------------------------------------------------------- main
@@ -383,6 +738,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from chainermn_tpu_torch.ops import flash_attention as fa
     from chainermn_tpu_torch.ops import paged_decode as pd
     from chainermn_tpu_torch.ops._build import BUILD_LOG
 
@@ -390,15 +746,28 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
           flush=True)
-    pd.load_kernel()
-    log = BUILD_LOG["paged_decode"]
-    print(f"build: paged_decode {'built' if log['built'] else 'reused'} in "
-          f"{log['seconds']:.3f} s -> {log['path']}", flush=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        for f in [pool.submit(fn) for fn in (pd.load_kernel, fa.load_kernel)]:
+            f.result()
+    for name in ("paged_decode", "flash_attention"):
+        log = BUILD_LOG[name]
+        print(f"build: {name} {'built' if log['built'] else 'reused'} in "
+              f"{log['seconds']:.3f} s -> {log['path']}", flush=True)
+    print(f"build: both libraries ready in {time.perf_counter() - t0:.3f} s",
+          flush=True)
 
     rows = phase_kernels(torch, np, F)
     launches, summary, engine = phase_serving(torch, np)
     phase_equivalence(torch, np)
     phase_profile(torch, np, engine)
+    del engine
+    flash_rows = phase_flash_kernels(torch, np, F)
+    flash_launches, _ = phase_training(torch, np)
+    phase_grad_equivalence(torch, np)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # the training phase's one-rank group
 
     main_row = next(r for r in rows
                     if r["case"] == "decode" and r["dtype"] == "bfloat16")
@@ -418,6 +787,35 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "cases": rows,
     }]}
+    # K1-K3 at the main path's inputs: the packed training rows, bf16
+    packed = next(r for r in flash_rows
+                  if r["case"] == "packed" and r["dtype"] == "bfloat16")
+    for key, name, line, errs in (
+            ("fwd", "flash_attention_fwd", 313, ("O", "lse")),
+            ("dq", "flash_attention_bwd_dq", 404, ("dq",)),
+            ("dkv", "flash_attention_bwd_dkv", 467, ("dk", "dv"))):
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "chainermn_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"chainermn_tpu/ops/flash_attention.py:{line}",
+            "launches": flash_launches[key],
+            "max_abs_err": max(packed["max_abs_err"][e] for e in errs),
+            "tolerance": packed["tolerance"],
+            "ms": packed["ms"][key],
+            "kernel_ms": packed["ms"][key],
+            "plain_ms": packed["plain_ms"][key],
+            "bound_ms": packed["bound"][key]["bound_ms"],
+            "bound_by": packed["bound"][key]["bound_by"],
+            "library_ms": packed["library_ms"][key],
+            "cases": [{"case": r["case"], "dtype": r["dtype"],
+                       "max_abs_err": r["max_abs_err"],
+                       **({"ms": r["ms"][key],
+                           "plain_ms": r["plain_ms"][key],
+                           "library_ms": r["library_ms"][key],
+                           **r["bound"][key]} if "ms" in r else {})}
+                      for r in flash_rows],
+        })
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

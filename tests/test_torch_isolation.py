@@ -11,7 +11,10 @@ import pytest
 import torch
 
 import chainermn_tpu_torch
+from chainermn_tpu_torch.communicators import create_communicator
+from chainermn_tpu_torch.examples.transformer import train_transformer_lm
 from chainermn_tpu_torch.models import TransformerLM
+from chainermn_tpu_torch.ops import flash_attention as fa
 from chainermn_tpu_torch.serving import ServingEngine
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -36,6 +39,7 @@ print("ok", len(sys.argv) - 2)
 
 def test_every_port_module_imports_with_jax_blocked():
     assert "chainermn_tpu_torch.ops.paged_decode" in PORT_MODULES
+    assert "chainermn_tpu_torch.ops.flash_attention" in PORT_MODULES
     out = subprocess.run(
         [sys.executable, "-c", _BLOCK_AND_IMPORT, str(SMOKE), *PORT_MODULES],
         capture_output=True, text=True, cwd=ROOT, timeout=120)
@@ -71,6 +75,15 @@ def test_entry_points_raise_without_a_card_or_a_device(monkeypatch):
                           d_model=8, d_ff=16, max_len=16, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(model, num_slots=1, max_len=16, kv_block_size=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_communicator("pure_nccl")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_transformer_lm.main(["--iterations", "1"])
+    # CPU input needs no card: the plain versions of K1-K3, no launch
+    before = dict(fa.LAUNCHES)
+    q = torch.zeros(1, 4, 2, 8, requires_grad=True)
+    fa.flash_attention(q, q, q, causal=True).sum().backward()
+    assert fa.LAUNCHES == before and q.grad is not None
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -13,7 +13,8 @@ at fp32 compute on the same numpy tokens:
 Tolerance ``atol = rtol = 1e-4``: fp32 throughout, with reductions in
 different orders (XLA vs PyTorch CPU kernels) over a few layers.
 Variants: learned / rotary positions, MHA / GQA (4 heads over 2 kv
-heads), and a sliding window.
+heads), and a sliding window (the training forward takes it through an
+``attention_fn`` on both sides, the xla attention with the band bias).
 """
 
 import functools
@@ -30,6 +31,7 @@ from chainermn_tpu.ops.paged_decode import fused_supported
 from chainermn_tpu.serving.kv_blocks import init_serving_cache as jax_cache
 from chainermn_tpu_torch.convert import lm_state_from_flax
 from chainermn_tpu_torch.models import TransformerLM
+from chainermn_tpu_torch.ops.attention import attention as port_attention
 from chainermn_tpu_torch.serving.kv_blocks import init_serving_cache
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -53,8 +55,10 @@ def _pair(variant, seed=0):
     jm = JaxLM(**CFG, compute_dtype=jnp.float32, attention_fn=attn, **kw)
     params = jm.init(jax.random.PRNGKey(seed), jnp.zeros((1, 4), jnp.int32),
                      train=False)
+    tattn = (functools.partial(port_attention, window=window, impl="xla")
+             if window else None)
     tm = TransformerLM(**CFG, compute_dtype=torch.float32, device="cpu",
-                       **kw)
+                       attention_fn=tattn, **kw)
     tm.load_state_dict(lm_state_from_flax(jax.tree.map(np.asarray, params)))
     return jm, params, tm
 
@@ -146,6 +150,16 @@ def test_clone_shares_weights_and_leaves_the_original_untouched():
     assert c.blocks[0].qkv.weight is tm.blocks[0].qkv.weight
     with pytest.raises(ValueError):
         tm.clone(window=3)
+
+
+def test_window_without_an_attention_fn_raises_as_in_jax():
+    tm = TransformerLM(**CFG, compute_dtype=torch.float32, device="cpu",
+                       window=6)
+    with pytest.raises(ValueError, match="window-honouring attention_fn"):
+        tm(torch.zeros(1, 4, dtype=torch.long))
+    with pytest.raises(ValueError, match="segment-capable attention_fn"):
+        tm(torch.zeros(1, 4, dtype=torch.long),
+           segment_ids=torch.zeros(1, 4, dtype=torch.long))
 
 
 def test_dense_decode_ring_is_not_ported_and_says_so():
