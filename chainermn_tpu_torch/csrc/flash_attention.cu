@@ -1,4 +1,7 @@
-// Flash attention, forward and backward, for Hopper (sm_90a).
+// Flash attention, forward and backward, for Hopper (sm_90a): the forward
+// at both dtypes and the fp32 backward on CUDA cores. The bf16 backward
+// runs on tensor cores in flash_attention_bwd_sm90.cu; dispatch() below
+// picks by the input dtype.
 //
 // Three kernels replace the Pallas TPU kernels of
 // chainermn_tpu/ops/flash_attention.py:
@@ -6,7 +9,7 @@
 // - K1 flash_fwd_kernel  <- _flash_fwd_bhtd (body _fwd_body): online
 //   softmax over key tiles, O and the per-row logsumexp (LSE);
 // - K2 flash_dq_kernel   <- _flash_bwd_bhtd's dq call (_bwd_dq_body):
-//   P = exp(S - LSE), dS = P * (dP - delta) * scale, dq = dS K;
+//   P = mask ? exp(S - LSE) : 0, dS = P * (dP - delta) * scale, dq = dS K;
 // - K3 flash_dkv_kernel  <- _flash_bwd_bhtd's dk/dv call (_bwd_dkv_body):
 //   dv = P^T dO, dk = dS^T q, and with bias_grad the full dbias.
 //
@@ -38,19 +41,22 @@
 //   of scores from fp32 copies of the tiles in shared memory (rows padded
 //   by one float so lane-per-row reads hit distinct banks) and owns a
 //   4 x D/16 block of the output accumulators. Products run on fp32 CUDA
-//   cores: simple and exact for fp32; tensor cores (mma / wgmma), TMA and
-//   pipelining are later work;
+//   cores: simple and exact for fp32. The bf16 backward has its own
+//   tensor-core kernels; K1 on tensor cores is later work;
 // - the public layout is BTHD and the kernels address it through the
 //   tensors' batch, token and head strides, so no operand is transposed
 //   or copied; ragged tails are masked, so any T runs.
 //
 // Numerics follow the TPU kernels: scores = (q . k in fp32) * scale
 // (+ bias), masked scores = NEG_INF (-1e30), in K1 p = mask ? exp(s -
-// m_new) : 0 with P rounded to V's dtype before PV; K2 and K3 re-derive
-// p = exp(s - lse) WITHOUT re-applying the mask (a masked score gives 0
-// on any row that saw a key), round dS to k's dtype for dq and to q's
-// dtype for dk, and take dv from the fp32 p; fp32 accumulators; O = 0
-// and LSE = NEG_INF where the row sum is 0. dq/dk/dv/dbias are fp32.
+// m_new) : 0 with P rounded to V's dtype before PV; O = 0 and LSE =
+// NEG_INF where the row sum is 0. K2 and K3 re-derive p = mask ? exp(s -
+// lse) : 0 from the saved LSE: a masked entry gives exactly 0, also on a
+// row that saw no key (LSE = NEG_INF, where exp(s - lse) alone would be
+// 1), so such a row gets dq = 0 and adds nothing to dk, dv or dbias --
+// the gradient of the forward's constant O = 0, whatever tiles are
+// visited. They round dS to k's dtype for dq and to q's dtype for dk, and
+// take dv from the fp32 p; fp32 accumulators. dq/dk/dv/dbias are fp32.
 //
 // Each host entry launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -59,34 +65,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Mirrored field for field by ops/flash_attention.py::_Params.
-struct FlashParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const int* seg_q;
-  const int* seg_k;
-  const float* bias;
-  const float* lse;
-  const float* delta;
-  void* out;
-  float* lse_out;
-  float* dq;
-  float* dk;
-  float* dv;
-  float* dbias;
-  int64_t q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
-  int64_t do_sb, do_st, do_sh, segq_sb, segk_sb;
-  int64_t bias_sb, bias_sh, bias_sq, bias_sk;
-  int B, Tq, Tk, H, Hkv, D, causal, window, q_offset, dtype;
-  float scale;
-};
+#include <type_traits>
+
+#include "flash_attention.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kTile = 64;      // rows of a q tile and of a k tile
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 scores each
 constexpr int kPad = kTile + 1;
 constexpr unsigned kFull = 0xffffffffu;
@@ -200,18 +184,6 @@ __device__ __forceinline__ void pt_times(const float* P, const float* X,
   }
 }
 
-// Is key kj visible from query row qi (both in range)?
-__device__ __forceinline__ bool visible(const FlashParams& p, int qi, int kj,
-                                        int sq, int sk) {
-  if (qi >= p.Tq || kj >= p.Tk) return false;
-  if (p.causal) {
-    const int qpos = qi + p.q_offset;
-    if (kj > qpos) return false;
-    if (p.window > 0 && qpos - kj >= p.window) return false;
-  }
-  return p.seg_q == nullptr || sq == sk;
-}
-
 // The masked, scaled score of (qi, kj) for q head h of batch row b.
 __device__ __forceinline__ float score(const FlashParams& p, float dot, int b,
                                        int h, int qi, int kj, bool ok) {
@@ -220,43 +192,6 @@ __device__ __forceinline__ float score(const FlashParams& p, float dot, int b,
     x += p.bias[b * p.bias_sb + h * p.bias_sh + (int64_t)qi * p.bias_sq +
                 (int64_t)kj * p.bias_sk];
   return ok ? x : kNegInf;
-}
-
-// Key tiles [*t0, *t1) that query rows [q0, q0 + 64) can see: from the
-// window band's first key to the causal diagonal (all keys if not causal).
-__device__ __forceinline__ void key_tiles(const FlashParams& p, int q0,
-                                          int* t0, int* t1) {
-  int kbeg = 0, kend = p.Tk;
-  if (p.causal) {
-    const int qlast = min(q0 + kTile, p.Tq) - 1;
-    kend = min(p.Tk, qlast + p.q_offset + 1);
-    if (p.window > 0) kbeg = max(0, q0 + p.q_offset - p.window + 1);
-  }
-  if (kend <= kbeg) {
-    *t0 = *t1 = 0;
-    return;
-  }
-  *t0 = kbeg / kTile;
-  *t1 = (kend + kTile - 1) / kTile;
-}
-
-// Query tiles [*t0, *t1) whose rows can see some key of [k0, k0 + 64).
-__device__ __forceinline__ void query_tiles(const FlashParams& p, int k0,
-                                            int* t0, int* t1) {
-  int qbeg = 0, qend = p.Tq;
-  if (p.causal) {
-    qbeg = max(0, k0 - p.q_offset);
-    if (p.window > 0) {
-      const int klast = min(k0 + kTile, p.Tk) - 1;
-      qend = min(p.Tq, klast + p.window - p.q_offset);
-    }
-  }
-  if (qend <= qbeg) {
-    *t0 = *t1 = 0;
-    return;
-  }
-  *t0 = qbeg / kTile;
-  *t1 = (qend + kTile - 1) / kTile;
 }
 
 // ------------------------------------------------------------------ K1
@@ -420,7 +355,8 @@ flash_dq_kernel(const FlashParams p) {
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const bool ok = visible(p, qi, k0 + c, sq[r], sk[c]);
-        const float pr = expf(score(p, s[i][j], b, h, qi, k0 + c, ok) - lse[i]);
+        const float pr =
+            ok ? expf(score(p, s[i][j], b, h, qi, k0 + c, ok) - lse[i]) : 0.f;
         const float ds = pr * (dp[i][j] - delta[i]) * p.scale;
         DSs[r * kPad + c] = round_as(ds, static_cast<const T*>(p.k));
       }
@@ -524,7 +460,9 @@ flash_dkv_kernel(const FlashParams p) {
         for (int j = 0; j < 4; ++j) {
           const int c = tx + 16 * j;
           const bool ok = visible(p, qi, k0 + c, sq[r], sk[c]);
-          s[i][j] = expf(score(p, s[i][j], b, h, qi, k0 + c, ok) - lse_s[r]);
+          s[i][j] = ok ? expf(score(p, s[i][j], b, h, qi, k0 + c, ok) -
+                              lse_s[r])
+                       : 0.f;
           Ps[r * kPad + c] = s[i][j];  // dv takes the fp32 p
         }
       }
@@ -582,14 +520,15 @@ template <typename T, int D>
 cudaError_t launch_d(Which which, const FlashParams& p, cudaStream_t s) {
   const dim3 q_grid((p.Tq + kTile - 1) / kTile, p.H, p.B);
   const dim3 k_grid((p.Tk + kTile - 1) / kTile, p.Hkv, p.B);
-  switch (which) {
-    case kFwd:
-      return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), q_grid, p, s);
-    case kDq:
+  if (which == kFwd)
+    return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), q_grid, p, s);
+  // the backward of bf16 inputs runs in flash_attention_bwd_sm90.cu
+  if constexpr (std::is_same<T, float>::value) {
+    if (which == kDq)
       return launch(flash_dq_kernel<T, D>, dq_smem<D>(), q_grid, p, s);
-    default:
-      return launch(flash_dkv_kernel<T, D>, dkv_smem<D>(), k_grid, p, s);
+    return launch(flash_dkv_kernel<T, D>, dkv_smem<D>(), k_grid, p, s);
   }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -613,8 +552,15 @@ int dispatch(Which which, const FlashParams* p, void* stream) {
     return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  // By input dtype, never as a fallback: fp32 runs every kernel here
+  // (exact on CUDA cores), bf16 its forward here and its backward on the
+  // tensor-core kernels.
   if (p->dtype == 0)
     err = launch_t<float>(which, *p, s);
+  else if (p->dtype == 1 && which == kDq)
+    err = flash_dq_bf16(*p, s);
+  else if (p->dtype == 1 && which == kDkv)
+    err = flash_dkv_bf16(*p, s);
   else if (p->dtype == 1)
     err = launch_t<__nv_bfloat16>(which, *p, s);
   else

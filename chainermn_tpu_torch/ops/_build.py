@@ -3,9 +3,11 @@
 Each kernel is CUDA C++ for ``sm_90a`` with a plain C entry point,
 compiled by ``nvcc`` into ``chainermn_tpu_torch/build/`` and loaded with
 ``ctypes`` — seconds per build, where a source that includes PyTorch's
-headers takes minutes. A library is rebuilt when the hash of its sources
-and flags changes. Nothing is built at import: the first call of a
-kernel's wrapper on a CUDA tensor builds it.
+headers takes minutes. A library's sources compile to objects by one
+``nvcc`` each, all started together, and one more call links them. A
+library is rebuilt when the hash of its sources, headers and flags
+changes. Nothing is built at import: the first call of a kernel's
+wrapper on a CUDA tensor builds it.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Sequence
 
@@ -26,7 +29,7 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 #: name -> {"path", "seconds", "built"} for every library loaded in this
@@ -54,6 +57,15 @@ def find_nvcc() -> str:
     )
 
 
+def _run(name: str, cmd: Sequence[str]) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed to build {name} (exit {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+
+
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """Build (if needed) and load ``lib<name>`` from ``sources`` (file
     names under ``csrc/``). Cached per process."""
@@ -70,15 +82,16 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     if not out.exists():
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {name} (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
+        objs = [f"{tmp}.{p.stem}.o" for p in paths]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                for p, o in zip(paths, objs)]
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            list(pool.map(lambda c: _run(name, c), cmds))
+        _run(name, [nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.so", *objs])
+        os.replace(f"{tmp}.so", out)
+        for o in objs:
+            os.remove(o)
         built = True
     lib = ctypes.CDLL(str(out))
     BUILD_LOG[name] = {"path": str(out),

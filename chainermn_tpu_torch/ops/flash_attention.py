@@ -1,14 +1,21 @@
 """Flash attention, forward and backward (counterpart of
 ``chainermn_tpu/ops/flash_attention.py``).
 
-Three hand-written Hopper kernels in ``csrc/flash_attention.cu``, built by
-``nvcc`` at first use:
+Three hand-written Hopper kernels, built by ``nvcc`` at first use into
+one library from :data:`SOURCES`:
 
 - K1 ``fwd``: the forward (``_flash_fwd_bhtd``): online softmax, O and the
   per-row logsumexp (LSE);
 - K2 ``dq``: the backward's dq (``_bwd_dq_body``), P re-derived from LSE;
 - K3 ``dkv``: the backward's dk/dv (``_bwd_dkv_body``), with the optional
   full dbias.
+
+The input dtype picks the kernel: fp32 runs all three on CUDA cores
+(``csrc/flash_attention.cu``); bf16 runs K1 there and K2/K3 on tensor
+cores with a segment-aware tile skip (``csrc/flash_attention_bwd_sm90.cu``,
+the rule in :func:`_live_tiles`). A masked (query, key) entry gives
+``p = 0`` in the backward, also on a row that sees no key, so the answer
+does not depend on which tiles a kernel visits.
 
 Each kernel has a wrapper and a plain PyTorch version in this module. On
 CUDA tensors a wrapper launches its kernel or raises; on CPU tensors, and
@@ -42,11 +49,15 @@ LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+#: the library's sources under ``csrc/``, compiled together
+SOURCES = ("flash_attention.cu", "flash_attention_bwd_sm90.cu")
+#: the kernels' tile: rows of a q tile and keys of a k tile
+TILE = 64
 _lib = None
 
 
 class _Params(ctypes.Structure):
-    """Mirror of ``FlashParams`` in ``csrc/flash_attention.cu`` (same
+    """Mirror of ``FlashParams`` in ``csrc/flash_attention.cuh`` (same
     field order; pointers, then 64-bit strides, then ints, then the
     scale)."""
 
@@ -69,7 +80,7 @@ def load_kernel():
     if _lib is None:
         from chainermn_tpu_torch.ops._build import load_library
 
-        lib = load_library("flash_attention", ["flash_attention.cu"])
+        lib = load_library("flash_attention", SOURCES)
         for name in ("flash_fwd_launch", "flash_dq_launch",
                      "flash_dkv_launch"):
             fn = getattr(lib, name)
@@ -184,11 +195,14 @@ def flash_attention_bwd_reference(q, k, v, do, lse, delta, *, causal: bool,
     (fp64 for fp64 inputs), BTHD, dk/dv summed over each kv head's group;
     ``dbias`` reduced to the bias's broadcast shape.
 
-    The kernels' rules: ``p = exp(s - lse)`` from the saved LSE WITHOUT
-    re-applying the mask (a masked score is NEG_INF, so p underflows to
-    0 on any row that saw a key); ``ds = p * (dp - delta)``; dbias is
+    The kernels' rules: ``p = mask ? exp(s - lse) : 0`` from the saved
+    LSE, so a masked entry contributes nothing, also on a row that saw no
+    key (LSE = NEG_INF, where ``exp(s - lse)`` alone would be 1): such a
+    row gets dq = 0 and adds nothing to dk, dv or dbias, the gradient of
+    the forward's constant O = 0. ``ds = p * (dp - delta)``; dbias is
     ``ds`` before the scale; ``ds * scale`` is rounded to k's dtype for dq
-    and to q's dtype for dk; ``dv = p^T dO`` in fp32."""
+    and to q's dtype for dk; ``dv = p^T dO`` from the fp32 p (the bf16
+    tensor-core K3 rounds P to bf16 there, about 2^-9 per term)."""
     _check(q, k, v, seg_q, seg_k, bias, causal, window, q_offset)
     if bias_grad and bias is None:
         raise ValueError("bias_grad=True without a bias")
@@ -199,6 +213,8 @@ def flash_attention_bwd_reference(q, k, v, do, lse, delta, *, causal: bool,
     mask = _mask(q, k, seg_q, seg_k, causal, window, q_offset)
     s = _scores(q, k, scale, bias, mask)
     p = torch.exp(s - lse.to(acc)[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros_like(p))
     dof = do.to(acc)
     vf = torch.repeat_interleave(v.to(acc), group, dim=2)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
@@ -218,6 +234,30 @@ def flash_attention_bwd_reference(q, k, v, do, lse, delta, *, causal: bool,
     if bias.shape[0] == 1:
         dbias = dbias.sum(0, keepdim=True)
     return dq, dk, dv, dbias
+
+
+def _live_tiles(seg_q, seg_k, tile: int = TILE):
+    """``[B, nq, nk]`` bool: the (q tile, k tile) pairs whose segment-id
+    ranges overlap, the rule by which the bf16 K2/K3 skip a tile pair
+    before loading it (ragged tail tiles reduce over their in-range ids).
+    A pair marked False holds no equal ids, so its mask is all False,
+    whatever the ids' order. Not on the main path: tests and
+    ``chip_smoke.py`` count the skipped tiles with it."""
+
+    def ranges(seg):
+        B, T = seg.shape
+        n = -(-T // tile)
+        info = torch.iinfo(seg.dtype)
+        pad = n * tile - T
+        lo = torch.nn.functional.pad(seg, (0, pad), value=info.max)
+        hi = torch.nn.functional.pad(seg, (0, pad), value=info.min)
+        return (lo.reshape(B, n, tile).amin(-1),
+                hi.reshape(B, n, tile).amax(-1))
+
+    qlo, qhi = ranges(seg_q)
+    klo, khi = ranges(seg_k)
+    return ((qlo[:, :, None] <= khi[:, None, :])
+            & (klo[:, None, :] <= qhi[:, :, None]))
 
 
 # ---------------------------------------------------------------- kernels
@@ -319,7 +359,15 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, seg_q=None,
 def _bwd_params(q, k, v, do, lse, delta, *, causal, scale, seg_q, seg_k,
                 bias, window, q_offset):
     """The kernel-call record of K2/K3, checked; lse/delta as contiguous
-    fp32."""
+    fp32. The bf16 kernels copy q, k, v and dO rows 16 bytes at a time,
+    so those need their base and batch/token/head strides on 16 bytes."""
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+            if t.data_ptr() % 16 or any(t.stride(i) * 2 % 16
+                                        for i in range(3)):
+                raise ValueError(f"{name} must start on 16 bytes with "
+                                 "batch, token and head strides that are "
+                                 "multiples of 8 elements (bf16 backward)")
     bias = _f32(bias)
     p = _params(q, k, v, seg_q, seg_k, bias, causal=causal, scale=scale,
                 window=window, q_offset=q_offset)

@@ -9,7 +9,9 @@ script exits non-zero without its final ``ok`` line:
 1. Environment: the card's name and power limit (``nvidia-smi``), torch
    and CUDA versions, and the build of every CUDA library from
    ``chainermn_tpu_torch/csrc`` — ``paged_decode`` and ``flash_attention``,
-   one ``nvcc`` each, started together (timed).
+   one ``nvcc`` per source, started together (timed); then a count of
+   the tensor-core instructions (``HMMA``/``HGMMA``) in the bf16 K2 and
+   K3 kernels from ``cuobjdump -sass`` of the built library.
 2. Kernel vs plain version on the card: the paged flash-decoding kernel
    (K4) against ``paged_flash_decode_reference`` at the serving path's
    shapes — decode (16 slots, positions over [0, 2047], two all-scratch
@@ -35,7 +37,11 @@ script exits non-zero without its final ``ok`` line:
    (B 8, T 2048, 8 heads, head dim 64, causal), packed segments as the
    example twin's ``pack_documents`` makes them, GQA (2 kv heads), a
    256-wide window, a bias with its gradient (B 2, T 256), odd T = 1000,
-   and the block entries with ``q_offset = 1536``. In bf16 each kernel,
+   the block entries with ``q_offset = 1536``, query rows that see no key
+   (their dq must be exactly 0), and head dims 32 and 128 (packed). bf16
+   runs K2/K3 on the tensor-core kernels, fp32 on the CUDA-core ones; each
+   bf16 case prints the tiles K2/K3 visit and skip by segment ranges
+   (``_live_tiles``). In bf16 each kernel,
    the plain versions and one library call (``scaled_dot_product_attention``
    forward, and its backward as forward+backward minus forward — a
    yardstick the port never calls) are timed, with each shape's least
@@ -384,7 +390,8 @@ def phase_profile(torch, np, engine):
 
 def _flash_cases():
     """(name, shape and options) of each K1-K3 case; (b) is the main
-    path's inputs (packed training rows)."""
+    path's inputs (packed training rows). ``block`` cases go through the
+    ring's block entries."""
     full = dict(B=8, T=2048, H=8, Hkv=8)
     return [
         ("causal", full),
@@ -393,16 +400,26 @@ def _flash_cases():
         ("window256", dict(full, window=256)),
         ("bias_grad", dict(B=2, T=256, H=8, Hkv=8, bias=True)),
         ("odd_T1000", dict(full, T=1000)),
-        ("block_q_offset", dict(full, T=512, Tk=2048, q_offset=1536)),
+        ("block_q_offset", dict(full, T=512, Tk=2048, q_offset=1536,
+                                block=True)),
+        ("no_key_rows", dict(B=2, T=64, Tk=192, H=8, Hkv=2, q_offset=128,
+                             seg="no_key", block=True)),
+        ("d32", dict(B=2, T=1024, H=8, Hkv=8, D=32, seg=True)),
+        ("d128", dict(B=2, T=1024, H=8, Hkv=8, D=128, seg=True)),
     ]
 
 
-def _flash_inputs(torch, np, dtype, seed, *, B, T, H, Hkv, Tk=None,
-                  seg=False, bias=False, window=None, q_offset=0):
+#: the query rows of ``no_key_rows`` whose segment id no key carries
+NO_KEY_ROWS = 16
+
+
+def _flash_inputs(torch, np, dtype, seed, *, B, T, H, Hkv, Tk=None, D=64,
+                  seg=False, bias=False, window=None, q_offset=0,
+                  block=False):
     from chainermn_tpu_torch.examples.transformer.train_transformer_lm \
         import pack_documents
 
-    D = 64
+    del block
     Tk = Tk or T
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -411,11 +428,16 @@ def _flash_inputs(torch, np, dtype, seed, *, B, T, H, Hkv, Tk=None,
 
     q, k, v, do = randn(B, T, H, D), randn(B, Tk, Hkv, D), \
         randn(B, Tk, Hkv, D), randn(B, T, H, D)
-    segs = None
-    if seg:
+    seg_q = seg_k = None
+    if seg == "no_key":  # two key documents; the first rows ask for a third
+        seg_k = (torch.arange(Tk, device="cuda") >= Tk // 2).int()
+        seg_k = seg_k.expand(B, Tk).contiguous()
+        seg_q = torch.ones(B, T, dtype=torch.int32, device="cuda")
+        seg_q[:, :NO_KEY_ROWS] = 7
+    elif seg:
         _, s = pack_documents(np.random.default_rng(seed), B, T)
-        segs = torch.from_numpy(s).cuda()
-    kw = dict(causal=True, scale=D ** -0.5, seg_q=segs, seg_k=segs,
+        seg_q = seg_k = torch.from_numpy(s).cuda()
+    kw = dict(causal=True, scale=D ** -0.5, seg_q=seg_q, seg_k=seg_k,
               bias=(torch.randn(1, H, T, Tk, generator=gen, device="cuda")
                     * 0.5 if bias else None),
               window=window, q_offset=q_offset)
@@ -444,6 +466,25 @@ def _flash_work(fa, q, k, kw):
                    6 * D * pairs),
             "dkv": (2 * qo + kv + 2 * rows + b_in + b_out
                     + 2 * B * Tk * Hkv * D * 4, 8 * D * pairs)}, pairs
+
+
+def _tiles(torch, F, fa, q, k, kw):
+    """(visited, skipped) (q tile, k tile, q head) triples of the bf16 K2
+    and K3 on these inputs: the tiles of the causal/window band that
+    ``_live_tiles``'s segment rule keeps and drops."""
+    B, Tq, H, _ = q.shape
+    Tk, t = k.shape[1], fa.TILE
+    nq, nk = -(-Tq // t), -(-Tk // t)
+    band = fa._mask(q, k, None, None, kw["causal"], kw["window"],
+                    kw["q_offset"])
+    if band is None:
+        band = torch.ones(1, 1, Tq, Tk, dtype=torch.bool, device=q.device)
+    band = F.pad(band[0, 0].to(torch.int8), (0, nk * t - Tk, 0, nq * t - Tq))
+    band = band.reshape(nq, t, nk, t).amax((1, 3)).bool().expand(B, nq, nk)
+    live = band
+    if kw["seg_q"] is not None:
+        live = band & fa._live_tiles(kw["seg_q"], kw["seg_k"], t)
+    return H * int(live.sum()), H * int((band & ~live).sum())
 
 
 def _sdpa_attention(torch, F, fa, q, k, v, do, kw):
@@ -491,14 +532,15 @@ def phase_flash_kernels(torch, np, F):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do, kw = _flash_inputs(torch, np, dtype, ci, **shape)
             bias_grad = kw["bias"] is not None
-            if name == "block_q_offset":  # the ring's block entries
+            if shape.get("block"):  # the ring's block entries
                 bkw = dict(causal=True, scale=kw["scale"],
-                           q_offset=kw["q_offset"])
+                           q_offset=kw["q_offset"], seg_q=kw["seg_q"],
+                           seg_kv=kw["seg_k"])
                 out, lse = fa.flash_block_fwd(q, k, v, **bkw)
             else:
                 out, lse = fa.flash_fwd(q, k, v, **kw)
             delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
-            if name == "block_q_offset":
+            if shape.get("block"):
                 got = fa.flash_block_bwd(q, k, v, do, lse, delta, **bkw)
             else:
                 got = fa.flash_bwd(q, k, v, do, lse, delta,
@@ -516,7 +558,15 @@ def phase_flash_kernels(torch, np, F):
                        and bool(torch.isfinite(a).all()))
             row = {"case": name, "dtype": str(dtype).split(".")[-1],
                    "shape": shape, "max_abs_err": err, "tolerance": tol}
+            if shape.get("seg") == "no_key":
+                # rows that see no key: O = 0, LSE = NEG_INF, dq exactly 0
+                dead = got[0][:, :NO_KEY_ROWS]
+                row["no_key_dq_max_abs"] = dead.abs().max().item()
+                ok &= (row["no_key_dq_max_abs"] == 0.0
+                       and bool((out[:, :NO_KEY_ROWS] == 0).all()))
             if dtype == torch.bfloat16:  # the training dtype: time it
+                row["tiles_visited"], row["tiles_skipped"] = _tiles(
+                    torch, F, fa, q, k, kw)
                 work, pairs = _flash_work(fa, q, k, kw)
                 lib_fwd, lib_fwd_bwd = _sdpa_attention(torch, F, fa, q, k,
                                                        v, do, kw)
@@ -553,7 +603,8 @@ def phase_flash_kernels(torch, np, F):
             if not ok:
                 raise AssertionError(
                     f"K1-K3 {name} {dtype}: max abs errors {err} vs "
-                    f"tolerance {tol} x max(1, max |plain|)")
+                    f"tolerance {tol} x max(1, max |plain|), dq on rows "
+                    f"that see no key {row.get('no_key_dq_max_abs')}")
             rows.append(row)
             del q, k, v, do, out, lse, got, ro, rl, want
     return rows
@@ -676,8 +727,8 @@ def phase_training(torch, np):
         float(metrics["loss"])
 
     _profile_window(torch, one_step, "training profile",
-                    ("flash_fwd_kernel", "flash_dq_kernel",
-                     "flash_dkv_kernel"))
+                    ("flash_fwd_kernel", "flash_dq_mma_kernel",
+                     "flash_dkv_mma_kernel"))
     return launches, summary
 
 
@@ -722,6 +773,37 @@ def phase_grad_equivalence(torch, np):
 
 # ---------------------------------------------------------------- main
 
+#: the bf16 backward kernels whose tensor-core instructions are counted
+MMA_KERNELS = ("flash_dq_mma_kernel", "flash_dkv_mma_kernel")
+
+
+def _sass_line():
+    """Count the tensor-core instructions (HMMA, HGMMA) of the bf16 K2 and
+    K3 kernels in the built library with ``cuobjdump -sass`` (beside
+    nvcc): the proof that their products run on tensor cores."""
+    from chainermn_tpu_torch.ops._build import BUILD_LOG, find_nvcc
+
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        raise AssertionError(f"cuobjdump not found beside nvcc ({tool})")
+    lib = BUILD_LOG["flash_attention"]["path"]
+    sass = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts = dict.fromkeys(MMA_KERNELS, 0)
+    cur = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = next((k for k in MMA_KERNELS if k in line), None)
+        elif cur is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[cur] += 1
+    print(f"sass: tensor-core instructions (HMMA/HGMMA) in the bf16 "
+          f"backward kernels {json.dumps(counts)} (cuobjdump -sass {lib})",
+          flush=True)
+    if not all(counts.values()):
+        raise AssertionError(f"a bf16 backward kernel has no tensor-core "
+                             f"instruction: {counts}")
+
+
 def main() -> int:
     import torch
 
@@ -756,6 +838,7 @@ def main() -> int:
               f"{log['seconds']:.3f} s -> {log['path']}", flush=True)
     print(f"build: both libraries ready in {time.perf_counter() - t0:.3f} s",
           flush=True)
+    _sass_line()
 
     rows = phase_kernels(torch, np, F)
     launches, summary, engine = phase_serving(torch, np)
@@ -790,14 +873,18 @@ def main() -> int:
     # K1-K3 at the main path's inputs: the packed training rows, bf16
     packed = next(r for r in flash_rows
                   if r["case"] == "packed" and r["dtype"] == "bfloat16")
-    for key, name, line, errs in (
-            ("fwd", "flash_attention_fwd", 313, ("O", "lse")),
-            ("dq", "flash_attention_bwd_dq", 404, ("dq",)),
-            ("dkv", "flash_attention_bwd_dkv", 467, ("dk", "dv"))):
+    for key, name, line, errs, src, impl in (
+            ("fwd", "flash_attention_fwd", 313, ("O", "lse"),
+             "flash_attention.cu", "cuda-core fp32"),
+            ("dq", "flash_attention_bwd_dq", 404, ("dq",),
+             "flash_attention_bwd_sm90.cu", "wgmma"),
+            ("dkv", "flash_attention_bwd_dkv", 467, ("dk", "dv"),
+             "flash_attention_bwd_sm90.cu", "wgmma")):
         kernels["kernels"].append({
             "name": name,
             "route": "cuda",
-            "source": "chainermn_tpu_torch/csrc/flash_attention.cu",
+            "impl": impl,
+            "source": f"chainermn_tpu_torch/csrc/{src}",
             "replaces": f"chainermn_tpu/ops/flash_attention.py:{line}",
             "launches": flash_launches[key],
             "max_abs_err": max(packed["max_abs_err"][e] for e in errs),
@@ -813,6 +900,8 @@ def main() -> int:
                        **({"ms": r["ms"][key],
                            "plain_ms": r["plain_ms"][key],
                            "library_ms": r["library_ms"][key],
+                           "tiles_visited": r["tiles_visited"],
+                           "tiles_skipped": r["tiles_skipped"],
                            **r["bound"][key]} if "ms" in r else {})}
                       for r in flash_rows],
         })

@@ -7,6 +7,10 @@ The same numpy inputs go to both sides at fp32. Tolerances are those of
 (both relative and absolute), since the two sides sum in other orders and
 the port's plain version takes one softmax pass where the kernels take
 the online recurrence.
+
+Two rules the bf16 CUDA backward relies on are held here on the CPU too:
+a masked entry gives p = 0, so rows that see no key get exact zero
+gradients; and the segment tile skip drops only fully masked tiles.
 """
 
 import jax
@@ -19,6 +23,9 @@ from chainermn_tpu.ops.flash_attention import (
     flash_attention as jax_flash,
     flash_block_bwd as jax_block_bwd,
     flash_block_fwd as jax_block_fwd,
+)
+from chainermn_tpu_torch.examples.transformer.train_transformer_lm import (
+    pack_documents,
 )
 from chainermn_tpu_torch.ops import _build
 from chainermn_tpu_torch.ops import flash_attention as fa
@@ -234,3 +241,203 @@ def test_loading_the_library_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fa.load_kernel()
     assert fa._lib is None
+
+
+# ------------------------------------------------- rows that see no key
+
+def _no_key_inputs(seed):
+    """A 16-row Q shard at q_offset 32 against three 16-key documents:
+    the rows ask for the last document, except rows 0, 5 and 11, whose
+    segment id no key carries."""
+    rs = np.random.RandomState(seed)
+    Tq, Tk = 16, 48
+    q = rs.randn(B, Tq, H, D).astype(np.float32)
+    k = rs.randn(B, Tk, 2, D).astype(np.float32)
+    v = rs.randn(B, Tk, 2, D).astype(np.float32)
+    do = rs.randn(B, Tq, H, D).astype(np.float32)
+    seg_kv = np.repeat(np.arange(3)[None], B, 0).repeat(16, 1)
+    seg_kv = seg_kv.astype(np.int32)
+    seg_q = np.full((B, Tq), 2, np.int32)
+    seg_q[:, [0, 5, 11]] = 9
+    return q, k, v, do, seg_q, seg_kv
+
+
+NO_KEY = [0, 5, 11]
+NO_KEY_KW = dict(causal=True, scale=0.3, q_offset=32, block_q=8, block_k=16)
+
+
+def test_rows_that_see_no_key_get_zero_gradients():
+    """No row sees a key (every query's segment differs from every key's):
+    the forward gives O = 0 and LSE = NEG_INF as the JAX kernel does, and
+    the port's dq, dk and dv are exactly 0 -- the gradient of a constant
+    output -- where ``exp(s - lse)`` alone would give p = 1."""
+    rs = np.random.RandomState(7)
+    q = rs.randn(1, 16, 2, 8).astype(np.float32)
+    k = rs.randn(1, 48, 2, 8).astype(np.float32)
+    v = rs.randn(1, 48, 2, 8).astype(np.float32)
+    do = rs.randn(1, 16, 2, 8).astype(np.float32)
+    seg_q = np.zeros((1, 16), np.int32)
+    seg_kv = np.ones((1, 48), np.int32)
+    kw = dict(causal=True, scale=8 ** -0.5, q_offset=0, block_q=8,
+              block_k=16)
+    jo, jlse = jax_block_fwd(*map(jnp.asarray, (q, k, v)), interpret=True,
+                             seg_q=jnp.asarray(seg_q),
+                             seg_kv=jnp.asarray(seg_kv), **kw)
+    tseg = dict(seg_q=torch.tensor(seg_q), seg_kv=torch.tensor(seg_kv))
+    to, tlse = fa.flash_block_fwd(*map(torch.tensor, (q, k, v)), **kw,
+                                  **tseg)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **FWD)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), **FWD)
+    assert float(to.abs().max()) == 0.0
+    delta = (torch.tensor(do) * to).sum(-1).transpose(1, 2)
+    got = fa.flash_block_bwd(*map(torch.tensor, (q, k, v, do)), tlse, delta,
+                             **kw, **tseg)
+    for g in got:
+        assert float(g.abs().max()) == 0.0
+
+
+def test_mixed_no_key_rows_match_jax_with_their_dout_zeroed():
+    """Rows 0, 5 and 11 see no key, the rest do. With those rows' dO
+    zeroed on the JAX side, the JAX kernel's p = 1 on them multiplies
+    zeros, so both sides compute the true gradient; the port gives it
+    whatever dO those rows carry."""
+    q, k, v, do, seg_q, seg_kv = _no_key_inputs(11)
+    do_zeroed = do.copy()
+    do_zeroed[:, NO_KEY] = 0.0
+    jseg = dict(seg_q=jnp.asarray(seg_q), seg_kv=jnp.asarray(seg_kv))
+    tseg = dict(seg_q=torch.tensor(seg_q), seg_kv=torch.tensor(seg_kv))
+    jo, jlse = jax_block_fwd(*map(jnp.asarray, (q, k, v)), interpret=True,
+                             **NO_KEY_KW, **jseg)
+    to, tlse = fa.flash_block_fwd(*map(torch.tensor, (q, k, v)),
+                                  **NO_KEY_KW, **tseg)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **FWD)
+    assert float(to[:, NO_KEY].abs().max()) == 0.0
+    jdelta = (do_zeroed * np.asarray(jo)).sum(-1).transpose(0, 2, 1)
+    want = jax_block_bwd(*map(jnp.asarray, (q, k, v, do_zeroed)), jlse,
+                         jnp.asarray(jdelta), interpret=True, **NO_KEY_KW,
+                         **jseg)
+    outs = {}
+    for name, g in (("do", do), ("zeroed", do_zeroed)):
+        tdo = torch.tensor(g)
+        delta = (tdo * to).sum(-1).transpose(1, 2)
+        outs[name] = fa.flash_block_bwd(*map(torch.tensor, (q, k, v)), tdo,
+                                        tlse, delta, **NO_KEY_KW, **tseg)
+    for got, zeroed, w in zip(outs["do"], outs["zeroed"], want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **GRAD)
+        assert torch.equal(got, zeroed)
+    assert float(outs["do"][0][:, NO_KEY].abs().max()) == 0.0
+
+
+def test_plain_backward_is_the_autograd_gradient_of_the_plain_forward():
+    """On the mixed input (fp64), ``torch.autograd.grad`` through the
+    plain forward equals the plain backward, rows that see no key
+    included."""
+    q, k, v, do, seg_q, seg_kv = _no_key_inputs(12)
+    q, k, v = (torch.tensor(x, dtype=torch.float64, requires_grad=True)
+               for x in (q, k, v))
+    do = torch.tensor(do, dtype=torch.float64)
+    kw = dict(causal=True, scale=0.3, q_offset=32,
+              seg_q=torch.tensor(seg_q), seg_k=torch.tensor(seg_kv))
+    out, lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    want = torch.autograd.grad((out * do).sum(), (q, k, v))
+    delta = (do * out.detach()).sum(-1).transpose(1, 2)
+    got = fa.flash_attention_bwd_reference(q.detach(), k.detach(),
+                                           v.detach(), do, lse.detach(),
+                                           delta, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-12)
+    assert float(got[0][:, NO_KEY].abs().max()) == 0.0
+
+
+def test_the_library_is_built_from_every_kernel_source(monkeypatch):
+    """The flash library's source list names the tensor-core backward, and
+    every listed source exists: a forgotten source fails here, not only
+    on the card."""
+    seen = {}
+
+    class _Lib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    def fake_load(name, sources):
+        seen[name] = list(sources)
+        return _Lib()
+
+    monkeypatch.setattr(_build, "load_library", fake_load)
+    monkeypatch.setattr(fa, "_lib", None)
+    fa.load_kernel()
+    assert seen == {"flash_attention": list(fa.SOURCES)}
+    assert "flash_attention_bwd_sm90.cu" in fa.SOURCES
+    for s in fa.SOURCES:
+        assert (_build.CSRC_DIR / s).is_file(), s
+    assert (_build.CSRC_DIR / "flash_attention.cuh").is_file()
+    monkeypatch.setattr(fa, "_lib", None)
+
+
+def test_bf16_backward_rejects_rows_it_cannot_copy():
+    """The bf16 backward kernels copy rows 16 bytes at a time: an operand
+    whose base or strides are off that grid is refused before any launch,
+    with the model's own layout (q/k/v views of one fused product)
+    accepted."""
+    B_, T, H_, D_ = 1, 8, 2, 32
+    qkv = torch.zeros(B_, T, 3 * H_ * D_, dtype=torch.bfloat16)
+    q, k, v = (t.reshape(B_, T, H_, D_)
+               for t in torch.split(qkv, H_ * D_, dim=-1))
+    lse = torch.zeros(B_, H_, T)
+    kw = dict(causal=True, scale=0.1, seg_q=None, seg_k=None, bias=None,
+              window=None, q_offset=0)
+    fa._bwd_params(q, k, v, q, lse, lse, **kw)
+    wide = torch.zeros(B_, T, H_, D_ + 4, dtype=torch.bfloat16)
+    off = wide[..., 4:]  # 8 bytes past the grid
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa._bwd_params(off, k, v, q, lse, lse, **kw)
+
+
+# ------------------------------------------------- the tile skip
+#
+# The segment-aware tile skip of the bf16 backward kernels (``_live_tiles``,
+# the rule the CUDA kernels apply on the card): a (q tile, k tile) pair it
+# marks dead holds no visible (query, key) pair, for packed documents and
+# for unsorted segment ids alike, so skipping it changes no gradient.
+
+def _tile_any(mask, tile):
+    """[B, nq, nk]: does the tile hold a True entry (ragged tails padded
+    with False)?"""
+    B, Tq, Tk = mask.shape
+    nq, nk = -(-Tq // tile), -(-Tk // tile)
+    m = torch.zeros(B, nq * tile, nk * tile, dtype=torch.bool)
+    m[:, :Tq, :Tk] = mask
+    return m.reshape(B, nq, tile, nk, tile).any(4).any(2)
+
+
+def _tile_segments(kind, seed, T):
+    rs = np.random.RandomState(seed)
+    if kind == "packed":
+        _, seg = pack_documents(np.random.default_rng(seed), 3, T)
+        return seg, seg
+    # unsorted ids over a small alphabet, queries drawing from a larger one
+    # (some rows then see no key)
+    return (rs.randint(0, 5, (3, T)).astype(np.int32),
+            rs.randint(0, 3, (3, T + 13)).astype(np.int32))
+
+
+@pytest.mark.parametrize("kind,tile,T", [
+    ("packed", 16, 256), ("packed", 64, 2048), ("packed", 16, 200),
+    ("unsorted", 16, 200), ("unsorted", 8, 64)])
+@pytest.mark.parametrize("seed", range(3))
+def test_dead_tiles_are_fully_masked(kind, tile, T, seed):
+    seg_q, seg_k = map(torch.tensor, _tile_segments(kind, seed, T))
+    q = torch.zeros(seg_q.shape[0], seg_q.shape[1], 1, 1)
+    k = torch.zeros(seg_k.shape[0], seg_k.shape[1], 1, 1)
+    mask = fa._mask(q, k, seg_q, seg_k, False, None, 0)[:, 0]
+    live = fa._live_tiles(seg_q, seg_k, tile)
+    visible = _tile_any(mask, tile)
+    assert live.shape == visible.shape
+    assert not bool((visible & ~live).any())  # sound: dead => all masked
+    if kind == "packed":
+        # consecutive sorted ids: overlapping ranges share an id, so the
+        # rule skips every all-masked tile, and (b)-like rows skip many
+        assert torch.equal(live, visible)
+        assert bool((~live).any())
