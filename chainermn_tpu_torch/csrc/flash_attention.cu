@@ -41,8 +41,9 @@
 //   of scores from fp32 copies of the tiles in shared memory (rows padded
 //   by one float so lane-per-row reads hit distinct banks) and owns a
 //   4 x D/16 block of the output accumulators. Products run on fp32 CUDA
-//   cores: simple and exact for fp32. The bf16 backward has its own
-//   tensor-core kernels; K1 on tensor cores is later work;
+//   cores: simple and exact for fp32. K1 takes fp32 and bf16; K2 and K3
+//   here take fp32 only, the bf16 backward having its own tensor-core
+//   kernels; K1 on tensor cores is later work;
 // - the public layout is BTHD and the kernels address it through the
 //   tensors' batch, token and head strides, so no operand is transposed
 //   or copied; ragged tails are masked, so any T runs.
@@ -55,8 +56,9 @@
 // row that saw no key (LSE = NEG_INF, where exp(s - lse) alone would be
 // 1), so such a row gets dq = 0 and adds nothing to dk, dv or dbias --
 // the gradient of the forward's constant O = 0, whatever tiles are
-// visited. They round dS to k's dtype for dq and to q's dtype for dk, and
-// take dv from the fp32 p; fp32 accumulators. dq/dk/dv/dbias are fp32.
+// visited. On their fp32 inputs dS needs no rounding (the TPU kernel
+// rounds it to k's and q's dtype) and dv takes the fp32 p; fp32
+// accumulators. dq/dk/dv/dbias are fp32.
 //
 // Each host entry launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -301,7 +303,7 @@ __host__ __device__ constexpr size_t dq_smem() {
          sizeof(int) * 2 * kTile;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const FlashParams p) {
   constexpr int DJ = D / 16;
@@ -316,13 +318,14 @@ flash_dq_kernel(const FlashParams p) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* dob =
+      static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  load_rows<T, D>(Qs, qb, p.q_st, q0, p.Tq);
-  load_rows<T, D>(DOs, dob, p.do_st, q0, p.Tq);
+  load_rows<float, D>(Qs, qb, p.q_st, q0, p.Tq);
+  load_rows<float, D>(DOs, dob, p.do_st, q0, p.Tq);
   if (p.seg_q != nullptr) load_seg(sq, p.seg_q + b * p.segq_sb, q0, p.Tq);
   float lse[4], delta[4], acc[4][DJ];
 #pragma unroll
@@ -340,8 +343,8 @@ flash_dq_kernel(const FlashParams p) {
   for (int t = t0; t < t1; ++t) {
     const int k0 = t * kTile;
     __syncthreads();
-    load_rows<T, D>(Ks, kb, p.k_st, k0, p.Tk);
-    load_rows<T, D>(Vs, vb, p.v_st, k0, p.Tk);
+    load_rows<float, D>(Ks, kb, p.k_st, k0, p.Tk);
+    load_rows<float, D>(Vs, vb, p.v_st, k0, p.Tk);
     if (p.seg_k != nullptr) load_seg(sk, p.seg_k + b * p.segk_sb, k0, p.Tk);
     __syncthreads();
 
@@ -357,8 +360,7 @@ flash_dq_kernel(const FlashParams p) {
         const bool ok = visible(p, qi, k0 + c, sq[r], sk[c]);
         const float pr =
             ok ? expf(score(p, s[i][j], b, h, qi, k0 + c, ok) - lse[i]) : 0.f;
-        const float ds = pr * (dp[i][j] - delta[i]) * p.scale;
-        DSs[r * kPad + c] = round_as(ds, static_cast<const T*>(p.k));
+        DSs[r * kPad + c] = pr * (dp[i][j] - delta[i]) * p.scale;
       }
     }
     __syncthreads();
@@ -383,7 +385,7 @@ __host__ __device__ constexpr size_t dkv_smem() {
          sizeof(int) * 2 * kTile;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const FlashParams p) {
   constexpr int DJ = D / 16;
@@ -400,11 +402,11 @@ flash_dkv_kernel(const FlashParams p) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
   const int group = p.H / p.Hkv;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  load_rows<T, D>(Ks, kb, p.k_st, k0, p.Tk);
-  load_rows<T, D>(Vs, vb, p.v_st, k0, p.Tk);
+  load_rows<float, D>(Ks, kb, p.k_st, k0, p.Tk);
+  load_rows<float, D>(Vs, vb, p.v_st, k0, p.Tk);
   if (p.seg_k != nullptr) load_seg(sk, p.seg_k + b * p.segk_sb, k0, p.Tk);
 
   float dk[4][DJ], dv[4][DJ];
@@ -419,8 +421,9 @@ flash_dkv_kernel(const FlashParams p) {
   const bool want_dbias = p.dbias != nullptr;
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
-    const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+    const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const float* dob =
+        static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
     for (int t = want_dbias ? 0 : t0; t < (want_dbias ? nq : t1); ++t) {
       const int q0 = t * kTile;
       if (t < t0 || t >= t1) {
@@ -439,8 +442,8 @@ flash_dkv_kernel(const FlashParams p) {
         continue;
       }
       __syncthreads();  // the previous tile's readers are done
-      load_rows<T, D>(Qs, qb, p.q_st, q0, p.Tq);
-      load_rows<T, D>(DOs, dob, p.do_st, q0, p.Tq);
+      load_rows<float, D>(Qs, qb, p.q_st, q0, p.Tq);
+      load_rows<float, D>(DOs, dob, p.do_st, q0, p.Tq);
       if (p.seg_q != nullptr) load_seg(sq, p.seg_q + b * p.segq_sb, q0, p.Tq);
       for (int i = threadIdx.x; i < kTile; i += kThreads) {
         const int qi = q0 + i;
@@ -479,7 +482,7 @@ flash_dkv_kernel(const FlashParams p) {
           if (want_dbias && qi < p.Tq && kj < p.Tk)
             // dbias is dS before the scale (the bias adds after it)
             p.dbias[(((int64_t)b * p.H + h) * p.Tq + qi) * p.Tk + kj] = ds;
-          Ps[r * kPad + c] = round_as(ds * p.scale, static_cast<const T*>(p.q));
+          Ps[r * kPad + c] = ds * p.scale;
         }
       }
       __syncthreads();
@@ -516,33 +519,44 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid,
 
 enum Which { kFwd, kDq, kDkv };
 
-template <typename T, int D>
-cudaError_t launch_d(Which which, const FlashParams& p, cudaStream_t s) {
-  const dim3 q_grid((p.Tq + kTile - 1) / kTile, p.H, p.B);
-  const dim3 k_grid((p.Tk + kTile - 1) / kTile, p.Hkv, p.B);
-  if (which == kFwd)
-    return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), q_grid, p, s);
-  // the backward of bf16 inputs runs in flash_attention_bwd_sm90.cu
-  if constexpr (std::is_same<T, float>::value) {
-    if (which == kDq)
-      return launch(flash_dq_kernel<T, D>, dq_smem<D>(), q_grid, p, s);
-    return launch(flash_dkv_kernel<T, D>, dkv_smem<D>(), k_grid, p, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename T>
-cudaError_t launch_t(Which which, const FlashParams& p, cudaStream_t s) {
-  switch (p.D) {
+// f(std::integral_constant<int, D>()) for the record's head dim.
+template <typename F>
+cudaError_t by_head_dim(int D, F f) {
+  switch (D) {
     case 32:
-      return launch_d<T, 32>(which, p, s);
+      return f(std::integral_constant<int, 32>());
     case 64:
-      return launch_d<T, 64>(which, p, s);
+      return f(std::integral_constant<int, 64>());
     case 128:
-      return launch_d<T, 128>(which, p, s);
+      return f(std::integral_constant<int, 128>());
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+cudaError_t launch_fwd(const FlashParams& p, cudaStream_t s) {
+  const dim3 grid((p.Tq + kTile - 1) / kTile, p.H, p.B);
+  return by_head_dim(p.D, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), grid, p, s);
+  });
+}
+
+cudaError_t launch_dq_f32(const FlashParams& p, cudaStream_t s) {
+  const dim3 grid((p.Tq + kTile - 1) / kTile, p.H, p.B);
+  return by_head_dim(p.D, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return launch(flash_dq_kernel<D>, dq_smem<D>(), grid, p, s);
+  });
+}
+
+cudaError_t launch_dkv_f32(const FlashParams& p, cudaStream_t s) {
+  const dim3 grid((p.Tk + kTile - 1) / kTile, p.Hkv, p.B);
+  return by_head_dim(p.D, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return launch(flash_dkv_kernel<D>, dkv_smem<D>(), grid, p, s);
+  });
 }
 
 int dispatch(Which which, const FlashParams* p, void* stream) {
@@ -551,21 +565,17 @@ int dispatch(Which which, const FlashParams* p, void* stream) {
   if (p->B == 0 || p->H == 0 || (which == kDkv ? p->Tk : p->Tq) == 0)
     return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   // By input dtype, never as a fallback: fp32 runs every kernel here
   // (exact on CUDA cores), bf16 its forward here and its backward on the
   // tensor-core kernels.
-  if (p->dtype == 0)
-    err = launch_t<float>(which, *p, s);
-  else if (p->dtype == 1 && which == kDq)
-    err = flash_dq_bf16(*p, s);
-  else if (p->dtype == 1 && which == kDkv)
-    err = flash_dkv_bf16(*p, s);
-  else if (p->dtype == 1)
-    err = launch_t<__nv_bfloat16>(which, *p, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  if (p->dtype == 0 && which == kFwd) return (int)launch_fwd<float>(*p, s);
+  if (p->dtype == 0 && which == kDq) return (int)launch_dq_f32(*p, s);
+  if (p->dtype == 0) return (int)launch_dkv_f32(*p, s);
+  if (p->dtype == 1 && which == kFwd)
+    return (int)launch_fwd<__nv_bfloat16>(*p, s);
+  if (p->dtype == 1 && which == kDq) return (int)flash_dq_bf16(*p, s);
+  if (p->dtype == 1) return (int)flash_dkv_bf16(*p, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

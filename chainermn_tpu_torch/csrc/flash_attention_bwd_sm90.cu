@@ -45,7 +45,10 @@
 //   tile pair whose ranges do not overlap before loading it -- sound for
 //   any ids, sorted or not, since such a pair holds no equal ids. The
 //   mask rule below makes the skip exact. With bias_grad, K3 writes zeros
-//   to every dbias tile it does not visit.
+//   to every dbias tile it does not visit. Each CTA adds the (q tile,
+//   k tile, q head) triples it visits and skips to counters on the card
+//   (two atomic adds a CTA), which flash_bwd_tile_counts reads: the
+//   proof that the skip ran.
 //
 // Later work: TMA with an mbarrier ring in place of cp.async (issuing the
 // copies and the barrier take about a quarter of a tile's time on the
@@ -84,6 +87,17 @@ template <int D>
 constexpr int kMinBlocks = D <= 64 ? 3 : 1;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
+
+// (q tile, k tile, q head) triples of the band that K2 ([0]) and K3 ([1])
+// visited ([.][0]) and skipped by segment ranges ([.][1]) since the last
+// flash_bwd_tile_counts on this device.
+__device__ unsigned long long g_tile_counts[2][2];
+
+__device__ __forceinline__ void count_tiles(int kernel, int visited,
+                                            int skipped) {
+  atomicAdd(&g_tile_counts[kernel][0], (unsigned long long)visited);
+  atomicAdd(&g_tile_counts[kernel][1], (unsigned long long)skipped);
+}
 
 // ------------------------------------------------------------ primitives
 
@@ -385,11 +399,15 @@ __device__ __forceinline__ void seg_range(const int* seg, int i0, int n,
 // into list[]: those whose segment range meets `own` (the CTA's own
 // tile's (min, max); seg_oth null: no segments, every tile of the band).
 // Their ranges go to tmin[]/tmax[] and, where flag is not null, flag[t]
-// is 1 for a visited tile and 0 for every other tile of [0, nt). Returns
-// the count, after a __syncthreads.
+// is 1 for a visited tile and 0 for every other tile of [0, nt). Adds
+// per_tile x the tiles visited and skipped to g_tile_counts[kernel] --
+// here, where the count is at hand: adding it in the kernel's body after
+// the plan doubled K3's register spills (ptxas -v) and slowed K3.
+// Returns the count, after a __syncthreads.
 __device__ int plan_tiles(const int own[2], const int* seg_oth, int n_oth,
                           int t0, int t1, int nt, int* list, int* tmin,
-                          int* tmax, int* flag, int* shared_n) {
+                          int* tmax, int* flag, int* shared_n, int kernel,
+                          int per_tile) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (seg_oth != nullptr) {
     for (int t = t0 + warp; t < t1; t += kWarps) {
@@ -418,7 +436,10 @@ __device__ int plan_tiles(const int own[2], const int* seg_oth, int n_oth,
       }
       count += __popc(m);
     }
-    if (lane == 0) *shared_n = count;
+    if (lane == 0) {
+      *shared_n = count;
+      count_tiles(kernel, per_tile * count, per_tile * (t1 - t0 - count));
+    }
   }
   __syncthreads();
   return *shared_n;
@@ -520,7 +541,7 @@ flash_dq_mma_kernel(const FlashParams p) {
   int t0, t1;
   key_tiles(p, q0, &t0, &t1);
   const int n = plan_tiles(qr, segk, p.Tk, t0, t1, nk, list, tmin, tmax,
-                           nullptr, shared_n);
+                           nullptr, shared_n, 0, 1);
 
   auto issue = [&](int i) {
     const int k0 = list[i] * kTile;
@@ -680,7 +701,7 @@ flash_dkv_mma_kernel(const FlashParams p) {
   int t0, t1;
   query_tiles(p, k0, &t0, &t1);
   const int n = plan_tiles(kr, segq, p.Tq, t0, t1, nq, list, tmin, tmax,
-                           want_dbias ? flag : nullptr, shared_n);
+                           want_dbias ? flag : nullptr, shared_n, 1, group);
 
   if (want_dbias) {
     // The dbias tiles of this k tile that no visited pair writes: zeros,
@@ -898,4 +919,15 @@ cudaError_t flash_dkv_bf16(const FlashParams& p, cudaStream_t s) {
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The counts of the tile skip since the last call, into out[4]: K2
+// visited, K2 skipped, K3 visited, K3 skipped ((q tile, k tile, q head)
+// triples of the band); resets them. Synchronous, on the current device.
+extern "C" int flash_bwd_tile_counts(unsigned long long* out) {
+  const cudaError_t err =
+      cudaMemcpyFromSymbol(out, g_tile_counts, sizeof(g_tile_counts));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[4] = {};
+  return (int)cudaMemcpyToSymbol(g_tile_counts, zero, sizeof(zero));
 }

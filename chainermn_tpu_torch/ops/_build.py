@@ -4,10 +4,11 @@ Each kernel is CUDA C++ for ``sm_90a`` with a plain C entry point,
 compiled by ``nvcc`` into ``chainermn_tpu_torch/build/`` and loaded with
 ``ctypes`` — seconds per build, where a source that includes PyTorch's
 headers takes minutes. A library's sources compile to objects by one
-``nvcc`` each, all started together, and one more call links them. A
-library is rebuilt when the hash of its sources, headers and flags
-changes. Nothing is built at import: the first call of a kernel's
-wrapper on a CUDA tensor builds it.
+``nvcc`` each, all started together, and one more call links them
+(``chainermn_tpu_torch/tools/build_times.py`` times this against one
+``nvcc`` over all the sources). A library is rebuilt when the hash of
+its sources, headers and flags changes. Nothing is built at import: the
+first call of a kernel's wrapper on a CUDA tensor builds it.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -66,6 +68,24 @@ def _run(name: str, cmd: Sequence[str]) -> None:
         )
 
 
+def compile_library(name: str, paths: Sequence[Path], out: Path) -> None:
+    """Build the shared library ``out`` from ``paths``: one ``nvcc -c``
+    per source, all started together, then a link. The objects live in a
+    temporary directory beside ``out`` that goes whether or not nvcc
+    succeeds."""
+    nvcc = find_nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, f"{p.stem}.o") for p in paths]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                for p, o in zip(paths, objs)]
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            list(pool.map(lambda c: _run(name, c), cmds))
+        lib = os.path.join(tmp, out.name)
+        _run(name, [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs])
+        os.replace(lib, out)
+
+
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """Build (if needed) and load ``lib<name>`` from ``sources`` (file
     names under ``csrc/``). Cached per process."""
@@ -80,18 +100,7 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     t0 = time.perf_counter()
     built = False
     if not out.exists():
-        nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
-        objs = [f"{tmp}.{p.stem}.o" for p in paths]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
-                for p, o in zip(paths, objs)]
-        with ThreadPoolExecutor(len(cmds)) as pool:
-            list(pool.map(lambda c: _run(name, c), cmds))
-        _run(name, [nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.so", *objs])
-        os.replace(f"{tmp}.so", out)
-        for o in objs:
-            os.remove(o)
+        compile_library(name, paths, out)
         built = True
     lib = ctypes.CDLL(str(out))
     BUILD_LOG[name] = {"path": str(out),

@@ -13,7 +13,8 @@ one library from :data:`SOURCES`:
 The input dtype picks the kernel: fp32 runs all three on CUDA cores
 (``csrc/flash_attention.cu``); bf16 runs K1 there and K2/K3 on tensor
 cores with a segment-aware tile skip (``csrc/flash_attention_bwd_sm90.cu``,
-the rule in :func:`_live_tiles`). A masked (query, key) entry gives
+the rule in :func:`_live_tiles`; :func:`tile_counts` reads what the
+kernels visited and skipped). A masked (query, key) entry gives
 ``p = 0`` in the backward, also on a row that sees no key, so the answer
 does not depend on which tiles a kernel visits.
 
@@ -74,8 +75,9 @@ class _Params(ctypes.Structure):
 
 
 def load_kernel():
-    """The library's three C entry points, built by ``nvcc`` and bound on
-    first use (raises when the library cannot be built)."""
+    """The library's C entry points (three launches and the tile-count
+    reader), built by ``nvcc`` and bound on first use (raises when the
+    library cannot be built)."""
     global _lib
     if _lib is None:
         from chainermn_tpu_torch.ops._build import load_library
@@ -86,8 +88,25 @@ def load_kernel():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.flash_bwd_tile_counts.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong)]
+        lib.flash_bwd_tile_counts.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def tile_counts():
+    """``{"dq": (visited, skipped), "dkv": (visited, skipped)}``: the
+    (q tile, k tile, q head) triples of the causal/window band that the
+    bf16 K2 and K3 visited and skipped by segment ranges since the last
+    call, as the kernels counted them on the current card; resets the
+    counts. Waits for the card."""
+    out = (ctypes.c_ulonglong * 4)()
+    err = load_kernel().flash_bwd_tile_counts(out)
+    if err != 0:
+        raise RuntimeError(f"reading the tile counts failed: CUDA error "
+                           f"{err}")
+    return {"dq": (out[0], out[1]), "dkv": (out[2], out[3])}
 
 
 # ---------------------------------------------------------------- checks
@@ -241,8 +260,9 @@ def _live_tiles(seg_q, seg_k, tile: int = TILE):
     ranges overlap, the rule by which the bf16 K2/K3 skip a tile pair
     before loading it (ragged tail tiles reduce over their in-range ids).
     A pair marked False holds no equal ids, so its mask is all False,
-    whatever the ids' order. Not on the main path: tests and
-    ``chip_smoke.py`` count the skipped tiles with it."""
+    whatever the ids' order. Not on the main path: tests check the rule
+    with it, and ``chip_smoke.py`` holds the kernels' own counts
+    (:func:`tile_counts`) against it."""
 
     def ranges(seg):
         B, T = seg.shape
@@ -356,18 +376,22 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, seg_q=None,
     return out, lse
 
 
+def _on_16_bytes(t):
+    """``t``, or a contiguous copy of it where its base or its batch,
+    token or head stride is off the 16-byte grid on which the bf16 K2/K3
+    copy rows (the model's own q/k/v views are on it)."""
+    if t.data_ptr() % 16 or any(t.stride(i) * t.element_size() % 16
+                                for i in range(3)):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
 def _bwd_params(q, k, v, do, lse, delta, *, causal, scale, seg_q, seg_k,
                 bias, window, q_offset):
     """The kernel-call record of K2/K3, checked; lse/delta as contiguous
-    fp32. The bf16 kernels copy q, k, v and dO rows 16 bytes at a time,
-    so those need their base and batch/token/head strides on 16 bytes."""
+    fp32; in bf16, q, k, v and dO on the kernels' 16-byte grid."""
     if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-            if t.data_ptr() % 16 or any(t.stride(i) * 2 % 16
-                                        for i in range(3)):
-                raise ValueError(f"{name} must start on 16 bytes with "
-                                 "batch, token and head strides that are "
-                                 "multiples of 8 elements (bf16 backward)")
+        q, k, v, do = map(_on_16_bytes, (q, k, v, do))
     bias = _f32(bias)
     p = _params(q, k, v, seg_q, seg_k, bias, causal=causal, scale=scale,
                 window=window, q_offset=q_offset)
@@ -380,7 +404,7 @@ def _bwd_params(q, k, v, do, lse, delta, *, causal, scale, seg_q, seg_k,
     p.do_sb, p.do_st, p.do_sh = do.stride(0), do.stride(1), do.stride(2)
     p.lse, p.delta = lse.data_ptr(), delta.data_ptr()
     # the converted inputs must outlive the launch that reads them
-    p.keep_alive = (lse, delta, bias)
+    p.keep_alive = (q, k, v, do, lse, delta, bias)
     return p
 
 

@@ -39,9 +39,13 @@ script exits non-zero without its final ``ok`` line:
    256-wide window, a bias with its gradient (B 2, T 256), odd T = 1000,
    the block entries with ``q_offset = 1536``, query rows that see no key
    (their dq must be exactly 0), and head dims 32 and 128 (packed). bf16
-   runs K2/K3 on the tensor-core kernels, fp32 on the CUDA-core ones; each
-   bf16 case prints the tiles K2/K3 visit and skip by segment ranges
-   (``_live_tiles``). In bf16 each kernel,
+   runs K2/K3 on the tensor-core kernels, fp32 on the CUDA-core ones. The
+   tensor-core kernels count on the card the tiles they visit and skip by
+   segment ranges; each case prints those counts on a ``tiles:`` line
+   beside what ``_live_tiles``'s rule predicts, and they must agree (zero
+   in fp32; some skipped in the packed case). bf16 operands off the
+   kernels' 16-byte grid must give the gradients of their contiguous
+   copies bit for bit. In bf16 each kernel,
    the plain versions and one library call (``scaled_dot_product_attention``
    forward, and its backward as forward+backward minus forward — a
    yardstick the port never calls) are timed, with each shape's least
@@ -53,7 +57,9 @@ script exits non-zero without its final ``ok`` line:
    ``create_multi_node_optimizer(AdamW(3e-4, weight_decay=1e-4))`` ->
    ``create_train_state`` -> ``make_train_step``. The loss must be finite
    and fall, and K1, K2 and K3 must each launch ``num_layers x 30``
-   times; then a ``torch.profiler`` window over one more step.
+   times, and K2/K3's counted tiles visited and skipped must equal the
+   rule's prediction over the 30 batches (some skipped); then a
+   ``torch.profiler`` window over one more step.
 8. Gradient equivalence: at fp32 (TF32 off), 2 layers at full width,
    B 2 x T 512 with segments, the loss and every parameter gradient with
    ``attention_fn=flash_attention`` against ``attention(impl='xla')``.
@@ -469,9 +475,10 @@ def _flash_work(fa, q, k, kw):
 
 
 def _tiles(torch, F, fa, q, k, kw):
-    """(visited, skipped) (q tile, k tile, q head) triples of the bf16 K2
-    and K3 on these inputs: the tiles of the causal/window band that
-    ``_live_tiles``'s segment rule keeps and drops."""
+    """The (visited, skipped) (q tile, k tile, q head) triples that the
+    bf16 K2 and K3 should count on these inputs: the tiles of the
+    causal/window band that ``_live_tiles``'s segment rule keeps and
+    drops (a prediction from the inputs; the kernels count their own)."""
     B, Tq, H, _ = q.shape
     Tk, t = k.shape[1], fa.TILE
     nq, nk = -(-Tq // t), -(-Tk // t)
@@ -540,12 +547,14 @@ def phase_flash_kernels(torch, np, F):
             else:
                 out, lse = fa.flash_fwd(q, k, v, **kw)
             delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+            fa.tile_counts()  # zero the kernels' counts
             if shape.get("block"):
                 got = fa.flash_block_bwd(q, k, v, do, lse, delta, **bkw)
             else:
                 got = fa.flash_bwd(q, k, v, do, lse, delta,
                                    bias_grad=bias_grad, **kw)
             torch.cuda.synchronize()
+            counted = fa.tile_counts()
             ro, rl = fa.flash_attention_fwd_reference(q, k, v, **kw)
             want = fa.flash_attention_bwd_reference(
                 q, k, v, do, lse, delta, bias_grad=bias_grad, **kw)
@@ -564,9 +573,23 @@ def phase_flash_kernels(torch, np, F):
                 row["no_key_dq_max_abs"] = dead.abs().max().item()
                 ok &= (row["no_key_dq_max_abs"] == 0.0
                        and bool((out[:, :NO_KEY_ROWS] == 0).all()))
+            # fp32 runs the CUDA-core K2/K3, which count nothing; bf16 the
+            # tensor-core ones, whose counts must match the rule
+            predicted = (_tiles(torch, F, fa, q, k, kw)
+                         if dtype == torch.bfloat16 else (0, 0))
+            print("tiles:", json.dumps({
+                "case": name, "dtype": row["dtype"],
+                "counted_by_kernels": counted,
+                "predicted_by_live_tiles": predicted}), flush=True)
+            if any(c != predicted for c in counted.values()) or (
+                    name == "packed" and dtype == torch.bfloat16
+                    and predicted[1] == 0):
+                raise AssertionError(
+                    f"K2/K3 {name} {dtype}: tiles counted (visited, "
+                    f"skipped) {counted} != the rule's {predicted}, or the "
+                    "packed case skipped none")
             if dtype == torch.bfloat16:  # the training dtype: time it
-                row["tiles_visited"], row["tiles_skipped"] = _tiles(
-                    torch, F, fa, q, k, kw)
+                row["tiles"] = counted
                 work, pairs = _flash_work(fa, q, k, kw)
                 lib_fwd, lib_fwd_bwd = _sdpa_attention(torch, F, fa, q, k,
                                                        v, do, kw)
@@ -607,7 +630,32 @@ def phase_flash_kernels(torch, np, F):
                     f"that see no key {row.get('no_key_dq_max_abs')}")
             rows.append(row)
             del q, k, v, do, out, lse, got, ro, rl, want
+    _odd_views(torch, np, fa)
     return rows
+
+
+def _odd_views(torch, np, fa):
+    """bf16 q, k, v and dO whose base and strides are off the 16-byte grid
+    (views of a wider tensor, one element in) get the gradients of their
+    contiguous copies, bit for bit: the wrapper hands the tensor-core
+    K2/K3 an aligned copy."""
+    q, k, v, do, kw = _flash_inputs(torch, np, torch.bfloat16, 99, B=2,
+                                    T=256, H=8, Hkv=8, D=65, seg=True)
+    odd = [x[..., 1:] for x in (q, k, v, do)]
+    same = [x.contiguous() for x in odd]
+    got = {}
+    for label, (oq, ok_, ov, odo) in (("odd", odd), ("contiguous", same)):
+        out, lse = fa.flash_fwd(oq, ok_, ov, **kw)
+        delta = (odo.float() * out.float()).sum(-1).transpose(1, 2)
+        got[label] = fa.flash_bwd(oq, ok_, ov, odo, lse, delta, **kw)
+    equal = [torch.equal(a, b) for a, b in zip(got["odd"],
+                                                 got["contiguous"])]
+    print(f"odd views: bf16 dq/dk/dv of operands off the 16-byte grid "
+          f"(base {odd[0].data_ptr() % 16} bytes past it, token stride "
+          f"{odd[0].stride(1)} elements) equal those of their contiguous "
+          f"copies: {equal}", flush=True)
+    if not all(equal):
+        raise AssertionError(f"odd views changed the gradients: {equal}")
 
 
 # ---------------------------------------------------------------- phase 7
@@ -686,6 +734,7 @@ def phase_training(torch, np):
     torch.cuda.reset_peak_memory_stats()
     for name in fa.LAUNCHES:
         fa.LAUNCHES[name] = 0
+    fa.tile_counts()  # zero the kernels' counts
     losses, step_ms = [], []
     for batch in batches[:TRAIN_STEPS]:
         t0 = time.perf_counter()
@@ -693,18 +742,28 @@ def phase_training(torch, np):
         losses.append(float(metrics["loss"]))  # waits for the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = dict(fa.LAUNCHES)
+    counted = fa.tile_counts()
     peak = torch.cuda.max_memory_allocated()
     steady = sorted(step_ms[TRAIN_WARMUP:])
     p50 = statistics.median(steady)
     p99 = steady[min(len(steady) - 1, -(-99 * len(steady) // 100) - 1)]
     expected = model.num_layers * TRAIN_STEPS
+    shape = torch.empty(8, 2048, model.num_heads, 0, device="cuda")
+    per_batch = [_tiles(torch, torch.nn.functional, fa, shape, shape,
+                        dict(causal=True, window=None, q_offset=0,
+                             seg_q=seg, seg_k=seg))
+                 for _, seg in batches[:TRAIN_STEPS]]
+    # each layer's K2 and K3 see the batch's segments once a step
+    predicted = tuple(model.num_layers * sum(n) for n in zip(*per_batch))
+    tiles = {"counted_by_kernels": counted,
+             "predicted_by_live_tiles": predicted}
     summary = {
         "steps": TRAIN_STEPS, "tokens_per_step": tokens_per_step,
         "loss": {str(i): losses[i - 1] for i in (1, 10, 20, 30)},
         "step_ms_p50": p50, "step_ms_p99": p99,
         "step_ms_first": step_ms[0], "tokens_per_s": tokens_per_step
         / (p50 / 1e3), "peak_memory_bytes": peak, "launches": launches,
-        "expected_launches": expected}
+        "expected_launches": expected, "tiles": tiles}
     print("training summary", json.dumps(summary), flush=True)
     print(f"training: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
           f"{TRAIN_STEPS} steps, step p50 {p50:.3f} ms p99 {p99:.3f} ms "
@@ -720,6 +779,10 @@ def phase_training(torch, np):
     if any(n != expected for n in launches.values()):
         raise AssertionError(f"K1/K2/K3 launches {launches} != num_layers "
                              f"x steps = {expected}")
+    if any(c != predicted for c in counted.values()) or not predicted[1]:
+        raise AssertionError(f"K2/K3 tiles (visited, skipped) over the run "
+                             f"{tiles} disagree with the rule, or none was "
+                             "skipped")
 
     def one_step():
         nonlocal state
@@ -900,9 +963,11 @@ def main() -> int:
                        **({"ms": r["ms"][key],
                            "plain_ms": r["plain_ms"][key],
                            "library_ms": r["library_ms"][key],
-                           "tiles_visited": r["tiles_visited"],
-                           "tiles_skipped": r["tiles_skipped"],
-                           **r["bound"][key]} if "ms" in r else {})}
+                           **r["bound"][key]} if "ms" in r else {}),
+                       # counted by K2/K3 themselves; K1 skips no tile
+                       **({"tiles_visited": r["tiles"][key][0],
+                           "tiles_skipped": r["tiles"][key][1]}
+                          if key in r.get("tiles", {}) else {})}
                       for r in flash_rows],
         })
     print(json.dumps(kernels), flush=True)

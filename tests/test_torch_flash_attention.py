@@ -243,6 +243,33 @@ def test_loading_the_library_without_nvcc_raises(monkeypatch, tmp_path):
     assert fa._lib is None
 
 
+@pytest.mark.parametrize("fails", [False, True])
+def test_a_build_leaves_only_its_library(monkeypatch, tmp_path, fails):
+    """One ``nvcc -c`` per source, then a link: the objects go with their
+    temporary directory whether or not a compile fails, and a failure
+    raises with nvcc's output and leaves no library."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        "out=''\nprev=''\n"
+        "for a in \"$@\"; do [ \"$prev\" = -o ] && out=$a; prev=$a; done\n"
+        ": > \"$out\"\n"
+        + ("case \"$*\" in *_sm90.cu*) echo bad source >&2; exit 1;; esac\n"
+           if fails else "") + "exit 0\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    build = tmp_path / "build"
+    out = build / "libflash_attention_test.so"
+    paths = [_build.CSRC_DIR / s for s in fa.SOURCES]
+    if fails:
+        with pytest.raises(RuntimeError, match="bad source"):
+            _build.compile_library("flash_attention", paths, out)
+        assert list(build.iterdir()) == []
+    else:
+        _build.compile_library("flash_attention", paths, out)
+        assert list(build.iterdir()) == [out]
+
+
 # ------------------------------------------------- rows that see no key
 
 def _no_key_inputs(seed):
@@ -377,22 +404,29 @@ def test_the_library_is_built_from_every_kernel_source(monkeypatch):
 
 
 def test_bf16_backward_rejects_rows_it_cannot_copy():
-    """The bf16 backward kernels copy rows 16 bytes at a time: an operand
-    whose base or strides are off that grid is refused before any launch,
-    with the model's own layout (q/k/v views of one fused product)
-    accepted."""
+    """The bf16 backward kernels copy rows 16 bytes at a time: the model's
+    own layout (q/k/v views of one fused product) goes to them as it is,
+    and an operand whose base or strides are off that grid is replaced by
+    a contiguous copy with the same values before any launch."""
     B_, T, H_, D_ = 1, 8, 2, 32
-    qkv = torch.zeros(B_, T, 3 * H_ * D_, dtype=torch.bfloat16)
+    qkv = torch.randn(B_, T, 3 * H_ * D_).to(torch.bfloat16)
     q, k, v = (t.reshape(B_, T, H_, D_)
                for t in torch.split(qkv, H_ * D_, dim=-1))
     lse = torch.zeros(B_, H_, T)
     kw = dict(causal=True, scale=0.1, seg_q=None, seg_k=None, bias=None,
               window=None, q_offset=0)
-    fa._bwd_params(q, k, v, q, lse, lse, **kw)
-    wide = torch.zeros(B_, T, H_, D_ + 4, dtype=torch.bfloat16)
-    off = wide[..., 4:]  # 8 bytes past the grid
-    with pytest.raises(ValueError, match="16 bytes"):
-        fa._bwd_params(off, k, v, q, lse, lse, **kw)
+    p = fa._bwd_params(q, k, v, q, lse, lse, **kw)
+    assert (p.q, p.k, p.v, p.dout) == tuple(
+        t.data_ptr() for t in (q, k, v, q))
+    wide = torch.randn(B_, T, H_, D_ + 4).to(torch.bfloat16)
+    off = wide[..., 4:]  # 8 bytes past the grid, strides off it too
+    p = fa._bwd_params(off, k, v, off, lse, lse, **kw)
+    copy = p.keep_alive[0]
+    assert p.q == copy.data_ptr() != off.data_ptr()
+    assert p.q % 16 == 0 and copy.is_contiguous()
+    assert (p.q_sb, p.q_st, p.q_sh) == copy.stride()[:3]
+    assert torch.equal(copy, off)
+    assert p.k == k.data_ptr()
 
 
 # ------------------------------------------------- the tile skip
