@@ -1,7 +1,8 @@
-// Flash attention, forward and backward, for Hopper (sm_90a): the forward
-// at both dtypes and the fp32 backward on CUDA cores. The bf16 backward
-// runs on tensor cores in flash_attention_bwd_sm90.cu; dispatch() below
-// picks by the input dtype.
+// Flash attention, forward and backward, for Hopper (sm_90a): the fp32
+// forward and backward on CUDA cores, and the library's C entry points.
+// bf16 runs on tensor cores: the forward in flash_attention_fwd_sm90.cu,
+// the backward in flash_attention_bwd_sm90.cu; dispatch() below picks by
+// the input dtype.
 //
 // Three kernels replace the Pallas TPU kernels of
 // chainermn_tpu/ops/flash_attention.py:
@@ -41,16 +42,16 @@
 //   of scores from fp32 copies of the tiles in shared memory (rows padded
 //   by one float so lane-per-row reads hit distinct banks) and owns a
 //   4 x D/16 block of the output accumulators. Products run on fp32 CUDA
-//   cores: simple and exact for fp32. K1 takes fp32 and bf16; K2 and K3
-//   here take fp32 only, the bf16 backward having its own tensor-core
-//   kernels; K1 on tensor cores is later work;
+//   cores: simple and exact for fp32. The kernels here take fp32 only; bf16
+//   has its own tensor-core kernels (K1 flash_fwd_mma_kernel, K2/K3
+//   flash_dq_mma_kernel and flash_dkv_mma_kernel);
 // - the public layout is BTHD and the kernels address it through the
 //   tensors' batch, token and head strides, so no operand is transposed
 //   or copied; ragged tails are masked, so any T runs.
 //
 // Numerics follow the TPU kernels: scores = (q . k in fp32) * scale
 // (+ bias), masked scores = NEG_INF (-1e30), in K1 p = mask ? exp(s -
-// m_new) : 0 with P rounded to V's dtype before PV; O = 0 and LSE =
+// m_new) : 0 (P needs no rounding on fp32 V); O = 0 and LSE =
 // NEG_INF where the row sum is 0. K2 and K3 re-derive p = mask ? exp(s -
 // lse) : 0 from the saved LSE: a masked entry gives exactly 0, also on a
 // row that saw no key (LSE = NEG_INF, where exp(s - lse) alone would be
@@ -63,7 +64,6 @@
 // Each host entry launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,22 +76,6 @@ namespace {
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 scores each
 constexpr int kPad = kTile + 1;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// x rounded to T's precision (the TPU kernels' astype before a product).
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // Reductions over the 16 lanes that hold one row (a half warp).
 __device__ __forceinline__ float row_max(float x) {
@@ -106,14 +90,14 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // Rows [r0, r0 + 64) of one (batch, head) slice of a BTHD tensor into
-// shared memory [64][D + 1] as fp32; rows at or past n are zero.
-template <typename T, int D>
-__device__ void load_rows(float* dst, const T* src, int64_t row_stride,
+// shared memory [64][D + 1]; rows at or past n are zero.
+template <int D>
+__device__ void load_rows(float* dst, const float* src, int64_t row_stride,
                           int r0, int n) {
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D, d = i % D;
     float x = 0.f;
-    if (r0 + r < n) x = to_float(src[(int64_t)(r0 + r) * row_stride + d]);
+    if (r0 + r < n) x = src[(int64_t)(r0 + r) * row_stride + d];
     dst[r * (D + 1) + d] = x;
   }
 }
@@ -204,7 +188,7 @@ __host__ __device__ constexpr size_t fwd_smem() {
          sizeof(int) * 2 * kTile;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const FlashParams p) {
   constexpr int DJ = D / 16;
@@ -218,11 +202,11 @@ flash_fwd_kernel(const FlashParams p) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  load_rows<T, D>(Qs, qb, p.q_st, q0, p.Tq);
+  load_rows<D>(Qs, qb, p.q_st, q0, p.Tq);
   if (p.seg_q != nullptr) load_seg(sq, p.seg_q + b * p.segq_sb, q0, p.Tq);
 
   float m[4], l[4], acc[4][DJ];
@@ -239,8 +223,8 @@ flash_fwd_kernel(const FlashParams p) {
   for (int t = t0; t < t1; ++t) {
     const int k0 = t * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_rows<T, D>(Ks, kb, p.k_st, k0, p.Tk);
-    load_rows<T, D>(Vs, vb, p.v_st, k0, p.Tk);
+    load_rows<D>(Ks, kb, p.k_st, k0, p.Tk);
+    load_rows<D>(Vs, vb, p.v_st, k0, p.Tk);
     if (p.seg_k != nullptr) load_seg(sk, p.seg_k + b * p.segk_sb, k0, p.Tk);
     __syncthreads();
 
@@ -266,7 +250,7 @@ flash_fwd_kernel(const FlashParams p) {
         // otherwise give exp(0) = 1 per entry)
         const float pr = ok[j] ? expf(s[i][j] - m_new) : 0.f;
         sum += pr;
-        Ps[r * kPad + tx + 16 * j] = round_as(pr, static_cast<const T*>(p.v));
+        Ps[r * kPad + tx + 16 * j] = pr;
       }
       const float corr = expf(m[i] - m_new);
       l[i] = l[i] * corr + row_sum(sum);
@@ -278,7 +262,7 @@ flash_fwd_kernel(const FlashParams p) {
     p_times<D>(Ps, Vs, acc);
   }
 
-  T* out = static_cast<T*>(p.out);
+  float* out = static_cast<float*>(p.out);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
@@ -287,8 +271,8 @@ flash_fwd_kernel(const FlashParams p) {
     const float denom = fmaxf(l[i], 1e-37f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      store(out + (((int64_t)b * p.Tq + qi) * p.H + h) * D + tx + 16 * j,
-            live ? acc[i][j] / denom : 0.f);
+      out[(((int64_t)b * p.Tq + qi) * p.H + h) * D + tx + 16 * j] =
+          live ? acc[i][j] / denom : 0.f;
     if (tx == 0)
       p.lse_out[((int64_t)b * p.H + h) * p.Tq + qi] =
           live ? m[i] + logf(denom) : kNegInf;
@@ -324,8 +308,8 @@ flash_dq_kernel(const FlashParams p) {
   const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  load_rows<float, D>(Qs, qb, p.q_st, q0, p.Tq);
-  load_rows<float, D>(DOs, dob, p.do_st, q0, p.Tq);
+  load_rows<D>(Qs, qb, p.q_st, q0, p.Tq);
+  load_rows<D>(DOs, dob, p.do_st, q0, p.Tq);
   if (p.seg_q != nullptr) load_seg(sq, p.seg_q + b * p.segq_sb, q0, p.Tq);
   float lse[4], delta[4], acc[4][DJ];
 #pragma unroll
@@ -343,8 +327,8 @@ flash_dq_kernel(const FlashParams p) {
   for (int t = t0; t < t1; ++t) {
     const int k0 = t * kTile;
     __syncthreads();
-    load_rows<float, D>(Ks, kb, p.k_st, k0, p.Tk);
-    load_rows<float, D>(Vs, vb, p.v_st, k0, p.Tk);
+    load_rows<D>(Ks, kb, p.k_st, k0, p.Tk);
+    load_rows<D>(Vs, vb, p.v_st, k0, p.Tk);
     if (p.seg_k != nullptr) load_seg(sk, p.seg_k + b * p.segk_sb, k0, p.Tk);
     __syncthreads();
 
@@ -405,8 +389,8 @@ flash_dkv_kernel(const FlashParams p) {
   const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  load_rows<float, D>(Ks, kb, p.k_st, k0, p.Tk);
-  load_rows<float, D>(Vs, vb, p.v_st, k0, p.Tk);
+  load_rows<D>(Ks, kb, p.k_st, k0, p.Tk);
+  load_rows<D>(Vs, vb, p.v_st, k0, p.Tk);
   if (p.seg_k != nullptr) load_seg(sk, p.seg_k + b * p.segk_sb, k0, p.Tk);
 
   float dk[4][DJ], dv[4][DJ];
@@ -442,8 +426,8 @@ flash_dkv_kernel(const FlashParams p) {
         continue;
       }
       __syncthreads();  // the previous tile's readers are done
-      load_rows<float, D>(Qs, qb, p.q_st, q0, p.Tq);
-      load_rows<float, D>(DOs, dob, p.do_st, q0, p.Tq);
+      load_rows<D>(Qs, qb, p.q_st, q0, p.Tq);
+      load_rows<D>(DOs, dob, p.do_st, q0, p.Tq);
       if (p.seg_q != nullptr) load_seg(sq, p.seg_q + b * p.segq_sb, q0, p.Tq);
       for (int i = threadIdx.x; i < kTile; i += kThreads) {
         const int qi = q0 + i;
@@ -534,12 +518,11 @@ cudaError_t by_head_dim(int D, F f) {
   }
 }
 
-template <typename T>
-cudaError_t launch_fwd(const FlashParams& p, cudaStream_t s) {
+cudaError_t launch_fwd_f32(const FlashParams& p, cudaStream_t s) {
   const dim3 grid((p.Tq + kTile - 1) / kTile, p.H, p.B);
   return by_head_dim(p.D, [&](auto d) {
     constexpr int D = decltype(d)::value;
-    return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), grid, p, s);
+    return launch(flash_fwd_kernel<D>, fwd_smem<D>(), grid, p, s);
   });
 }
 
@@ -566,13 +549,11 @@ int dispatch(Which which, const FlashParams* p, void* stream) {
     return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // By input dtype, never as a fallback: fp32 runs every kernel here
-  // (exact on CUDA cores), bf16 its forward here and its backward on the
-  // tensor-core kernels.
-  if (p->dtype == 0 && which == kFwd) return (int)launch_fwd<float>(*p, s);
+  // (exact on CUDA cores), bf16 every kernel on the tensor cores.
+  if (p->dtype == 0 && which == kFwd) return (int)launch_fwd_f32(*p, s);
   if (p->dtype == 0 && which == kDq) return (int)launch_dq_f32(*p, s);
   if (p->dtype == 0) return (int)launch_dkv_f32(*p, s);
-  if (p->dtype == 1 && which == kFwd)
-    return (int)launch_fwd<__nv_bfloat16>(*p, s);
+  if (p->dtype == 1 && which == kFwd) return (int)flash_fwd_bf16(*p, s);
   if (p->dtype == 1 && which == kDq) return (int)flash_dq_bf16(*p, s);
   if (p->dtype == 1) return (int)flash_dkv_bf16(*p, s);
   return (int)cudaErrorInvalidValue;

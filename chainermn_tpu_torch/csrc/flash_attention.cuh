@@ -1,7 +1,8 @@
 // What the flash-attention sources share: the launch record that
 // ops/flash_attention.py::_Params mirrors, the mask rule and the band of
-// tiles a CTA visits, and the entry points of the bf16 backward kernels
-// (flash_attention_bwd_sm90.cu) that flash_attention.cu dispatches to.
+// tiles a CTA visits, and the entry points of the bf16 tensor-core
+// kernels (flash_attention_fwd_sm90.cu, flash_attention_bwd_sm90.cu) that
+// flash_attention.cu dispatches to.
 
 #pragma once
 
@@ -32,8 +33,11 @@ struct FlashParams {
   float scale;
 };
 
-// The bf16 backward on tensor cores (flash_attention_bwd_sm90.cu); each
-// launches on `stream` and returns cudaGetLastError().
+// The bf16 kernels on tensor cores: the forward
+// (flash_attention_fwd_sm90.cu) and the backward
+// (flash_attention_bwd_sm90.cu); each launches on `stream` and returns
+// cudaGetLastError().
+cudaError_t flash_fwd_bf16(const FlashParams& p, cudaStream_t stream);
 cudaError_t flash_dq_bf16(const FlashParams& p, cudaStream_t stream);
 cudaError_t flash_dkv_bf16(const FlashParams& p, cudaStream_t stream);
 

@@ -11,12 +11,13 @@ one library from :data:`SOURCES`:
   full dbias.
 
 The input dtype picks the kernel: fp32 runs all three on CUDA cores
-(``csrc/flash_attention.cu``); bf16 runs K1 there and K2/K3 on tensor
-cores with a segment-aware tile skip (``csrc/flash_attention_bwd_sm90.cu``,
-the rule in :func:`_live_tiles`; :func:`tile_counts` reads what the
-kernels visited and skipped). A masked (query, key) entry gives
-``p = 0`` in the backward, also on a row that sees no key, so the answer
-does not depend on which tiles a kernel visits.
+(``csrc/flash_attention.cu``); bf16 runs all three on tensor cores with
+a segment-aware tile skip, K1 from ``csrc/flash_attention_fwd_sm90.cu``
+and K2/K3 from ``csrc/flash_attention_bwd_sm90.cu`` (the rule in
+:func:`_live_tiles`; :func:`tile_counts` reads what the kernels visited
+and skipped). A masked (query, key) entry gives ``p = 0`` in the forward
+and the backward, also on a row that sees no key, so the answer does not
+depend on which tiles a kernel visits.
 
 Each kernel has a wrapper and a plain PyTorch version in this module. On
 CUDA tensors a wrapper launches its kernel or raises; on CPU tensors, and
@@ -51,7 +52,8 @@ LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 #: the library's sources under ``csrc/``, compiled together
-SOURCES = ("flash_attention.cu", "flash_attention_bwd_sm90.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_fwd_sm90.cu",
+           "flash_attention_bwd_sm90.cu")
 #: the kernels' tile: rows of a q tile and keys of a k tile
 TILE = 64
 _lib = None
@@ -75,9 +77,9 @@ class _Params(ctypes.Structure):
 
 
 def load_kernel():
-    """The library's C entry points (three launches and the tile-count
-    reader), built by ``nvcc`` and bound on first use (raises when the
-    library cannot be built)."""
+    """The library's C entry points (three launches and the two
+    tile-count readers), built by ``nvcc`` and bound on first use (raises
+    when the library cannot be built)."""
     global _lib
     if _lib is None:
         from chainermn_tpu_torch.ops._build import load_library
@@ -88,25 +90,31 @@ def load_kernel():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.flash_bwd_tile_counts.argtypes = [
-            ctypes.POINTER(ctypes.c_ulonglong)]
-        lib.flash_bwd_tile_counts.restype = ctypes.c_int
+        for name in ("flash_fwd_tile_counts", "flash_bwd_tile_counts"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def tile_counts():
-    """``{"dq": (visited, skipped), "dkv": (visited, skipped)}``: the
+    """``{"fwd": (visited, skipped), "dq": ..., "dkv": ...}``: the
     (q tile, k tile, q head) triples of the causal/window band that the
-    bf16 K2 and K3 visited and skipped by segment ranges since the last
-    call, as the kernels counted them on the current card; resets the
-    counts. Waits for the card."""
-    out = (ctypes.c_ulonglong * 4)()
-    err = load_kernel().flash_bwd_tile_counts(out)
-    if err != 0:
-        raise RuntimeError(f"reading the tile counts failed: CUDA error "
-                           f"{err}")
-    return {"dq": (out[0], out[1]), "dkv": (out[2], out[3])}
+    bf16 K1, K2 and K3 visited and skipped by segment ranges since the
+    last call, as the kernels counted them on the current card; resets
+    all three. Waits for the card."""
+    lib = load_kernel()
+    fwd = (ctypes.c_ulonglong * 2)()
+    bwd = (ctypes.c_ulonglong * 4)()
+    for reader, out in ((lib.flash_fwd_tile_counts, fwd),
+                        (lib.flash_bwd_tile_counts, bwd)):
+        err = reader(out)
+        if err != 0:
+            raise RuntimeError(f"reading the tile counts failed: CUDA "
+                               f"error {err}")
+    return {"fwd": (fwd[0], fwd[1]), "dq": (bwd[0], bwd[1]),
+            "dkv": (bwd[2], bwd[3])}
 
 
 # ---------------------------------------------------------------- checks
@@ -257,7 +265,7 @@ def flash_attention_bwd_reference(q, k, v, do, lse, delta, *, causal: bool,
 
 def _live_tiles(seg_q, seg_k, tile: int = TILE):
     """``[B, nq, nk]`` bool: the (q tile, k tile) pairs whose segment-id
-    ranges overlap, the rule by which the bf16 K2/K3 skip a tile pair
+    ranges overlap, the rule by which the bf16 K1-K3 skip a tile pair
     before loading it (ragged tail tiles reduce over their in-range ids).
     A pair marked False holds no equal ids, so its mask is all False,
     whatever the ids' order. Not on the main path: tests check the rule
@@ -365,9 +373,8 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, seg_q=None,
         return flash_attention_fwd_reference(
             q, k, v, causal=causal, scale=scale, seg_q=seg_q, seg_k=seg_k,
             bias=bias, window=window, q_offset=q_offset)
-    bias = _f32(bias)
-    p = _params(q, k, v, seg_q, seg_k, bias, causal=causal, scale=scale,
-                window=window, q_offset=q_offset)
+    p = _fwd_params(q, k, v, seg_q, seg_k, bias, causal=causal, scale=scale,
+                    window=window, q_offset=q_offset)
     B, Tq, H, D = q.shape
     out = torch.empty(B, Tq, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
@@ -378,12 +385,26 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, seg_q=None,
 
 def _on_16_bytes(t):
     """``t``, or a contiguous copy of it where its base or its batch,
-    token or head stride is off the 16-byte grid on which the bf16 K2/K3
-    copy rows (the model's own q/k/v views are on it)."""
+    token or head stride is off the 16-byte grid on which the bf16
+    kernels copy rows (the model's own q/k/v views are on it)."""
     if t.data_ptr() % 16 or any(t.stride(i) * t.element_size() % 16
                                 for i in range(3)):
         return t.clone(memory_format=torch.contiguous_format)
     return t
+
+
+def _fwd_params(q, k, v, seg_q, seg_k, bias, *, causal, scale, window,
+                q_offset):
+    """The kernel-call record of K1, checked; in bf16, q, k and v on the
+    kernel's 16-byte grid."""
+    if q.dtype == torch.bfloat16:
+        q, k, v = map(_on_16_bytes, (q, k, v))
+    bias = _f32(bias)
+    p = _params(q, k, v, seg_q, seg_k, bias, causal=causal, scale=scale,
+                window=window, q_offset=q_offset)
+    # the converted inputs must outlive the launch that reads them
+    p.keep_alive = (q, k, v, bias)
+    return p
 
 
 def _bwd_params(q, k, v, do, lse, delta, *, causal, scale, seg_q, seg_k,

@@ -3,11 +3,11 @@
 
     python3 chainermn_tpu_torch/tools/build_times.py
 
-The library has two sources (``ops/flash_attention.py::SOURCES``). Two
+The library has three sources (``ops/flash_attention.py::SOURCES``). Two
 builds are timed, each from clean into a scratch directory under
 ``chainermn_tpu_torch/build/``:
 
-- ``one_nvcc``: one ``nvcc -shared`` over both sources;
+- ``one_nvcc``: one ``nvcc -shared`` over all the sources;
 - ``per_source``: what ``_build.load_library`` does — one ``nvcc -c``
   per source, started together, then a link.
 

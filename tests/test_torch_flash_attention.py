@@ -8,10 +8,14 @@ The same numpy inputs go to both sides at fp32. Tolerances are those of
 the port's plain version takes one softmax pass where the kernels take
 the online recurrence.
 
-Two rules the bf16 CUDA backward relies on are held here on the CPU too:
-a masked entry gives p = 0, so rows that see no key get exact zero
-gradients; and the segment tile skip drops only fully masked tiles.
+Two rules the bf16 CUDA kernels rely on are held here on the CPU too: a
+masked entry gives p = 0, so rows that see no key get O = 0 and exact
+zero gradients; and the segment tile skip drops only fully masked
+tiles, which K1's tile loop, emulated here, shows on the forward.
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -431,10 +435,11 @@ def test_bf16_backward_rejects_rows_it_cannot_copy():
 
 # ------------------------------------------------- the tile skip
 #
-# The segment-aware tile skip of the bf16 backward kernels (``_live_tiles``,
+# The segment-aware tile skip of the bf16 kernels (``_live_tiles``,
 # the rule the CUDA kernels apply on the card): a (q tile, k tile) pair it
 # marks dead holds no visible (query, key) pair, for packed documents and
-# for unsorted segment ids alike, so skipping it changes no gradient.
+# for unsorted segment ids alike, so skipping it changes no output or
+# gradient.
 
 def _tile_any(mask, tile):
     """[B, nq, nk]: does the tile hold a True entry (ragged tails padded
@@ -475,3 +480,275 @@ def test_dead_tiles_are_fully_masked(kind, tile, T, seed):
         # rule skips every all-masked tile, and (b)-like rows skip many
         assert torch.equal(live, visible)
         assert bool((~live).any())
+
+
+# ------------------------------------------------- K1's tiled algorithm
+#
+# The bf16 tensor-core K1 (``csrc/flash_attention_fwd_sm90.cu``) runs an
+# online softmax over the 64-key tiles of each 64-row q tile's band,
+# skips the tiles that ``_live_tiles`` drops, keeps scores in base-2
+# units and rounds P to V's dtype before P V. The emulation below does
+# the same in torch ops, so the algorithm (the skip above all) is held
+# against the plain version and the JAX kernel here, where the card
+# is not.
+
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+
+
+def _band_tiles(q0, Tq, Tk, causal, window, q_offset, tile):
+    """The key tiles [t0, t1) that query rows [q0, q0 + tile) can see
+    (``key_tiles`` in ``csrc/flash_attention.cuh``)."""
+    kbeg, kend = 0, Tk
+    if causal:
+        kend = min(Tk, min(q0 + tile, Tq) - 1 + q_offset + 1)
+        if window is not None:
+            kbeg = max(0, q0 + q_offset - window + 1)
+    if kend <= kbeg:
+        return 0, 0
+    return kbeg // tile, -(-kend // tile)
+
+
+def _k1_tiled(q, k, v, *, causal, scale, seg_q=None, seg_k=None,
+              window=None, q_offset=0, tile=fa.TILE):
+    """K1's algorithm, tile by tile: ``(O, LSE, (visited, skipped))``."""
+    B, Tq, H, D = q.shape
+    Tk, group = k.shape[1], H // k.shape[2]
+    mask = fa._mask(q, k, seg_q, seg_k, causal, window, q_offset)
+    if mask is None:
+        mask = torch.ones(1, 1, Tq, Tk, dtype=torch.bool)
+    mask = mask.expand(B, 1, Tq, Tk)[:, 0]
+    nq, nk = -(-Tq // tile), -(-Tk // tile)
+    live = (torch.ones(B, nq, nk, dtype=torch.bool) if seg_q is None
+            else fa._live_tiles(seg_q, seg_k, tile))
+    kf = torch.repeat_interleave(k.float(), group, dim=2)
+    vf = torch.repeat_interleave(v, group, dim=2)
+    out = torch.zeros(B, Tq, H, D)
+    lse = torch.full((B, H, Tq), fa.NEG_INF)
+    visited = skipped = 0
+    for b in range(B):
+        for qt in range(nq):
+            rows = slice(qt * tile, min(qt * tile + tile, Tq))
+            n = rows.stop - rows.start
+            m = torch.full((H, n), fa.NEG_INF)
+            l = torch.zeros(H, n)
+            acc = torch.zeros(H, n, D)
+            t0, t1 = _band_tiles(rows.start, Tq, Tk, causal, window,
+                                 q_offset, tile)
+            for t in range(t0, t1):
+                if not live[b, qt, t]:
+                    skipped += H
+                    continue
+                visited += H
+                keys = slice(t * tile, min(t * tile + tile, Tk))
+                s = torch.einsum("qhd,khd->hqk", q[b, rows].float(),
+                                 kf[b, keys]) * (scale * LOG2E)
+                ok = mask[b, rows, keys][None]
+                s = torch.where(ok, s, torch.tensor(fa.NEG_INF))
+                mx = torch.maximum(m, s.amax(-1))
+                corr = torch.exp2(m - mx)
+                p = torch.where(ok, torch.exp2(s - mx[..., None]),
+                                torch.tensor(0.0))
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + torch.einsum(
+                    "hqk,khd->hqd", p.to(v.dtype).float(),
+                    vf[b, keys].float())
+                m = mx
+            alive = l > 0
+            o = torch.where(alive[..., None], acc / l.clamp_min(1e-37)[
+                ..., None], torch.tensor(0.0))
+            out[b, rows] = o.transpose(0, 1)
+            lse[b, :, rows] = torch.where(
+                alive, m * LN2 + torch.log(l.clamp_min(1e-37)),
+                torch.tensor(fa.NEG_INF))
+    return out.to(q.dtype), lse, (visited, skipped)
+
+
+def _k1_case(name):
+    """(q, k, v, kwargs of the plain forward, JAX block sizes): B 2, 4 q
+    heads over 2 kv heads, head dim 16, at T past two 64-row tiles."""
+    rs = np.random.RandomState(sorted(K1_CASES).index(name))
+    T, Tk, q_offset, window = 200, 200, 0, None
+    seg_q = seg_k = None
+    if name == "packed":
+        _, seg_q = pack_documents(np.random.default_rng(5), B, T)
+        seg_k = seg_q
+    elif name == "unsorted":
+        seg_q = seg_k = rs.randint(0, 3, (B, T)).astype(np.int32)
+    elif name == "no-key-rows":  # the first 16 rows ask for a third id
+        T, Tk, q_offset = 64, 192, 128
+        seg_k = np.repeat((np.arange(Tk) >= Tk // 2)[None], B, 0)
+        seg_k = seg_k.astype(np.int32)
+        seg_q = np.ones((B, T), np.int32)
+        seg_q[:, :16] = 7
+    elif name == "window":
+        window = 50
+    elif name == "odd-T":
+        T = Tk = 131
+        _, seg_q = pack_documents(np.random.default_rng(6), B, T)
+        seg_k = seg_q
+    q = rs.randn(B, T, H, D).astype(np.float32)
+    k = rs.randn(B, Tk, 2, D).astype(np.float32)
+    v = rs.randn(B, Tk, 2, D).astype(np.float32)
+    kw = dict(causal=True, scale=D ** -0.5, window=window, q_offset=q_offset)
+    seg = {} if seg_q is None else dict(seg_q=seg_q, seg_k=seg_k)
+    return q, k, v, kw, seg
+
+
+K1_CASES = ("packed", "unsorted", "no-key-rows", "window", "odd-T")
+
+
+@pytest.mark.parametrize("name", K1_CASES)
+def test_k1_tiled_algorithm_matches_plain_and_jax(name):
+    """K1's tile loop with the skip equals the plain forward and the JAX
+    kernel (interpret mode) at fp32, to ``FWD``."""
+    q, k, v, kw, seg = _k1_case(name)
+    tseg = {n: torch.tensor(s) for n, s in seg.items()}
+    tq, tk, tv = map(torch.tensor, (q, k, v))
+    out, lse, (visited, skipped) = _k1_tiled(tq, tk, tv, **kw, **tseg)
+    want_o, want_lse = fa.flash_attention_fwd_reference(tq, tk, tv, **kw,
+                                                        **tseg)
+    torch.testing.assert_close(out, want_o, **FWD)
+    torch.testing.assert_close(lse, want_lse, **FWD)
+    jseg = ({} if not seg else dict(seg_q=jnp.asarray(seg["seg_q"]),
+                                    seg_kv=jnp.asarray(seg["seg_k"])))
+    jo, jlse = jax_block_fwd(*map(jnp.asarray, (q, k, v)), block_q=64,
+                             block_k=64, interpret=True, **kw, **jseg)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jo), **FWD)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **FWD)
+    if name == "packed":
+        assert skipped > 0  # the skip ran, and changed nothing
+    if name == "no-key-rows":
+        assert float(out[:, :16].abs().max()) == 0.0
+        assert bool((lse[:, :, :16] == fa.NEG_INF).all())
+        assert float(out[:, 16:].abs().max()) > 0.0
+
+
+def test_k1_tiled_algorithm_in_bf16_stays_in_the_cards_tolerance():
+    """In bf16, P rounded against the running max (the kernel) and
+    against the row's max (the plain version) differ by a few bf16 ulps:
+    inside the 2e-2 that ``chip_smoke.py`` holds the kernel to."""
+    q, k, v, kw, seg = _k1_case("packed")
+    tq, tk, tv = (torch.tensor(x).to(torch.bfloat16) for x in (q, k, v))
+    tseg = {n: torch.tensor(s) for n, s in seg.items()}
+    out, lse, _ = _k1_tiled(tq, tk, tv, **kw, **tseg)
+    want_o, want_lse = fa.flash_attention_fwd_reference(tq, tk, tv, **kw,
+                                                        **tseg)
+    assert out.dtype == want_o.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), want_o.float(), rtol=0,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=2e-2)
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("name", K1_CASES)
+def test_the_cards_per_entry_limit_holds_k1s_bf16_algorithm(name):
+    """``chip_smoke.py`` also holds the card's bf16 O and LSE per entry
+    (``ELEMENT_TOL`` at each entry's scale); K1's algorithm in bf16 stays
+    inside it."""
+    q, k, v, kw, seg = _k1_case(name)
+    tq, tk, tv = (torch.tensor(x).to(torch.bfloat16) for x in (q, k, v))
+    tseg = {n: torch.tensor(s) for n, s in seg.items()}
+    out, lse, _ = _k1_tiled(tq, tk, tv, **kw, **tseg)
+    want = fa.flash_attention_fwd_reference(tq, tk, tv, **kw, **tseg)
+    over = _smoke()._per_element_over_limit(out, lse, *want)
+    assert all(x <= 1.0 for x in over.values()), over
+
+
+@pytest.mark.parametrize("name", K1_CASES)
+def test_the_cards_per_entry_limit_catches_a_softmax_scale_1pc_off(name):
+    """A K1 whose softmax scale is 1% off stays inside 2e-2 x max(1,
+    max |plain|) on O and LSE, and fails the per-entry limit."""
+    q, k, v, kw, seg = _k1_case(name)
+    tq, tk, tv = (torch.tensor(x).to(torch.bfloat16) for x in (q, k, v))
+    tseg = {n: torch.tensor(s) for n, s in seg.items()}
+    out, lse, _ = _k1_tiled(tq, tk, tv, **dict(kw, scale=kw["scale"] * 1.01),
+                            **tseg)
+    ro, rl = fa.flash_attention_fwd_reference(tq, tk, tv, **kw, **tseg)
+    for got, want in ((out, ro), (lse, rl)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 * max(1.0, want.float().abs().max().item())
+    over = _smoke()._per_element_over_limit(out, lse, ro, rl)
+    assert max(over.values()) > 1.0, over
+
+
+def test_tile_counts_reads_every_kernels_counters(monkeypatch):
+    """``tile_counts()`` reads K1's counters (the forward's source) and
+    K2's and K3's (the backward's) through their two C readers, each of
+    which also resets its counters, and raises on a CUDA error."""
+    calls = []
+
+    class _Lib:
+        @staticmethod
+        def flash_fwd_tile_counts(out):
+            calls.append("fwd")
+            out[0], out[1] = 7, 3
+            return 0
+
+        @staticmethod
+        def flash_bwd_tile_counts(out):
+            calls.append("bwd")
+            out[0], out[1], out[2], out[3] = 7, 3, 28, 12
+            return 0
+
+    monkeypatch.setattr(fa, "load_kernel", lambda: _Lib)
+    assert fa.tile_counts() == {"fwd": (7, 3), "dq": (7, 3),
+                                "dkv": (28, 12)}
+    assert sorted(calls) == ["bwd", "fwd"]
+
+    def failing(out):
+        return 700
+
+    monkeypatch.setattr(_Lib, "flash_fwd_tile_counts", staticmethod(failing))
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        fa.tile_counts()
+
+
+def test_the_library_lists_the_forward_kernels_source():
+    """The flash library builds the bf16 forward's source too, every
+    listed source and header exists, and the forward's source defines
+    the kernel and the count reader the wrapper binds."""
+    assert "flash_attention_fwd_sm90.cu" in fa.SOURCES
+    assert len(set(fa.SOURCES)) == len(fa.SOURCES)
+    for s in fa.SOURCES:
+        assert (_build.CSRC_DIR / s).is_file(), s
+    assert (_build.CSRC_DIR / "flash_attention_sm90.cuh").is_file()
+    src = (_build.CSRC_DIR / "flash_attention_fwd_sm90.cu").read_text()
+    for name in ("flash_fwd_mma_kernel", "flash_fwd_bf16",
+                 'extern "C" int flash_fwd_tile_counts'):
+        assert name in src, name
+
+
+def test_bf16_forward_copies_rows_it_cannot_read():
+    """The bf16 forward kernel copies rows 16 bytes at a time: the model's
+    own layout (q/k/v views of one fused product) goes to it as it is,
+    and an operand whose base or strides are off that grid is replaced by
+    a contiguous copy with the same values before the launch."""
+    B_, T, H_, D_ = 1, 8, 2, 32
+    qkv = torch.randn(B_, T, 3 * H_ * D_).to(torch.bfloat16)
+    q, k, v = (t.reshape(B_, T, H_, D_)
+               for t in torch.split(qkv, H_ * D_, dim=-1))
+    kw = dict(causal=True, scale=0.1, window=None, q_offset=0)
+    p = fa._fwd_params(q, k, v, None, None, None, **kw)
+    assert (p.q, p.k, p.v) == tuple(t.data_ptr() for t in (q, k, v))
+    wide = torch.randn(B_, T, H_, D_ + 4).to(torch.bfloat16)
+    off = wide[..., 4:]  # 8 bytes past the grid, strides off it too
+    p = fa._fwd_params(q, off, off, None, None, None, **kw)
+    copy_k, copy_v = p.keep_alive[1:3]
+    for ptr, copy, strides in ((p.k, copy_k, (p.k_sb, p.k_st, p.k_sh)),
+                               (p.v, copy_v, (p.v_sb, p.v_st, p.v_sh))):
+        assert ptr == copy.data_ptr() != off.data_ptr()
+        assert ptr % 16 == 0 and copy.is_contiguous()
+        assert strides == copy.stride()[:3]
+        assert torch.equal(copy, off)
+    assert p.q == q.data_ptr()
+    # fp32 goes to the CUDA-core K1, which reads any strides
+    off32 = wide.float()[..., 4:]
+    p = fa._fwd_params(off32, off32, off32, None, None, None, **kw)
+    assert p.q == p.k == p.v == off32.data_ptr()
