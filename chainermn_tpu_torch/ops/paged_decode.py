@@ -5,14 +5,29 @@ against the paged KV pool, one pass over the live blocks, no dense view
 Two versions of one function:
 
 - :func:`paged_flash_decode` — the wrapper. On CUDA tensors it launches
-  the hand-written Hopper kernel (``csrc/paged_decode.cu``, built by
-  ``nvcc`` at first use) or raises; on CPU tensors, and only there, it
-  computes the plain version below. :data:`LAUNCHES` counts the kernel's
-  launches, so a run can show that its main path went through the kernel.
+  a hand-written Hopper kernel (the ``paged_decode`` library, built by
+  ``nvcc`` from :data:`SOURCES` at first use) or raises; on CPU tensors,
+  and only there, it computes the plain version below. The CUDA call
+  takes one of two routes, chosen by dtype and shape alone
+  (:func:`_route`):
+
+  - ``"split"`` — bf16 with ``R = T * (Hq / Hkv) <= 16`` query rows per
+    (slot, kv head), every decode tick of serving:
+    ``paged_decode_split_kernel`` (split-K over the block table, a
+    cp.async ring of bf16 tiles) and ``paged_decode_merge_kernel`` (the
+    splits merged in a fixed order), ``csrc/paged_decode_sm90.cu``; the
+    splits come from :func:`_split_plan`;
+  - ``"rows"`` — everything else (prefill, fp32):
+    ``paged_decode_kernel``, ``csrc/paged_decode.cu``.
+
+  :data:`LAUNCHES` counts the wrapper's calls on CUDA (one per call,
+  whatever the route) and :data:`ROUTE_LAUNCHES` the calls of each
+  route, so a run can show that its main path went through the kernels
+  and which design served which calls.
 - :func:`paged_flash_decode_reference` — the plain PyTorch version:
   gather ``pool[tables]``, the same masks, the same P-to-V-dtype cast and
   the same zero-row rule. The CPU tests hold it against the JAX kernel
-  and ``chip_smoke.py`` holds the CUDA kernel against it.
+  and ``chip_smoke.py`` holds the CUDA kernels against it.
 
 Left for later: ``dense_flash_decode`` (the dense ring through the same
 kernel) and 5-D tensor-parallel stacked pools.
@@ -27,32 +42,90 @@ import torch
 
 from chainermn_tpu_torch.ops.attention import NEG_INF
 
-#: Launches of the CUDA kernel in this process (the wrapper adds one per
-#: launch and nowhere else; callers reset it to 0 before a counted run).
+#: Calls of the wrapper on CUDA tensors in this process: one per call,
+#: whatever the route and however many kernels it runs (the wrapper adds
+#: it where it launches and nowhere else; :func:`reset_launches` zeroes
+#: it with :data:`ROUTE_LAUNCHES` before a counted run).
 LAUNCHES = 0
+#: the same calls by route (:func:`_route`)
+ROUTE_LAUNCHES = {"split": 0, "rows": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
-_launch_fn = None
+#: the library's sources under ``csrc/``, compiled together
+SOURCES = ("paged_decode.cu", "paged_decode_sm90.cu")
+#: query rows per (slot, kv head) up to which bf16 calls take the split
+#: route (the split kernel's q tile: 1, 2, 4, 8 or 16 rows)
+SPLIT_MAX_ROWS = 16
+#: keys per tile of the split kernel's ring (``kKeys`` in
+#: ``csrc/paged_decode_sm90.cu``): P is rounded to bf16 against the
+#: running max of each such tile
+SPLIT_TILE_KEYS = 64
+#: :func:`_split_plan`'s aim: this many CTAs over the card (about eight
+#: per SM of an H100), with no split under this many keys
+SPLIT_TARGET_CTAS = 1024
+SPLIT_MIN_KEYS = 128
+_lib = None
+
+
+def reset_launches():
+    """Zero :data:`LAUNCHES` and :data:`ROUTE_LAUNCHES`."""
+    global LAUNCHES
+    LAUNCHES = 0
+    for route in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[route] = 0
 
 
 def load_kernel():
-    """The kernel's C entry point, built by ``nvcc`` and bound on first
-    use (raises when the library cannot be built)."""
-    global _launch_fn
-    if _launch_fn is None:
+    """The library's two C entry points (``paged_flash_decode_launch``,
+    the rows route; ``paged_flash_decode_split_launch``, the split
+    route), built by ``nvcc`` and bound on first use (raises when the
+    library cannot be built)."""
+    global _lib
+    if _lib is None:
         from chainermn_tpu_torch.ops._build import load_library
 
-        fn = load_library("paged_decode",
-                          ["paged_decode.cu"]).paged_flash_decode_launch
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p,        # q k v tables pos out
-                       i, i, i, i, i, i, i,     # B T Hq Hkv D bs M
-                       i, ctypes.c_float, i, i,  # window scale scratch dt
-                       p]                       # stream
-        fn.restype = ctypes.c_int
-        _launch_fn = fn
-    return _launch_fn
+        lib = load_library("paged_decode", SOURCES)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.paged_flash_decode_launch.argtypes = [
+            p, p, p, p, p, p,        # q k v tables pos out
+            i, i, i, i, i, i, i,     # B T Hq Hkv D bs M
+            i, f, i, i,              # window scale scratch dtype
+            p]                       # stream
+        lib.paged_flash_decode_split_launch.argtypes = [
+            p, p, p, p, p, p, p,     # q k v tables pos out partials
+            i, i, i, i, i, i, i,     # B T Hq Hkv D bs M
+            i, i,                    # P n_splits
+            i, f, i,                 # window scale scratch
+            p]                       # stream
+        for fn in (lib.paged_flash_decode_launch,
+                   lib.paged_flash_decode_split_launch):
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _route(dtype, T, Hq, Hkv, D) -> str:
+    """``"split"`` for bf16 calls of at most :data:`SPLIT_MAX_ROWS`
+    query rows per (slot, kv head) at a head dim the kernels take, else
+    ``"rows"``: dtype and shape decide, never a failure."""
+    if (dtype == torch.bfloat16 and T * (Hq // Hkv) <= SPLIT_MAX_ROWS
+            and D in _HEAD_DIMS):
+        return "split"
+    return "rows"
+
+
+def _split_plan(B: int, Hkv: int, M: int, bs: int):
+    """``(P, n_splits)``: split ``s`` covers logical blocks ``[s * P,
+    (s + 1) * P)`` of a row's table, ``n_splits = ceil(M / P)``. The
+    fewest splits that put :data:`SPLIT_TARGET_CTAS` CTAs (one per
+    split, kv head and slot) on the card, with at least
+    :data:`SPLIT_MIN_KEYS` keys a split where the table has them. Shapes
+    only: the positions and tables stay on the card."""
+    want = -(-SPLIT_TARGET_CTAS // max(1, B * Hkv))
+    P = max(-(-SPLIT_MIN_KEYS // bs), -(-M // want))
+    P = max(1, min(P, M))
+    return P, -(-M // P)
 
 
 def _check_shapes(q, k_pool, v_pool, block_tables, positions, window):
@@ -103,8 +176,8 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, positions, *,
 
     Returns ``[B, T, Hq, D]`` in q's dtype; fp32 accumulation inside.
     On CPU tensors this is :func:`paged_flash_decode_reference`; on CUDA
-    tensors the kernel runs (bf16 or fp32, ``D`` in 32/64/128) or the
-    call raises — there is no fallback.
+    tensors the route's kernels run (bf16 or fp32, ``D`` in 32/64/128)
+    or the call raises — there is no fallback.
     """
     _check_shapes(q, k_pool, v_pool, block_tables, positions, window)
     if q.device.type == "cpu":
@@ -136,24 +209,40 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, positions, *,
                          f"got {D}")
     for name in ("k_pool", "v_pool"):
         if tensors[name].data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
-                             "loads K/V rows as 16-byte vectors)")
+            raise ValueError(f"{name} must be 16-byte aligned (the kernels "
+                             "load K/V rows as 16-byte vectors)")
     scale = float(D ** -0.5 if scale is None else scale)
+    window = -1 if window is None else int(window)
+    scratch = -1 if scratch_block is None else int(scratch_block)
+    M = block_tables.shape[1]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
-    err = load_kernel()(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        B, T, Hq, Hkv, D, bs, block_tables.shape[1],
-        -1 if window is None else int(window), scale,
-        -1 if scratch_block is None else int(scratch_block),
-        _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    route = _route(q.dtype, T, Hq, Hkv, D)
+    lib = load_kernel()
+    if route == "split":
+        if q.data_ptr() % 16:  # the split kernel reads q in 16-byte vectors
+            q = q.clone()
+        P, n_splits = _split_plan(B, Hkv, M, bs)
+        R = T * (Hq // Hkv)
+        part = torch.empty(B * Hkv * n_splits * R * (D + 2),
+                           dtype=torch.float32, device=q.device)
+        err = lib.paged_flash_decode_split_launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            part.data_ptr(), B, T, Hq, Hkv, D, bs, M, P, n_splits, window,
+            scale, scratch, stream)
+    else:
+        err = lib.paged_flash_decode_launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            B, T, Hq, Hkv, D, bs, M, window, scale, scratch,
+            _DTYPE_CODES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"paged_flash_decode kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"paged_flash_decode {route} launch failed: "
+                           f"CUDA error {err}")
     global LAUNCHES
     LAUNCHES += 1
+    ROUTE_LAUNCHES[route] += 1
     return out
 
 

@@ -12,27 +12,37 @@ script exits non-zero without its final ``ok`` line:
    one ``nvcc`` per source, started together (timed); then a count of
    the tensor-core instructions (``HMMA``/``HGMMA``) in the bf16 K1, K2
    and K3 kernels from ``cuobjdump -sass`` of the built library, and
-   their registers and stack bytes from ``cuobjdump -res-usage``.
-2. Kernel vs plain version on the card: the paged flash-decoding kernel
+   their registers and stack bytes from ``cuobjdump -res-usage``, and
+   those of K4's three kernels.
+2. Kernel vs plain version on the card: the paged flash-decoding kernels
    (K4) against ``paged_flash_decode_reference`` at the serving path's
-   shapes — decode (16 slots, positions over [0, 2047], two all-scratch
+   shapes — decode (16 slots, positions over [0, 2047], all-scratch
    rows, a poisoned scratch block), prefill (T = 128 and 512), GQA and a
-   sliding window — in fp32 and bf16, with the kernel, the plain version
-   and one library call (``scaled_dot_product_attention`` over the
-   gathered dense view, a yardstick the port never calls) timed with CUDA
-   events, and each shape's least possible time (``bound_ms``).
+   sliding window in fp32 and bf16; then bf16 at head dims 32 and 128,
+   MQA (16 q heads over 1 kv head: 16 rows), a 4-token span at group 4
+   (16 rows) and the serving path's short contexts (positions U[16,
+   464]). Each row prints the route that served it (``split``: bf16 with
+   at most 16 rows per kv head; ``rows``: the rest), which must be the
+   rule's; a split row must give the same bits on a second launch. Each
+   bf16 row times the kernel, the plain version and one library call
+   (``scaled_dot_product_attention`` over the gathered dense view, a
+   yardstick the port never calls) with CUDA events, beside the shape's
+   least possible time (``bound_ms``).
 3. Serving at full width: the Transformer-base LM (6 layers, d_model 512,
    8 heads, vocab 32000, bf16, seeded random weights) behind
    ``ServingEngine(num_slots=16, max_len=2048, kv_block_size=64,
    decode_attend_impl='fused')`` under ``Scheduler('prefill_priority')``
-   serves 24 requests. The kernel's launch count over this run must equal
-   ``num_layers * (prefills + decode steps)``.
+   serves 24 requests. K4's launch count over this run must equal
+   ``num_layers * (prefills + decode steps)``, the split route's
+   ``num_layers * decode steps`` and the rows route's ``num_layers *
+   prefills``.
 4. Stream equivalence: 8 requests through two fp32 engines, ``'fused'``
    and ``'xla'``; greedy streams must be identical, except at a true
    near-tie (top-2 logit gap < 1e-4).
 5. Where the time goes: a ``torch.profiler`` window over 16 more
-   requests on the bf16 engine — wall vs device-busy time and the device
-   time of the busiest kernels.
+   requests on the bf16 engine — wall vs device-busy time, the device
+   time of the busiest kernels, and K4's three kernels' share and time
+   per launch.
 6. K1–K3 (flash attention forward, dq, dk/dv) against their plain
    versions on the card, fp32 and bf16: the training path's shape
    (B 8, T 2048, 8 heads, head dim 64, causal), packed segments as the
@@ -194,16 +204,22 @@ def _bound(nbytes, ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _time_ms(torch, fn, flush):
+def _time_ms(torch, fn, flush, mode="write"):
     """Median device time of ``fn`` over TIMING_REPS runs, each with a
-    cold L2 (a 96 MB buffer is rewritten first) and a spin kernel ahead
-    of it so the host's enqueue time stays outside the event pair."""
+    cold L2 and a spin kernel ahead of it so the host's enqueue time
+    stays outside the event pair. ``mode`` says how L2 is made cold:
+    ``"write"`` rewrites a 96 MB buffer (L2 is then full of dirty lines,
+    which ``fn`` pays to write back as it reads), ``"read"`` reads it
+    (L2 then holds clean lines only), ``"none"`` leaves L2 warm."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(TIMING_REPS):
-        flush.zero_()
+        if mode == "write":
+            flush.zero_()
+        elif mode == "read":
+            flush.sum()
         torch.cuda._sleep(5_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -237,40 +253,76 @@ def _sdpa_yardstick(torch, F, q, k_pool, v_pool, tables, positions, window):
         qt, k, v, attn_mask=mask, enable_gqa=Hq != Hkv)
 
 
+def _k4_cases(np):
+    """(name, shape, window, dtypes) of each K4 row: the ten rows of
+    decode, prefill, GQA and a window in fp32 and bf16, then bf16 rows at
+    the split route's edges and the serving path's short contexts."""
+    f32_bf16 = ("float32", "bfloat16")
+    spread = [int(x) for x in np.linspace(0, 2047, 16)]
+    short = [int(x) for x in np.random.RandomState(7).randint(16, 465, 16)]
+    decode = dict(B=16, T=1, Hq=8, Hkv=8, positions=spread)
+    return [
+        ("decode", dict(decode, scratch_rows=(3, 11)), None, f32_bf16),
+        ("prefill_T128", dict(B=1, T=128, Hq=8, Hkv=8, positions=[0]), None,
+         f32_bf16),
+        ("prefill_T512", dict(B=1, T=512, Hq=8, Hkv=8, positions=[0]), None,
+         f32_bf16),
+        ("decode_gqa", dict(decode, Hkv=2, scratch_rows=(5,)), None,
+         f32_bf16),
+        ("decode_window256", dict(decode, scratch_rows=(7,)), 256, f32_bf16),
+        ("decode_d32", dict(decode, D=32, scratch_rows=(3,)), None,
+         ("bfloat16",)),
+        ("decode_d128", dict(decode, D=128, scratch_rows=(3,)), None,
+         ("bfloat16",)),
+        ("decode_mqa_R16", dict(decode, Hq=16, Hkv=1, scratch_rows=(9,)),
+         None, ("bfloat16",)),
+        ("span_T4_group4_R16", dict(decode, T=4, Hkv=2, positions=[
+            min(p, 2044) for p in spread], scratch_rows=(2,)), None,
+         ("bfloat16",)),
+        ("serving_short_contexts", dict(decode, positions=short), None,
+         ("bfloat16",)),
+    ]
+
+
 def phase_kernels(torch, np, F):
     from chainermn_tpu_torch.ops import paged_decode as pd
 
     gen = torch.Generator().manual_seed(0)
     flush = torch.empty(24 * 2**20, dtype=torch.float32, device="cuda")
-    spread = [int(x) for x in np.linspace(0, 2047, 16)]
-    cases = [
-        ("decode", dict(B=16, T=1, Hq=8, Hkv=8, positions=spread,
-                        scratch_rows=(3, 11)), None),
-        ("prefill_T128", dict(B=1, T=128, Hq=8, Hkv=8, positions=[0]), None),
-        ("prefill_T512", dict(B=1, T=512, Hq=8, Hkv=8, positions=[0]), None),
-        ("decode_gqa", dict(B=16, T=1, Hq=8, Hkv=2, positions=spread,
-                            scratch_rows=(5,)), None),
-        ("decode_window256", dict(B=16, T=1, Hq=8, Hkv=8, positions=spread,
-                                  scratch_rows=(7,)), 256),
-    ]
     rows = []
-    for name, kw, window in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+    for name, kw, window, dtypes in _k4_cases(np):
+        for dtype in (getattr(torch, d) for d in dtypes):
             args = _k4_case(torch, gen, dtype=dtype, **kw)
             for r in kw.get("scratch_rows", ()):
                 args[4][r] = 0  # a released slot: all-scratch row at 0
+            before = dict(pd.ROUTE_LAUNCHES)
             got = pd.paged_flash_decode(*args, window=window)
             torch.cuda.synchronize()
+            route = next(r for r, n in pd.ROUTE_LAUNCHES.items()
+                         if n != before[r])
+            # the split route merges its splits in a fixed order, with no
+            # atomics: a second launch gives the same bits
+            again = pd.paged_flash_decode(*args, window=window)
+            same_bits = bool(torch.equal(got, again))
             want = pd.paged_flash_decode_reference(*args, window=window)
             err = (got.float() - want.float()).abs().max().item()
             tol = TOLERANCE[str(dtype)]
             zero_rows = all(bool((got[r] == 0).all())
                             for r in kw.get("scratch_rows", ()))
+            expected_route = pd._route(dtype, kw["T"], kw["Hq"], kw["Hkv"],
+                                       kw.get("D", 64))
             ok = (err <= tol and bool(torch.isfinite(got).all())
-                  and zero_rows)
+                  and zero_rows and route == expected_route
+                  and (same_bits or route != "split"))
             row = {"case": name, "dtype": str(dtype).split(".")[-1],
-                   "shape": {k: kw[k] for k in ("B", "T", "Hq", "Hkv")},
-                   "window": window, "max_abs_err": err, "tolerance": tol}
+                   "route": route,
+                   "shape": {k: kw.get(k, 64) for k in ("B", "T", "Hq",
+                                                        "Hkv", "D")},
+                   "window": window, "max_abs_err": err, "tolerance": tol,
+                   "two_launches_equal": same_bits}
+            if route == "split":
+                row["split_plan"] = pd._split_plan(
+                    kw["B"], kw["Hkv"], args[3].shape[1], args[1].shape[1])
             if dtype == torch.bfloat16:  # the serving dtype: time it
                 nbytes, ops = _k4_work(np, args[0], args[1], args[3],
                                        args[4], window)
@@ -290,7 +342,9 @@ def phase_kernels(torch, np, F):
                 raise AssertionError(
                     f"K4 {name} {dtype}: max abs err {err} vs tolerance "
                     f"{tol}, finite={bool(torch.isfinite(got).all())}, "
-                    f"all-scratch rows zero={zero_rows}")
+                    f"all-scratch rows zero={zero_rows}, route {route} "
+                    f"(expected {expected_route}), two launches equal bit "
+                    f"for bit={same_bits}")
             rows.append(row)
     return rows
 
@@ -326,23 +380,37 @@ def phase_serving(torch, np):
     reqs = _requests(np, 24, 0, model.vocab_size)
     _serve(engine, _requests(np, 2, 1, model.vocab_size))  # warm-up
     torch.cuda.synchronize()
-    pd.LAUNCHES = 0
+    pd.reset_launches()
     t0 = time.perf_counter()
     streams, sched = _serve(engine, reqs)
     wall = time.perf_counter() - t0
-    launches = pd.LAUNCHES
+    launches, routes = pd.LAUNCHES, dict(pd.ROUTE_LAUNCHES)
     summary = sched.summary()
     expected = model.num_layers * (summary["prefills"]
                                    + summary["decode_steps"])
+    # every decode tick (T 1) takes the split route, and so would a
+    # prefill whose bucket has at most 16 rows per kv head (none at these
+    # prompt lengths); the other prefills take the rows route
+    group = model.num_heads // model.kv_heads
+    short = sum(1 for e in sched._events if e.get("phase") == "prefill"
+                and e["bucket"] * group <= pd.SPLIT_MAX_ROWS)
+    expected_routes = {
+        "split": model.num_layers * (summary["decode_steps"] + short),
+        "rows": model.num_layers * (summary["prefills"] - short)}
     print("serving summary", json.dumps(summary), flush=True)
     print(f"serving: {len(reqs)} requests in {wall:.3f} s wall, decode step "
           f"p50 {summary['token_ms_p50']} ms p99 {summary['token_ms_p99']} "
           f"ms, peak pool blocks in use {engine.peak_blocks_in_use}/"
           f"{engine.num_blocks - 1}, K4 launches {launches} (expected "
-          f"{expected})", flush=True)
+          f"{expected}), by route {json.dumps(routes)} (expected "
+          f"{json.dumps(expected_routes)})", flush=True)
     if launches == 0 or launches != expected:
         raise AssertionError(f"K4 launches {launches} != num_layers x "
                              f"(prefills + decode steps) = {expected}")
+    if routes != expected_routes:
+        raise AssertionError(f"K4 launches by route {routes} != "
+                             f"{expected_routes} (split: num_layers x decode "
+                             "steps; rows: num_layers x prefills)")
     for (prompt, n_new), gen in zip(reqs, streams):
         if len(gen) != n_new or not all(0 <= t < model.vocab_size
                                         for t in gen):
@@ -355,7 +423,7 @@ def phase_serving(torch, np):
         logits = model(torch.tensor([prompt + streams[0]], device="cuda"))
     if not bool(torch.isfinite(logits.float()).all()):
         raise AssertionError("non-finite logits at full width")
-    return launches, summary, engine
+    return launches, routes, summary, engine
 
 
 # ---------------------------------------------------------------- phase 4
@@ -393,6 +461,11 @@ def phase_equivalence(torch, np):
           f"{n_tokens} generated tokens (TF32 off)", flush=True)
 
 
+#: K4's kernels: the rows route, then the split route's two launches
+K4_KERNELS = ("paged_decode_kernel", "paged_decode_split_kernel",
+              "paged_decode_merge_kernel")
+
+
 def phase_profile(torch, np, engine):
     """Where the serving time goes: a torch.profiler window over 16 more
     requests on the bf16 engine — wall vs device-busy time and the device
@@ -403,14 +476,20 @@ def phase_profile(torch, np, engine):
     def serve():
         out["sched"] = _serve(engine, reqs)[1]
 
-    _, _, kernels = _profile_window(torch, serve, "profile",
-                                    ("paged_decode_kernel",))
+    _, busy, kernels = _profile_window(torch, serve, "profile", K4_KERNELS)
     s = out["sched"].summary()
     forwards = s["prefills"] + s["decode_steps"]
     launched = sum(k[1] for k in kernels)
+    k4 = [k for k in kernels if any(m in k[2] for m in K4_KERNELS)]
+    k4_ms = sum(k[0] for k in k4)
+    share = k4_ms / busy
     print(f"profile: {s['prefills']} prefills + {s['decode_steps']} decode "
           f"steps, {launched} device ops ({launched / forwards:.1f} per "
-          "forward)", flush=True)
+          f"forward); K4 (its three kernels) {k4_ms:.3f} ms ({share:.4f} of "
+          f"busy) over {sum(k[1] for k in k4)} launches: " + ", ".join(
+              f"{name.split('(')[0][:60]} {ms:.3f} ms {n}x "
+              f"({1e3 * ms / n:.2f} us each)" for ms, n, name in k4),
+          flush=True)
 
 
 # ---------------------------------------------------------------- phase 6
@@ -888,12 +967,13 @@ MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
                "flash_dkv_mma_kernel")
 
 
-def _sass_line(lib=None):
+def _sass_line(lib=None, k4_lib=None):
     """Count the tensor-core instructions (HMMA, HGMMA) of the bf16 K1,
     K2 and K3 kernels in the built library (or ``lib``) with ``cuobjdump
     -sass`` (beside nvcc): the proof that their products run on tensor
     cores. A ``registers:`` line gives each instance's registers and
-    stack bytes (spills land there) from ``cuobjdump -res-usage``."""
+    stack bytes (spills land there) from ``cuobjdump -res-usage``, and a
+    ``registers K4:`` line those of K4's kernels in ``k4_lib``."""
     import re
 
     from chainermn_tpu_torch.ops._build import BUILD_LOG, find_nvcc
@@ -934,6 +1014,27 @@ def _sass_line(lib=None):
     if not all(any(u.startswith(k) for u in usage) for k in MMA_KERNELS):
         raise AssertionError(f"cuobjdump -res-usage named not every bf16 "
                              f"flash kernel: {usage}")
+    if k4_lib is None:
+        return
+    k4 = {}
+    for fn, reg, stack in re.findall(
+            r"Function (\S+):\s*REG:(\d+) STACK:(\d+)",
+            subprocess.run([str(tool), "-res-usage", k4_lib],
+                           capture_output=True, text=True, check=True,
+                           timeout=300).stdout):
+        kernel = next((k for k in K4_KERNELS if k + "I" in fn), None)
+        if kernel:  # template arguments: (dtype,) D (, ROWS)
+            args = fn[fn.index(kernel) + len(kernel):].split("EEv")[0]
+            ints = re.findall(r"Li(\d+)E", args)
+            if kernel == "paged_decode_kernel":
+                ints.insert(0, "f32" if args.startswith("If") else "bf16")
+            k4[f"{kernel}<{','.join(ints)}>"] = {
+                "registers": int(reg), "stack_bytes": int(stack)}
+    print(f"registers K4: {json.dumps(dict(sorted(k4.items())))} "
+          f"(cuobjdump -res-usage {k4_lib})", flush=True)
+    if not all(any(u.startswith(k) for u in k4) for k in K4_KERNELS):
+        raise AssertionError(f"cuobjdump -res-usage named not every K4 "
+                             f"kernel: {sorted(k4)}")
 
 
 def main() -> int:
@@ -970,10 +1071,10 @@ def main() -> int:
               f"{log['seconds']:.3f} s -> {log['path']}", flush=True)
     print(f"build: both libraries ready in {time.perf_counter() - t0:.3f} s",
           flush=True)
-    _sass_line()
+    _sass_line(k4_lib=BUILD_LOG["paged_decode"]["path"])
 
     rows = phase_kernels(torch, np, F)
-    launches, summary, engine = phase_serving(torch, np)
+    launches, routes, summary, engine = phase_serving(torch, np)
     phase_equivalence(torch, np)
     phase_profile(torch, np, engine)
     del engine
@@ -989,9 +1090,15 @@ def main() -> int:
     kernels = {"kernels": [{
         "name": "paged_flash_decode",
         "route": "cuda",
-        "source": "chainermn_tpu_torch/csrc/paged_decode.cu",
+        "impl": {"split": "split-K over the block table, cp.async bf16 "
+                          "ring, fixed-order merge (bf16, R <= 16)",
+                 "rows": "CUDA cores, one CTA per row tile (prefill, fp32)"},
+        "source": "chainermn_tpu_torch/csrc/paged_decode_sm90.cu",
+        "sources": ["chainermn_tpu_torch/csrc/paged_decode_sm90.cu",
+                    "chainermn_tpu_torch/csrc/paged_decode.cu"],
         "replaces": "chainermn_tpu/ops/paged_decode.py:167",
         "launches": launches,
+        "route_launches": routes,
         "max_abs_err": main_row["max_abs_err"],
         "tolerance": main_row["tolerance"],
         "ms": main_row["ms"],
