@@ -25,28 +25,32 @@
 //   blocks is live (inside the rows' [kmin, kmax] band and not the
 //   scratch block) it writes an empty partial (m = NEG_INF, l = 0) and
 //   exits, so the splits of a short context cost a launch slot each;
-// - loads in flight: the live blocks' K and V head slices (rows strided
-//   by Hkv * D) stream through a three-stage shared-memory ring of
-//   64-key tiles with 16-byte cp.async, so two tiles are in flight while
-//   one is computed. The ring stays bf16 (16 KB a stage at D 64); a key
-//   outside the band or in the scratch block is zero-filled by the copy
-//   (src-size 0), never read, and masked;
+// - no barrier in the loop: each of the CTA's four warps runs its own
+//   pipeline over the split's live 64-key tiles, taking the same 16-key
+//   quarter of each, with its own online-softmax state; the four states
+//   meet once, at the end, in warp order. A CTA's latency is then its
+//   live tiles times one warp's short step, not times three CTA barriers;
+// - loads in flight: each warp copies its keys' K and V head slices
+//   (rows strided by Hkv * D) into its own shared-memory ring of four
+//   stages (three at D 128) with 16-byte cp.async, so three chunks are in
+//   flight while one is computed. The ring stays bf16 (4 KB a stage at D
+//   64); a key outside the band or in the scratch block is zero-filled by
+//   the copy (src-size 0), never read, and masked;
 // - q . k spreads each key row over D / 8 lanes (8 bf16 each, one 16-byte
 //   shared load) and folds the rows' partial sums across those lanes by
 //   halves (a reduce-scatter of shuffles), instead of one lane per key
 //   reading a padded fp32 row;
-// - the online softmax runs per row in one warp over the tile's 64 keys;
-//   P is rounded to bf16 before P V and the accumulators are fp32
+// - the online softmax runs per row in a half-warp, a key per lane; P is
+//   rounded to bf16 before P V and the accumulators are fp32
 //   (_decode_body's numerics: masked scores NEG_INF = -1e30, p = mask ?
-//   exp(s - m_new) : 0, l sums the unrounded p);
-// - P V: each thread owns two head dims of every row over a quarter (at
-//   D 64) of the tile's keys; the key groups are summed once, at the end,
-//   in a fixed order;
+//   exp(s - m_new) : 0, l sums the unrounded p); P V gives each lane D /
+//   32 head dims of every row;
 // - the merge (paged_decode_merge_kernel, a second launch) reads the
 //   splits' (m, l, acc) in split order, rescales each by exp(m_s - m_max)
-//   and writes O in bf16; a row whose total l is 0 writes an exact 0. No
-//   atomics anywhere, so two launches on the same inputs give the same
-//   bits.
+//   and writes O in bf16; a row whose total l is 0 writes an exact 0. It
+//   is launched as a programmatic dependent of the split kernel, so its
+//   launch overlaps the split kernel's last CTAs. No atomics anywhere, so
+//   two launches on the same inputs give the same bits.
 //
 // The host entry launches both kernels on the caller's stream, allocates
 // nothing (the wrapper passes the fp32 partials) and returns the first
@@ -64,7 +68,6 @@ constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kKeys = 64;    // keys per ring stage (a tile)
-constexpr int kStages = 3;   // ring depth
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -107,9 +110,9 @@ __device__ __forceinline__ void widen8(const uint4& u, float* f) {
 // keeps half of them (the upper half when its bit O is set) and adds the
 // partner's copy of that half; once it holds one row the rest is a plain
 // xor-sum. Afterwards v[0 .. max(1, N / (2 O))) are whole sums of rows
-// base, base + 1, ...
+// fold_base<N, O>(g), fold_base<N, O>(g) + 1, ...
 template <int N, int O>
-__device__ __forceinline__ void fold_rows(float* v, int g, int& base) {
+__device__ __forceinline__ void fold_rows(float* v, int g) {
   if constexpr (O >= 1) {
     if constexpr (N > 1) {
       constexpr int H = N / 2;
@@ -120,25 +123,47 @@ __device__ __forceinline__ void fold_rows(float* v, int g, int& base) {
         const float keep = up ? v[i + H] : v[i];
         v[i] = keep + __shfl_xor_sync(kFull, send, O);
       }
-      if (up) base += H;
-      fold_rows<H, O / 2>(v, g, base);
+      fold_rows<H, O / 2>(v, g);
     } else {
       v[0] += __shfl_xor_sync(kFull, v[0], O);
-      fold_rows<1, O / 2>(v, g, base);
+      fold_rows<1, O / 2>(v, g);
     }
   }
 }
 
-// Shared memory of one split CTA, in this order: the ring (kStages x
-// [K tile | V tile], kKeys x D bf16 each), scores then P [ROWS][kKeys]
-// fp32, each row's correction [ROWS], the ring's per-key "loaded" flags
-// [kStages][kKeys], the split's table entries [P] (-1 = not live), and
-// the live tiles' indices [max_tiles].
-template <int D, int ROWS>
-__host__ __device__ constexpr size_t split_fixed_bytes() {
-  return sizeof(bf16) * kStages * 2 * kKeys * D +
-         sizeof(float) * (ROWS * kKeys + ROWS) + kStages * kKeys;
+// The first row whose whole sum fold_rows<N, O> leaves in a lane of the
+// group: the same for every pass, so it is computed once.
+template <int N, int O>
+__device__ __forceinline__ int fold_base(int g) {
+  if constexpr (O >= 1 && N > 1)
+    return ((g & O) ? N / 2 : 0) + fold_base<N / 2, O / 2>(g);
+  else
+    return 0;
 }
+
+// Each warp runs its own pipeline over the CTA's live tiles: it takes the
+// same 16-key quarter of every tile, so the loop has no CTA barrier.
+constexpr int kWarpKeys = kKeys / kWarps;
+// Ring stages per warp: 3 (4 KB each at head dim 64), 2 at 128, so that
+// four CTAs fit on an SM at head dim 64 and three at 128.
+template <int D>
+constexpr int kStages = D == 128 ? 2 : 3;
+
+// Shared memory of one split CTA, in this order: each warp's ring
+// (kStages x [K | V], kWarpKeys x D bf16 each), each warp's scores then
+// P [ROWS][kWarpKeys] fp32 and corrections [ROWS] (padded to 16 bytes),
+// each warp's per-key "loaded" flags [kStages][kWarpKeys], the split's
+// table entries [P] (-1 = not live), and the count and indices of its
+// live tiles.
+template <int D, int ROWS>
+struct SplitSmem {
+  static constexpr int kStagesD = kStages<D>;
+  static constexpr int kWarpRing = kStagesD * 2 * kWarpKeys * D;  // bf16
+  static constexpr int kWarpP = ROWS * kWarpKeys + (ROWS + 3) / 4 * 4;
+  static constexpr size_t kPOff = sizeof(bf16) * kWarps * kWarpRing;
+  static constexpr size_t kLoadedOff = kPOff + sizeof(float) * kWarps * kWarpP;
+  static constexpr size_t kFixed = kLoadedOff + kWarps * kStagesD * kWarpKeys;
+};
 
 __host__ __device__ inline int split_max_tiles(int P, int bs) {
   return (P * bs + kKeys - 1) / kKeys + 1;
@@ -146,8 +171,17 @@ __host__ __device__ inline int split_max_tiles(int P, int bs) {
 
 template <int D, int ROWS>
 size_t split_smem_bytes(int P, int bs) {
-  return split_fixed_bytes<D, ROWS>() +
+  return SplitSmem<D, ROWS>::kFixed +
          sizeof(int) * (P + split_max_tiles(P, bs) + 1);
+}
+
+// The rest of the CTA's grid may start: the merge launched after this
+// kernel waits in griddep_wait for all of it to finish.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 template <int D, int ROWS>
@@ -162,67 +196,96 @@ paged_decode_split_kernel(const bf16* __restrict__ q,
                           int Hkv, int group, int bs, int M, int P,
                           int window, float scale, int scratch) {
   static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
+  constexpr int S = kStages<D>;
+  constexpr int WK = kWarpKeys;
   constexpr int LPK = D / 8;               // lanes per key row in q . k
   constexpr int KPW = 32 / LPK;            // keys per warp pass
   constexpr int RPL = ROWS >= LPK ? ROWS / LPK : 1;  // rows a lane sums
   constexpr int CPR = D / 8;               // 16-byte chunks per K/V row
-  constexpr int NDP = D / 2;               // head-dim pairs in P V
-  constexpr int NKG = kThreads / NDP;      // key groups in P V
-  constexpr int KPG = kKeys / NKG;         // keys per group
-  constexpr int RPW = (ROWS + kWarps - 1) / kWarps;  // softmax rows a warp
-  static_assert(KPG % 4 == 0, "P V reads P four keys at a time");
+  constexpr int DPL = D / 32;              // head dims per lane in P V
+  constexpr int RH = (ROWS + 1) / 2;       // softmax rows per half-warp
+  static_assert(WK == 16 && WK % KPW == 0, "a half-warp per softmax row");
 
+  typedef SplitSmem<D, ROWS> L;
+  griddep_launch_dependents();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
-  float* sp = reinterpret_cast<float*>(ring + kStages * 2 * kKeys * D);
-  float* corr_s = sp + ROWS * kKeys;
-  unsigned char* loaded = reinterpret_cast<unsigned char*>(corr_s + ROWS);
-  int* tbl_s = reinterpret_cast<int*>(loaded + kStages * kKeys);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw) + warp * L::kWarpRing;
+  float* sp = reinterpret_cast<float*>(smem_raw + L::kPOff) + warp * L::kWarpP;
+  float* corr_s = sp + ROWS * WK;
+  unsigned char* loaded = smem_raw + L::kLoadedOff + warp * S * WK;
+  int* tbl_s = reinterpret_cast<int*>(smem_raw + L::kFixed);
   int* tiles_s = tbl_s + P;  // [0] = count, then the live tiles
 
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int n_splits = gridDim.x;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int R = n_tok * group;
   const size_t cell = ((size_t)b * Hkv + h) * n_splits + s;
   float* ml = part_ml + cell * R * 2;
 
+  // The position, the split's table entries and q are loaded together.
+  const int split_lo = s * P * bs;
+  const int nblk = min(P, M - s * P);
+  int entry[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int j = tid + i * kThreads;
+    entry[i] = j < nblk ? tables[(size_t)b * M + s * P + j] : scratch;
+  }
+  const int g = lane % LPK;
+  float qr[ROWS][8];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    if (r < R) {
+      const int t = r / group, gg = r % group;
+      widen8(*reinterpret_cast<const uint4*>(
+                 q + ((size_t)(b * n_tok + t) * Hq + h * group + gg) * D +
+                 g * 8),
+             qr[r]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qr[r][e] = 0.f;
+    }
+  }
+  const int pos0 = positions[b];
+
   // This split's keys [split_lo, split_hi] and the rows' band: the last
   // row's position, clamped to the table horizon, and the first row's
   // window.
-  const int pos0 = positions[b];
-  const int split_lo = s * P * bs;
-  const int nblk = min(P, M - s * P);
   const int split_hi = split_lo + nblk * bs - 1;
   const int kmax = min(pos0 + n_tok - 1, M * bs - 1);
   const int kmin = window > 0 ? max(0, pos0 - window + 1) : 0;
   const int lo = max(split_lo, kmin), hi = min(split_hi, kmax);
-
-  if (lo <= hi) {
-    for (int j = tid; j < nblk; j += kThreads) {
-      const int first = split_lo + j * bs;
-      const int e = tables[(size_t)b * M + s * P + j];
-      tbl_s[j] = (first <= hi && first + bs - 1 >= lo && e != scratch)
-                     ? e : -1;
-    }
-  }
+  auto keep = [&](int j, int e) {  // block j is live: in band, not scratch
+    const int first = split_lo + j * bs;
+    tbl_s[j] = (first <= hi && first + bs - 1 >= lo && e != scratch) ? e : -1;
+  };
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (tid + i * kThreads < nblk) keep(tid + i * kThreads, entry[i]);
+  for (int j = tid + 4 * kThreads; j < nblk; j += kThreads)
+    keep(j, tables[(size_t)b * M + s * P + j]);
   __syncthreads();
-  // 64-key tiles from the one holding lo; keep those with a live block.
+  // 64-key tiles from the one holding lo; warp 0 keeps, in order, those
+  // with a live block.
   const int key_base = split_lo + (lo - split_lo) / kKeys * kKeys;
-  if (tid == 0) {
+  if (warp == 0) {
+    const int n_tiles = lo <= hi ? (hi - key_base) / kKeys + 1 : 0;
     int n = 0;
-    if (lo <= hi) {
-      const int n_tiles = (hi - key_base) / kKeys + 1;
-      for (int t = 0; t < n_tiles; ++t) {
+    for (int t0 = 0; t0 < n_tiles; t0 += 32) {
+      const int t = t0 + lane;
+      bool live = false;
+      if (t < n_tiles) {
         const int a = max(lo, key_base + t * kKeys);
         const int z = min(hi, key_base + t * kKeys + kKeys - 1);
-        bool live = false;
         for (int j = (a - split_lo) / bs; j <= (z - split_lo) / bs; ++j)
           live |= tbl_s[j] >= 0;
-        if (live) tiles_s[1 + n++] = t;
       }
+      const unsigned mask = __ballot_sync(kFull, live);
+      if (live) tiles_s[1 + n + __popc(mask & ((1u << lane) - 1))] = t;
+      n += __popc(mask);
     }
-    tiles_s[0] = n;
+    if (lane == 0) tiles_s[0] = n;
   }
   __syncthreads();
   const int n_live = tiles_s[0];
@@ -234,80 +297,92 @@ paged_decode_split_kernel(const bf16* __restrict__ q,
     return;
   }
 
+  // This warp's 16 keys of live tile i into its stage `stage`; a key
+  // outside the band or in the scratch block is zero-filled, not read.
+  // When one block holds the chunk's keys in the band (always when bs is
+  // a multiple of 16) its entry and first row are looked up once.
   auto issue = [&](int i, int stage) {
-    const int key0 = key_base + tiles_s[1 + i] * kKeys;
-    bf16* ks = ring + stage * 2 * kKeys * D;
-    bf16* vs = ks + kKeys * D;
+    const int c0 = key_base + tiles_s[1 + i] * kKeys + warp * WK;
+    const int a = max(c0, lo), z = min(c0 + WK - 1, hi);
+    const bool one = a > z || (a - split_lo) / bs == (z - split_lo) / bs;
+    int e0 = -1, row0 = 0;
+    if (a <= z && one) {
+      const int j = (a - split_lo) / bs;
+      e0 = tbl_s[j];
+      row0 = c0 - split_lo - j * bs;
+    }
+    bf16* ks = ring + stage * 2 * WK * D;
+    bf16* vs = ks + WK * D;
 #pragma unroll
-    for (int c = tid; c < kKeys * CPR; c += kThreads) {
+    for (int c = lane; c < WK * CPR; c += 32) {
       const int kk = c / CPR, part = c % CPR;
-      const int key = key0 + kk;
-      int e = -1;
-      if (key >= lo && key <= hi) e = tbl_s[(key - split_lo) / bs];
+      const int key = c0 + kk;
+      const bool in_band = key >= lo && key <= hi;
+      int e = -1, row = row0 + kk;
+      if (one) {
+        if (in_band) e = e0;
+      } else if (in_band) {
+        const int j = (key - split_lo) / bs;
+        e = tbl_s[j];
+        row = key - split_lo - j * bs;
+      }
       const bool ok = e >= 0;
       const size_t off =
-          ok ? (((size_t)e * bs + key % bs) * Hkv + h) * D + part * 8 : 0;
+          ok ? (((size_t)e * bs + row) * Hkv + h) * D + part * 8 : 0;
       cp_async16(ks + kk * D + part * 8, k_pool + off, ok);
       cp_async16(vs + kk * D + part * 8, v_pool + off, ok);
-      if (part == 0) loaded[stage * kKeys + kk] = ok;
+      if (part == 0) loaded[stage * WK + kk] = ok;
     }
   };
 
-  // Row r of key `key` is visible: loaded, a real row, causal, window.
-  auto visible = [&](int r, int key, bool ok) {
-    const int qpos = pos0 + r / group;
-    return ok && r < R && key <= qpos && (window <= 0 || key > qpos - window);
+  // A key is visible to a row at position qpos (-1 for a padding row):
+  // loaded, causal, inside the window. Each lane's rows' positions are
+  // fixed for the whole kernel: those it writes scores for, and those
+  // of its softmax rows.
+  auto visible = [&](int qpos, int key, bool ok) {
+    return ok && key <= qpos && (window <= 0 || key > qpos - window);
   };
+  auto row_pos = [&](int r) { return r < R ? pos0 + r / group : -1; };
+  const int base = fold_base<ROWS, LPK / 2>(g);
+  int qpos_w[RPL], qpos_s[RH];
+#pragma unroll
+  for (int j = 0; j < RPL; ++j) qpos_w[j] = row_pos(base + j);
+#pragma unroll
+  for (int i2 = 0; i2 < RH; ++i2) qpos_s[i2] = row_pos(lane / 16 + 2 * i2);
 
-  // q for this lane's 8 head dims of every row, fp32 (padded rows 0).
-  const int g = lane % LPK;
-  float qr[ROWS][8];
+  float m_row[RH], l_row[RH];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (r < R) {
-      const int t = r / group, gg = r % group;
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          q + ((size_t)(b * n_tok + t) * Hq + h * group + gg) * D + g * 8);
-      widen8(u, qr[r]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) qr[r][e] = 0.f;
-    }
-  }
-
-  float m_row[RPW], l_row[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
+  for (int i = 0; i < RH; ++i) {
     m_row[i] = kNegInf;
     l_row[i] = 0.f;
   }
-  const int dp = tid % NDP, kg = tid / NDP;
-  float acc[ROWS][2];
+  float acc[ROWS][DPL];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r][0] = acc[r][1] = 0.f;
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) acc[r][j] = 0.f;
 
 #pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
+  for (int st = 0; st < S - 1; ++st) {
     if (st < n_live) issue(st, st);
     cp_async_commit();
   }
 
   for (int i = 0; i < n_live; ++i) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile i landed; tile i - 1's P V is done
-    if (i + kStages - 1 < n_live)
-      issue(i + kStages - 1, (i + kStages - 1) % kStages);
+    cp_async_wait<S - 2>();
+    __syncwarp();  // chunk i landed; chunk i - 1 is no longer read
+    if (i + S - 1 < n_live) issue(i + S - 1, (i + S - 1) % S);
     cp_async_commit();
-    const int stage = i % kStages;
-    const bf16* ks = ring + stage * 2 * kKeys * D;
-    const bf16* vs = ks + kKeys * D;
-    const unsigned char* ld = loaded + stage * kKeys;
-    const int key0 = key_base + tiles_s[1 + i] * kKeys;
+    const int stage = i % S;
+    const bf16* ks = ring + stage * 2 * WK * D;
+    const bf16* vs = ks + WK * D;
+    const unsigned char* ld = loaded + stage * WK;
+    const int key0 = key_base + tiles_s[1 + i] * kKeys + warp * WK;
 
     // Scores: LPK lanes per key, the rows folded across them.
 #pragma unroll
-    for (int pass = 0; pass < kKeys / (kWarps * KPW); ++pass) {
-      const int kk = (pass * kWarps + warp) * KPW + lane / LPK;
+    for (int pass = 0; pass < WK / KPW; ++pass) {
+      const int kk = pass * KPW + lane / LPK;
       float kf[8];
       widen8(*reinterpret_cast<const uint4*>(ks + kk * D + g * 8), kf);
       float v[ROWS];
@@ -318,125 +393,162 @@ paged_decode_split_kernel(const bf16* __restrict__ q,
         for (int e = 0; e < 8; ++e) a += qr[r][e] * kf[e];
         v[r] = a;
       }
-      int base = 0;
-      fold_rows<ROWS, LPK / 2>(v, g, base);
+      fold_rows<ROWS, LPK / 2>(v, g);
       const bool writer = ROWS >= LPK || (g & (LPK / ROWS - 1)) == 0;
       if (writer) {
         const int key = key0 + kk;
         const bool ok = ld[kk];
 #pragma unroll
-        for (int j = 0; j < RPL; ++j) {
-          const int r = base + j;
-          sp[r * kKeys + kk] = visible(r, key, ok) ? v[j] * scale : kNegInf;
-        }
+        for (int j = 0; j < RPL; ++j)
+          sp[(base + j) * WK + kk] =
+              visible(qpos_w[j], key, ok) ? v[j] * scale : kNegInf;
       }
     }
-    __syncthreads();
+    __syncwarp();
 
-    // Online softmax: one warp per row, two keys a lane; P in place.
+    // Online softmax: a half-warp per row, a key per lane; P in place.
+    const int k = lane % 16;
+    const bool ok_k = ld[k];
 #pragma unroll
-    for (int i2 = 0; i2 < RPW; ++i2) {
-      const int r = warp + kWarps * i2;
+    for (int i2 = 0; i2 < RH; ++i2) {
+      const int r = lane / 16 + 2 * i2;
+      const bool ok = visible(qpos_s[i2], key0 + k, ok_k);
+      const float sc = r < ROWS ? sp[r * WK + k] : kNegInf;
+      float mx = sc;
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      const float m_new = fmaxf(m_row[i2], mx);
+      // Guard fully masked rows: with every score NEG_INF,
+      // exp(s - m_new) would be exp(0) = 1 per entry.
+      const float p = ok ? expf(sc - m_new) : 0.f;
+      const float corr = expf(m_row[i2] - m_new);
+      float ps = p;
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) ps += __shfl_xor_sync(kFull, ps, o);
+      l_row[i2] = l_row[i2] * corr + ps;
+      m_row[i2] = m_new;
       if (r < ROWS) {
-        float sc[2], p[2];
-        bool ok[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int kk = lane + 32 * j;
-          ok[j] = visible(r, key0 + kk, ld[kk]);
-          sc[j] = sp[r * kKeys + kk];
-        }
-        const float m_new = fmaxf(m_row[i2], warp_max(fmaxf(sc[0], sc[1])));
-        // Guard fully masked rows: with every score NEG_INF,
-        // exp(s - m_new) would be exp(0) = 1 per entry.
-#pragma unroll
-        for (int j = 0; j < 2; ++j) p[j] = ok[j] ? expf(sc[j] - m_new) : 0.f;
-        const float corr = expf(m_row[i2] - m_new);
-        l_row[i2] = l_row[i2] * corr + warp_sum(p[0] + p[1]);
-        m_row[i2] = m_new;
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          sp[r * kKeys + lane + 32 * j] =
-              __bfloat162float(__float2bfloat16(p[j]));
-        if (lane == 0) corr_s[r] = corr;
+        sp[r * WK + k] = __bfloat162float(__float2bfloat16(p));
+        if (k == 0) corr_s[r] = corr;
       }
     }
-    __syncthreads();
+    __syncwarp();
 
-    // P V: head dims (2 dp, 2 dp + 1) of every row over keys
-    // [kg * KPG, (kg + 1) * KPG).
+    // P V: head dims [lane * DPL, lane * DPL + DPL) of every row.
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const float c = corr_s[r];
-      acc[r][0] *= c;
-      acc[r][1] *= c;
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) acc[r][j] *= c;
     }
 #pragma unroll
-    for (int k4 = 0; k4 < KPG; k4 += 4) {
-      const int kk = kg * KPG + k4;
-      float2 vv[4];
+    for (int k4 = 0; k4 < WK; k4 += 4) {
+      float vv[4][DPL];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        vv[u] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            vs + (kk + u) * D + 2 * dp));
+      for (int u = 0; u < 4; ++u) {
+        const bf16* src = vs + (k4 + u) * D + lane * DPL;
+        if constexpr (DPL == 1) {
+          vv[u][0] = __bfloat162float(*src);
+        } else if constexpr (DPL == 2) {
+          const float2 f =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
+          vv[u][0] = f.x;
+          vv[u][1] = f.y;
+        } else {
+          const uint2 w = *reinterpret_cast<const uint2*>(src);
+          const float2 f0 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&w.x));
+          const float2 f1 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&w.y));
+          vv[u][0] = f0.x;
+          vv[u][1] = f0.y;
+          vv[u][2] = f1.x;
+          vv[u][3] = f1.y;
+        }
+      }
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
-        const float4 pr = *reinterpret_cast<const float4*>(sp + r * kKeys + kk);
-        acc[r][0] += pr.x * vv[0].x + pr.y * vv[1].x + pr.z * vv[2].x +
-                     pr.w * vv[3].x;
-        acc[r][1] += pr.x * vv[0].y + pr.y * vv[1].y + pr.z * vv[2].y +
-                     pr.w * vv[3].y;
+        const float4 pr = *reinterpret_cast<const float4*>(sp + r * WK + k4);
+#pragma unroll
+        for (int j = 0; j < DPL; ++j)
+          acc[r][j] += pr.x * vv[0][j] + pr.y * vv[1][j] + pr.z * vv[2][j] +
+                       pr.w * vv[3][j];
       }
     }
   }
 
-  // The key groups' sums meet in shared memory (the ring, now idle) and
-  // are added in group order; the row owners write m and l.
+  // The warps' states meet in shared memory (the rings, now idle) and
+  // merge in warp order, as the merge kernel merges the splits.
   cp_async_wait<0>();
   __syncthreads();
-  float* red = reinterpret_cast<float*>(ring);  // [NKG][ROWS][D]
+  float* wacc = reinterpret_cast<float*>(smem_raw);  // [kWarps][ROWS][D]
+  float* wml = wacc + kWarps * ROWS * D;             // [kWarps][ROWS][2]
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    red[(kg * ROWS + r) * D + 2 * dp] = acc[r][0];
-    red[(kg * ROWS + r) * D + 2 * dp + 1] = acc[r][1];
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < DPL; ++j)
+      wacc[(warp * ROWS + r) * D + lane * DPL + j] = acc[r][j];
+#pragma unroll
+  for (int i2 = 0; i2 < RH; ++i2) {
+    const int r = lane / 16 + 2 * i2;
+    if (r < ROWS && lane % 16 == 0) {
+      wml[(warp * ROWS + r) * 2] = m_row[i2];
+      wml[(warp * ROWS + r) * 2 + 1] = l_row[i2];
+    }
   }
   __syncthreads();
   float* acc_out = part_acc + cell * R * D;
   for (int i = tid; i < R * D; i += kThreads) {
-    float a = 0.f;
+    const int r = i / D;
+    float mx = kNegInf;
 #pragma unroll
-    for (int k = 0; k < NKG; ++k) a += red[k * ROWS * D + i];
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wml[(w * ROWS + r) * 2]);
+    float lsum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float l = wml[(w * ROWS + r) * 2 + 1];
+      if (l > 0.f) {
+        const float f = expf(wml[(w * ROWS + r) * 2] - mx);
+        lsum += l * f;
+        a += wacc[w * ROWS * D + i] * f;
+      }
+    }
     acc_out[i] = a;
-  }
-#pragma unroll
-  for (int i2 = 0; i2 < RPW; ++i2) {
-    const int r = warp + kWarps * i2;
-    if (r < R && lane == 0) {
-      ml[2 * r] = m_row[i2];
-      ml[2 * r + 1] = l_row[i2];
+    if (i % D == 0) {
+      ml[2 * r] = mx;
+      ml[2 * r + 1] = lsum;
     }
   }
 }
 
 // One CTA per (row, kv head, slot), one thread per head dim: the splits'
-// partials in split order.
+// partials in split order. It starts while the split kernel finishes
+// (programmatic dependent launch) and waits for all of it before reading.
 template <int D>
 __global__ void __launch_bounds__(D)
 paged_decode_merge_kernel(const float* __restrict__ part_ml,
                           const float* __restrict__ part_acc,
                           bf16* __restrict__ out, int n_tok, int Hq,
                           int Hkv, int group, int n_splits) {
+  extern __shared__ float ml_s[];  // [n_splits][2]: each split's (m, l)
   const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
   const int R = gridDim.x;
   const size_t cell0 = ((size_t)b * Hkv + h) * n_splits;
+  griddep_wait();
+  for (int s = d; s < n_splits; s += D) {
+    ml_s[2 * s] = part_ml[((cell0 + s) * R + r) * 2];
+    ml_s[2 * s + 1] = part_ml[((cell0 + s) * R + r) * 2 + 1];
+  }
+  __syncthreads();
   float mx = kNegInf;
-  for (int s = 0; s < n_splits; ++s)
-    mx = fmaxf(mx, part_ml[((cell0 + s) * R + r) * 2]);
+  for (int s = 0; s < n_splits; ++s) mx = fmaxf(mx, ml_s[2 * s]);
   float lsum = 0.f, a = 0.f;
+#pragma unroll 4
   for (int s = 0; s < n_splits; ++s) {
-    const float l = part_ml[((cell0 + s) * R + r) * 2 + 1];
+    const float l = ml_s[2 * s + 1];
     if (l > 0.f) {  // an empty split wrote no acc
-      const float f = expf(part_ml[((cell0 + s) * R + r) * 2] - mx);
+      const float f = expf(ml_s[2 * s] - mx);
       lsum += l * f;
       a += part_acc[((cell0 + s) * R + r) * D + d] * f;
     }
@@ -473,9 +585,24 @@ cudaError_t launch_split(const void* q, const void* k_pool,
       group, bs, M, P, window, scale, scratch);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_decode_merge_kernel<D><<<dim3(R, Hkv, B), D, 0, stream>>>(
-      part_ml, part_acc, static_cast<bf16*>(out), n_tok, Hq, Hkv, group,
-      n_splits);
+  // The merge may be scheduled as the split kernel's last CTAs run; it
+  // waits for the whole grid (griddep_wait) before reading the partials.
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(R, Hkv, B);
+  cfg.blockDim = dim3(D);
+  cfg.dynamicSmemBytes = sizeof(float) * 2 * n_splits;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, paged_decode_merge_kernel<D>,
+                           static_cast<const float*>(part_ml),
+                           static_cast<const float*>(part_acc),
+                           static_cast<bf16*>(out), n_tok, Hq, Hkv, group,
+                           n_splits);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

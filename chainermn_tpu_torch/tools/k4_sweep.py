@@ -23,8 +23,10 @@ wrapper ``paged_flash_decode`` is timed with ``chip_smoke._time_ms``
   ``torch.profiler`` over ten calls, each after a read of the 96 MB
   buffer.
 
-One JSON line per (row, plan), after the card's name and power limit.
-Needs one card.
+One JSON line per (row, plan), after the card's name and power limit
+and the clock's floor: the same timing of a one-element ``add_``, the
+launch and event overhead that every time here includes. Needs one
+card.
 """
 
 from __future__ import annotations
@@ -89,6 +91,11 @@ def main() -> int:
              for p in args.plans.split(",") if p] if has_split else []
     gen = torch.Generator().manual_seed(0)
     flush = torch.empty(24 * 2**20, dtype=torch.float32, device="cuda")
+    tiny = torch.zeros(1, device="cuda")
+    print("K4 sweep floor", json.dumps({
+        "label": args.label, **{f"ms_{mode}": cs._time_ms(
+            torch, lambda: tiny.add_(1), flush, mode)
+            for mode in args.flush.split(",")}}), flush=True)
     for name, kw, window, dtypes in cs._k4_cases(np):
         if "bfloat16" not in dtypes:
             continue

@@ -289,6 +289,11 @@ def phase_kernels(torch, np, F):
 
     gen = torch.Generator().manual_seed(0)
     flush = torch.empty(24 * 2**20, dtype=torch.float32, device="cuda")
+    tiny = torch.zeros(1, device="cuda")
+    print(f"K4 clock floor: a one-element add_ times "
+          f"{_time_ms(torch, lambda: tiny.add_(1), flush):.6f} ms by the "
+          "same clock (launch and event overhead, in every time below)",
+          flush=True)
     rows = []
     for name, kw, window, dtypes in _k4_cases(np):
         for dtype in (getattr(torch, d) for d in dtypes):
@@ -1090,9 +1095,11 @@ def main() -> int:
     kernels = {"kernels": [{
         "name": "paged_flash_decode",
         "route": "cuda",
-        "impl": {"split": "split-K over the block table, cp.async bf16 "
-                          "ring, fixed-order merge (bf16, R <= 16)",
-                 "rows": "CUDA cores, one CTA per row tile (prefill, fp32)"},
+        "impl": {"split": "bf16, R <= 16: split-K over the block table, "
+                          "a cp.async bf16 ring per warp, fixed-order "
+                          "merge launched as a programmatic dependent",
+                 "rows": "prefill and fp32: one CTA per row tile, CUDA "
+                         "cores"},
         "source": "chainermn_tpu_torch/csrc/paged_decode_sm90.cu",
         "sources": ["chainermn_tpu_torch/csrc/paged_decode_sm90.cu",
                     "chainermn_tpu_torch/csrc/paged_decode.cu"],

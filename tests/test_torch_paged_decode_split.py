@@ -3,7 +3,9 @@
 On CUDA, bf16 calls with at most 16 query rows per (slot, kv head) run
 ``paged_decode_split_kernel`` + ``paged_decode_merge_kernel``
 (``csrc/paged_decode_sm90.cu``): split-K over the block table, 64-key
-tiles, P rounded to bf16 per tile, the splits merged in order. Here,
+tiles, four warps per split each with its own online softmax over a
+quarter of every tile, P rounded to bf16 per 16-key chunk, the warps and
+then the splits merged in order. Here,
 without a card, the route rule and the split plan are checked as the
 pure functions they are, and ``_split_then_merge`` below does the
 kernels' algorithm in torch ops — the same splits, the same band, the
@@ -11,7 +13,7 @@ same scratch and tile skips, the same empty partials and the same merge
 — so the algorithm is held against the plain version
 (``paged_flash_decode_reference``) and the JAX Pallas kernel in
 interpret mode, at fp32 (2e-5: fp32 sums in another order) and bf16
-(2e-2: P rounded against each tile's running max instead of the row's
+(2e-2: P rounded against each warp's running max instead of the row's
 final max, a few bf16 ulps of O(1) outputs). ``chip_smoke.py`` holds the
 kernels themselves against the plain version on the card.
 """
@@ -93,7 +95,8 @@ def test_the_library_builds_both_sources_with_no_atomics():
     for name in ("paged_decode_split_kernel", "paged_decode_merge_kernel",
                  "cp.async.cg.shared.global", "cp.async.wait_group",
                  "paged_flash_decode_split_launch",
-                 f"kKeys = {pd.SPLIT_TILE_KEYS};"):
+                 f"kKeys = {pd.SPLIT_TILE_KEYS};",
+                 f"kThreads = {32 * pd.SPLIT_WARPS};"):
         assert name in text
     # no atomic call or instruction: the merge order is fixed
     assert re.search(r"\batomic\w*\s*\(|\b(atom|red)\.", text) is None
@@ -115,19 +118,40 @@ def test_cpu_calls_launch_nothing_and_reset_zeroes_every_count():
 
 # ------------------------------------------------------------ the algorithm
 
+def _merge(states, like):
+    """``(m, l, acc)`` states merged in order, as the split kernel merges
+    its warps and the merge kernel the splits: each rescaled by exp(m -
+    m_max), a state with l = 0 (empty, or every key masked) adding
+    nothing."""
+    mx = torch.stack([m for m, _, _ in states]).amax(0)
+    lsum, a = torch.zeros_like(like[..., 0]), torch.zeros_like(like)
+    for m, l, acc in states:
+        f = torch.where(l > 0, torch.exp(m - mx), torch.tensor(0.0))
+        lsum = lsum + l * f
+        a = a + torch.where((l > 0)[..., None], acc * f[..., None],
+                            torch.tensor(0.0))
+    return mx, lsum, a
+
+
 def _split_then_merge(q, kp, vp, tables, positions, *, P, window=None,
-                      scale=None, scratch=0, tile=pd.SPLIT_TILE_KEYS):
+                      scale=None, scratch=0, tile=pd.SPLIT_TILE_KEYS,
+                      warps=pd.SPLIT_WARPS):
     """The split and merge kernels' algorithm in torch ops: ``(out, number
-    of empty partials)``."""
+    of empty partials)``. A split keeps the 64-key tiles of its band that
+    hold a live key; warp w of its CTA takes keys [w * 16, w * 16 + 16)
+    of each, with its own online softmax (P rounded against the warp's
+    running max); the warps merge, then the splits."""
     B, T, Hq, D = q.shape
     _, bs, Hkv, _ = kp.shape
     M = tables.shape[1]
     group, R = Hq // Hkv, T * (Hq // Hkv)
     n_splits = -(-M // P)
+    wk = tile // warps
     scale = D ** -0.5 if scale is None else scale
     qr = q.float().reshape(B, T, Hkv, group, D).transpose(1, 2)
     qr = qr.reshape(B, Hkv, R, D)
     row_t = torch.arange(R) // group
+    zero = torch.zeros(Hkv, R, D)
     out = torch.zeros(B, Hkv, R, D)
     empty = 0
     for b in range(B):
@@ -135,54 +159,58 @@ def _split_then_merge(q, kp, vp, tables, positions, *, P, window=None,
         kmax = min(pos0 + T - 1, M * bs - 1)
         kmin = max(0, pos0 - window + 1) if window else 0
         qpos = pos0 + row_t
+
+        def chunk(t0, n):
+            """Keys [t0, t0 + n): which are loaded, and their K and V."""
+            keys = torch.arange(t0, t0 + n)
+            band = (keys >= lo) & (keys <= hi)
+            ent = torch.where(band, tables[b, keys.clamp(0, M * bs - 1)
+                                           // bs].long(), -1)
+            loaded = band if scratch is None else band & (ent != scratch)
+            ent = ent.clamp(min=0)
+            k = torch.where(loaded[:, None, None], kp[ent, keys % bs],
+                            torch.zeros((), dtype=kp.dtype))
+            v = torch.where(loaded[:, None, None], vp[ent, keys % bs],
+                            torch.zeros((), dtype=vp.dtype))
+            return keys, loaded, k, v
+
         parts = []
         for s in range(n_splits):
             split_lo = s * P * bs
             split_hi = min((s + 1) * P, M) * bs - 1
             lo, hi = max(split_lo, kmin), min(split_hi, kmax)
-            m = torch.full((Hkv, R), NEG_INF)
-            l = torch.zeros(Hkv, R)
-            acc = torch.zeros(Hkv, R, D)
-            n_live = 0
             key_base = split_lo + (lo - split_lo) // tile * tile
-            for t0 in range(key_base, hi + 1, tile):
-                keys = torch.arange(t0, t0 + tile)
-                band = (keys >= lo) & (keys <= hi)
-                ent = torch.where(band, tables[b, keys.clamp(0, M * bs - 1)
-                                               // bs].long(), -1)
-                loaded = band if scratch is None else band & (ent != scratch)
-                if not bool(loaded.any()):
-                    continue  # no live block in this tile: skipped
-                n_live += 1
-                ent = ent.clamp(min=0)
-                k = torch.where(loaded[:, None, None], kp[ent, keys % bs],
-                                torch.zeros((), dtype=kp.dtype))
-                v = torch.where(loaded[:, None, None], vp[ent, keys % bs],
-                                torch.zeros((), dtype=vp.dtype))
-                vis = loaded[None] & (keys[None] <= qpos[:, None])
-                if window:
-                    vis &= keys[None] > qpos[:, None] - window
-                sc = torch.einsum("nrd,knd->nrk", qr[b], k.float()) * scale
-                sc = torch.where(vis, sc, torch.tensor(NEG_INF))
-                m_new = torch.maximum(m, sc.amax(-1))
-                p = torch.where(vis, torch.exp(sc - m_new[..., None]),
-                                torch.tensor(0.0))
-                corr = torch.exp(m - m_new)
-                l = l * corr + p.sum(-1)
-                acc = acc * corr[..., None] + torch.einsum(
-                    "nrk,knd->nrd", p.to(vp.dtype).float(), v.float())
-                m = m_new
-            if n_live == 0:
+            live = [t0 for t0 in range(key_base, hi + 1, tile)
+                    if bool(chunk(t0, tile)[1].any())]
+            if not live:  # an empty partial
                 empty += 1
-            parts.append((m, l, acc))
-        mx = torch.stack([m for m, _, _ in parts]).amax(0)
-        lsum = torch.zeros(Hkv, R)
-        a = torch.zeros(Hkv, R, D)
-        for m, l, acc in parts:  # split order; an empty split adds nothing
-            f = torch.where(l > 0, torch.exp(m - mx), torch.tensor(0.0))
-            lsum = lsum + l * f
-            a = a + torch.where((l > 0)[..., None], acc * f[..., None],
-                                torch.tensor(0.0))
+                parts.append((torch.full((Hkv, R), NEG_INF),
+                              torch.zeros(Hkv, R), zero))
+                continue
+            states = []
+            for w in range(warps):
+                m = torch.full((Hkv, R), NEG_INF)
+                l = torch.zeros(Hkv, R)
+                acc = zero
+                for t0 in live:
+                    keys, loaded, k, v = chunk(t0 + w * wk, wk)
+                    vis = loaded[None] & (keys[None] <= qpos[:, None])
+                    if window:
+                        vis &= keys[None] > qpos[:, None] - window
+                    sc = torch.einsum("nrd,knd->nrk", qr[b],
+                                      k.float()) * scale
+                    sc = torch.where(vis, sc, torch.tensor(NEG_INF))
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    p = torch.where(vis, torch.exp(sc - m_new[..., None]),
+                                    torch.tensor(0.0))
+                    corr = torch.exp(m - m_new)
+                    l = l * corr + p.sum(-1)
+                    acc = acc * corr[..., None] + torch.einsum(
+                        "nrk,knd->nrd", p.to(vp.dtype).float(), v.float())
+                    m = m_new
+                states.append((m, l, acc))
+            parts.append(_merge(states, zero))
+        _, lsum, a = _merge(parts, zero)
         out[b] = torch.where((lsum > 0)[..., None],
                              a / lsum.clamp_min(1e-37)[..., None],
                              torch.tensor(0.0))
@@ -312,8 +340,9 @@ def test_poison_in_scratch_never_leaks_at_any_depth(dtype, P):
 @NEEDS_JAX_KERNEL
 @pytest.mark.parametrize("dtype", DTYPES, ids=IDS)
 def test_tiles_narrower_than_a_split_and_the_plan_itself(dtype):
-    # 16-key blocks, 2 blocks a split, 8-key tiles: several tiles per
-    # split and a tile straddling no block edge; then the plan's own P
+    # 16-key blocks, 2 blocks a split, 8-key tiles of 2-key warp chunks:
+    # several tiles per split; then 64-key tiles over 16-key blocks (a
+    # tile spans blocks), and the plan's own P
     rs = np.random.RandomState(17)
     case = _case(rs, B=4, T=1, Hq=8, Hkv=2, bs=16, M=6)
     q, kp, vp, tables, positions = (torch.from_numpy(a) for a in case)
