@@ -31,8 +31,8 @@
 //   meet once, at the end, in warp order. A CTA's latency is then its
 //   live tiles times one warp's short step, not times three CTA barriers;
 // - loads in flight: each warp copies its keys' K and V head slices
-//   (rows strided by Hkv * D) into its own shared-memory ring of four
-//   stages (three at D 128) with 16-byte cp.async, so three chunks are in
+//   (rows strided by Hkv * D) into its own shared-memory ring of three
+//   stages (two at D 128) with 16-byte cp.async, so two chunks are in
 //   flight while one is computed. The ring stays bf16 (4 KB a stage at D
 //   64); a key outside the band or in the scratch block is zero-filled by
 //   the copy (src-size 0), never read, and masked;
@@ -82,17 +82,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
 }
 
 __device__ __forceinline__ void widen8(const uint4& u, float* f) {

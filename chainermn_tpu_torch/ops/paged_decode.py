@@ -57,12 +57,6 @@ SOURCES = ("paged_decode.cu", "paged_decode_sm90.cu")
 #: query rows per (slot, kv head) up to which bf16 calls take the split
 #: route (the split kernel's q tile: 1, 2, 4, 8 or 16 rows)
 SPLIT_MAX_ROWS = 16
-#: keys per tile of the split kernel (``kKeys`` in
-#: ``csrc/paged_decode_sm90.cu``) and its warps (``kThreads / 32``): each
-#: warp takes a quarter of every live tile with its own online softmax,
-#: P rounded to bf16 against that warp's running max
-SPLIT_TILE_KEYS = 64
-SPLIT_WARPS = 4
 #: :func:`_split_plan`'s aim: this many CTAs over the card (about eight
 #: per SM of an H100), with no split under this many keys
 SPLIT_TARGET_CTAS = 1024

@@ -1,17 +1,16 @@
 #!/usr/bin/env python3
-"""Time K4's bf16 rows on one card: split plans, ways to make L2 cold,
-and another checkout's kernel under the same clock.
+"""Time K4's bf16 rows on one card by split plan, or another checkout's
+K4 by the same clock.
 
     python3 chainermn_tpu_torch/tools/k4_sweep.py \\
-        [--root DIR] [--plans 1024:128,2048:64] [--flush write,read,none] \\
-        [--profile] [--label NAME]
+        [--root DIR] [--plans 1024:128,2048:64] [--profile]
 
 For each bf16 row of ``chip_smoke.py``'s phase 2 (``_k4_cases``: the
 16-slot decode tick, GQA, a 256 window, head dims 32 and 128, MQA, a
-4-token span at group 4, the serving path's short contexts), the
-wrapper ``paged_flash_decode`` is timed with ``chip_smoke._time_ms``
-(median of 20 launches, CUDA events, a spin kernel ahead) once per
-``--flush`` mode, beside the row's ``bound_ms``:
+4-token span at group 4, the serving path's short contexts, prefill),
+the wrapper ``paged_flash_decode`` is timed with ``chip_smoke._time_ms``
+(median of 20 launches after a 96 MB rewrite of L2, CUDA events, a spin
+kernel ahead), beside the row's ``bound_ms``:
 
 - ``--root`` names the checkout whose ``chainermn_tpu_torch`` is timed
   (default: this one), so a parent tree's K4 is timed by this script's
@@ -63,9 +62,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--plans", default="")
-    ap.add_argument("--flush", default="write,read")
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--label", default="")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -92,10 +89,8 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     flush = torch.empty(24 * 2**20, dtype=torch.float32, device="cuda")
     tiny = torch.zeros(1, device="cuda")
-    print("K4 sweep floor", json.dumps({
-        "label": args.label, **{f"ms_{mode}": cs._time_ms(
-            torch, lambda: tiny.add_(1), flush, mode)
-            for mode in args.flush.split(",")}}), flush=True)
+    print("K4 sweep floor", json.dumps({"root": str(root), "ms": cs._time_ms(
+        torch, lambda: tiny.add_(1), flush)}), flush=True)
     for name, kw, window, dtypes in cs._k4_cases(np):
         if "bfloat16" not in dtypes:
             continue
@@ -108,7 +103,7 @@ def main() -> int:
         for plan in plans or [None]:
             if plan is not None:
                 pd.SPLIT_TARGET_CTAS, pd.SPLIT_MIN_KEYS = plan
-            row = {"label": args.label, "case": name, "plan": plan,
+            row = {"root": str(root), "case": name, "plan": plan,
                    "bound_ms": bound_ms, "bound_by": bound_by}
             if has_split:
                 row["route"] = pd._route(torch.bfloat16, kw["T"], kw["Hq"],
@@ -120,8 +115,7 @@ def main() -> int:
             def call():
                 return pd.paged_flash_decode(*inputs, window=window)
 
-            for mode in args.flush.split(","):
-                row[f"ms_{mode}"] = cs._time_ms(torch, call, flush, mode)
+            row["ms"] = cs._time_ms(torch, call, flush)
             if args.profile:
                 row["kernel_us"] = _per_kernel_us(torch, cs, call, flush)
             print("K4 sweep", json.dumps(row), flush=True)

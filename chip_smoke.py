@@ -87,6 +87,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -204,22 +205,16 @@ def _bound(nbytes, ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _time_ms(torch, fn, flush, mode="write"):
+def _time_ms(torch, fn, flush):
     """Median device time of ``fn`` over TIMING_REPS runs, each with a
-    cold L2 and a spin kernel ahead of it so the host's enqueue time
-    stays outside the event pair. ``mode`` says how L2 is made cold:
-    ``"write"`` rewrites a 96 MB buffer (L2 is then full of dirty lines,
-    which ``fn`` pays to write back as it reads), ``"read"`` reads it
-    (L2 then holds clean lines only), ``"none"`` leaves L2 warm."""
+    cold L2 (a 96 MB buffer is rewritten first) and a spin kernel ahead
+    of it so the host's enqueue time stays outside the event pair."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(TIMING_REPS):
-        if mode == "write":
-            flush.zero_()
-        elif mode == "read":
-            flush.sum()
+        flush.zero_()
         torch.cuda._sleep(5_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -393,15 +388,11 @@ def phase_serving(torch, np):
     summary = sched.summary()
     expected = model.num_layers * (summary["prefills"]
                                    + summary["decode_steps"])
-    # every decode tick (T 1) takes the split route, and so would a
-    # prefill whose bucket has at most 16 rows per kv head (none at these
-    # prompt lengths); the other prefills take the rows route
-    group = model.num_heads // model.kv_heads
-    short = sum(1 for e in sched._events if e.get("phase") == "prefill"
-                and e["bucket"] * group <= pd.SPLIT_MAX_ROWS)
-    expected_routes = {
-        "split": model.num_layers * (summary["decode_steps"] + short),
-        "rows": model.num_layers * (summary["prefills"] - short)}
+    # every decode tick (T 1) takes the split route and every prefill the
+    # rows route: no prompt here is as short as 16 tokens, the one bucket
+    # whose prefill would have few enough rows for the split route
+    expected_routes = {"split": model.num_layers * summary["decode_steps"],
+                       "rows": model.num_layers * summary["prefills"]}
     print("serving summary", json.dumps(summary), flush=True)
     print(f"serving: {len(reqs)} requests in {wall:.3f} s wall, decode step "
           f"p50 {summary['token_ms_p50']} ms p99 {summary['token_ms_p99']} "
@@ -972,29 +963,36 @@ MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
                "flash_dkv_mma_kernel")
 
 
-def _sass_line(lib=None, k4_lib=None):
-    """Count the tensor-core instructions (HMMA, HGMMA) of the bf16 K1,
-    K2 and K3 kernels in the built library (or ``lib``) with ``cuobjdump
-    -sass`` (beside nvcc): the proof that their products run on tensor
-    cores. A ``registers:`` line gives each instance's registers and
-    stack bytes (spills land there) from ``cuobjdump -res-usage``, and a
-    ``registers K4:`` line those of K4's kernels in ``k4_lib``."""
-    import re
-
-    from chainermn_tpu_torch.ops._build import BUILD_LOG, find_nvcc
+def _cuobjdump(flag, lib):
+    from chainermn_tpu_torch.ops._build import find_nvcc
 
     tool = Path(find_nvcc()).parent / "cuobjdump"
     if not tool.is_file():
         raise AssertionError(f"cuobjdump not found beside nvcc ({tool})")
+    return subprocess.run([str(tool), flag, lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+
+
+def _res_usage(lib):
+    """(mangled kernel name, registers, stack bytes) of every kernel in
+    ``lib`` (``cuobjdump -res-usage``; spills land in the stack)."""
+    return [(fn, int(reg), int(stack)) for fn, reg, stack in re.findall(
+        r"Function (\S+):\s*REG:(\d+) STACK:(\d+)",
+        _cuobjdump("-res-usage", lib))]
+
+
+def _sass_line(lib=None):
+    """Count the tensor-core instructions (HMMA, HGMMA) of the bf16 K1,
+    K2 and K3 kernels in the built library (or ``lib``) with ``cuobjdump
+    -sass`` (beside nvcc): the proof that their products run on tensor
+    cores. A ``registers:`` line gives each instance's registers and
+    stack bytes (spills land there) from ``cuobjdump -res-usage``."""
+    from chainermn_tpu_torch.ops._build import BUILD_LOG
+
     lib = lib or BUILD_LOG["flash_attention"]["path"]
-
-    def dump(flag):
-        return subprocess.run([str(tool), flag, lib], capture_output=True,
-                              text=True, check=True, timeout=300).stdout
-
     counts = dict.fromkeys(MMA_KERNELS, 0)
     cur = None
-    for line in dump("-sass").splitlines():
+    for line in _cuobjdump("-sass", lib).splitlines():
         if "Function :" in line:
             cur = next((k for k in MMA_KERNELS if k in line), None)
         elif cur is not None and ("HMMA" in line or "HGMMA" in line):
@@ -1003,14 +1001,12 @@ def _sass_line(lib=None, k4_lib=None):
           f"kernels {json.dumps(counts)} (cuobjdump -sass {lib})",
           flush=True)
     usage = {}
-    for fn, reg, stack in re.findall(
-            r"Function (\S+):\s*REG:(\d+) STACK:(\d+)",
-            dump("-res-usage")):
+    for fn, reg, stack in _res_usage(lib):
         kernel = next((k for k in MMA_KERNELS if k in fn), None)
         d = re.search(r"ILi(\d+)E", fn)
         if kernel and d:
-            usage[f"{kernel}<{d.group(1)}>"] = {"registers": int(reg),
-                                                "stack_bytes": int(stack)}
+            usage[f"{kernel}<{d.group(1)}>"] = {"registers": reg,
+                                                "stack_bytes": stack}
     print(f"registers: {json.dumps(dict(sorted(usage.items())))} "
           f"(cuobjdump -res-usage {lib})", flush=True)
     if not all(counts.values()):
@@ -1019,27 +1015,27 @@ def _sass_line(lib=None, k4_lib=None):
     if not all(any(u.startswith(k) for u in usage) for k in MMA_KERNELS):
         raise AssertionError(f"cuobjdump -res-usage named not every bf16 "
                              f"flash kernel: {usage}")
-    if k4_lib is None:
-        return
-    k4 = {}
-    for fn, reg, stack in re.findall(
-            r"Function (\S+):\s*REG:(\d+) STACK:(\d+)",
-            subprocess.run([str(tool), "-res-usage", k4_lib],
-                           capture_output=True, text=True, check=True,
-                           timeout=300).stdout):
+
+
+def _k4_registers_line(lib):
+    """A ``registers K4:`` line: each instance of K4's three kernels in
+    ``lib`` (template arguments: dtype of the rows kernel, head dim, rows
+    of its q tile) with its registers and stack bytes."""
+    usage = {}
+    for fn, reg, stack in _res_usage(lib):
         kernel = next((k for k in K4_KERNELS if k + "I" in fn), None)
-        if kernel:  # template arguments: (dtype,) D (, ROWS)
+        if kernel:
             args = fn[fn.index(kernel) + len(kernel):].split("EEv")[0]
             ints = re.findall(r"Li(\d+)E", args)
             if kernel == "paged_decode_kernel":
                 ints.insert(0, "f32" if args.startswith("If") else "bf16")
-            k4[f"{kernel}<{','.join(ints)}>"] = {
-                "registers": int(reg), "stack_bytes": int(stack)}
-    print(f"registers K4: {json.dumps(dict(sorted(k4.items())))} "
-          f"(cuobjdump -res-usage {k4_lib})", flush=True)
-    if not all(any(u.startswith(k) for u in k4) for k in K4_KERNELS):
+            usage[f"{kernel}<{','.join(ints)}>"] = {"registers": reg,
+                                                    "stack_bytes": stack}
+    print(f"registers K4: {json.dumps(dict(sorted(usage.items())))} "
+          f"(cuobjdump -res-usage {lib})", flush=True)
+    if not all(any(u.startswith(k) for u in usage) for k in K4_KERNELS):
         raise AssertionError(f"cuobjdump -res-usage named not every K4 "
-                             f"kernel: {sorted(k4)}")
+                             f"kernel: {sorted(usage)}")
 
 
 def main() -> int:
@@ -1076,7 +1072,8 @@ def main() -> int:
               f"{log['seconds']:.3f} s -> {log['path']}", flush=True)
     print(f"build: both libraries ready in {time.perf_counter() - t0:.3f} s",
           flush=True)
-    _sass_line(k4_lib=BUILD_LOG["paged_decode"]["path"])
+    _sass_line()
+    _k4_registers_line(BUILD_LOG["paged_decode"]["path"])
 
     rows = phase_kernels(torch, np, F)
     launches, routes, summary, engine = phase_serving(torch, np)

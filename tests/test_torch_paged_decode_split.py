@@ -33,6 +33,10 @@ from chainermn_tpu_torch.ops import paged_decode as pd
 from chainermn_tpu_torch.ops.attention import NEG_INF
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: the split kernel's tile of keys (``kKeys``) and its warps
+#: (``kThreads / 32``): each warp takes a quarter of every live tile with
+#: its own online softmax, P rounded to bf16 against its running max
+TILE_KEYS, WARPS = 64, 4
 NEEDS_JAX_KERNEL = pytest.mark.skipif(
     not fused_supported(),
     reason="this jax's Pallas lacks scalar-prefetch grid specs (the JAX "
@@ -95,8 +99,7 @@ def test_the_library_builds_both_sources_with_no_atomics():
     for name in ("paged_decode_split_kernel", "paged_decode_merge_kernel",
                  "cp.async.cg.shared.global", "cp.async.wait_group",
                  "paged_flash_decode_split_launch",
-                 f"kKeys = {pd.SPLIT_TILE_KEYS};",
-                 f"kThreads = {32 * pd.SPLIT_WARPS};"):
+                 f"kKeys = {TILE_KEYS};", f"kThreads = {32 * WARPS};"):
         assert name in text
     # no atomic call or instruction: the merge order is fixed
     assert re.search(r"\batomic\w*\s*\(|\b(atom|red)\.", text) is None
@@ -134,8 +137,7 @@ def _merge(states, like):
 
 
 def _split_then_merge(q, kp, vp, tables, positions, *, P, window=None,
-                      scale=None, scratch=0, tile=pd.SPLIT_TILE_KEYS,
-                      warps=pd.SPLIT_WARPS):
+                      scale=None, scratch=0, tile=TILE_KEYS, warps=WARPS):
     """The split and merge kernels' algorithm in torch ops: ``(out, number
     of empty partials)``. A split keeps the 64-key tiles of its band that
     hold a live key; warp w of its CTA takes keys [w * 16, w * 16 + 16)
