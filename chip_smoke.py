@@ -20,10 +20,11 @@ script exits non-zero without its final ``ok`` line:
    rows, a poisoned scratch block), prefill (T = 128 and 512), GQA and a
    sliding window in fp32 and bf16; then bf16 at head dims 32 and 128,
    MQA (16 q heads over 1 kv head: 16 rows), a 4-token span at group 4
-   (16 rows) and the serving path's short contexts (positions U[16,
-   464]). Each row prints the route that served it (``split``: bf16 with
-   at most 16 rows per kv head; ``rows``: the rest), which must be the
-   rule's; a split row must give the same bits on a second launch. Each
+   (16 rows), the serving path's short contexts (positions U[16, 464])
+   and block sizes 16, 8 and 48. Each row prints the route that served
+   it (``split``: bf16 with at most 16 rows per kv head; ``rows``: the
+   rest), which must be the rule's; a split row must give the same bits
+   on a second launch. Each
    bf16 row times the kernel, the plain version and one library call
    (``scaled_dot_product_attention`` over the gathered dense view, a
    yardstick the port never calls) with CUDA events, beside the shape's
@@ -276,6 +277,19 @@ def _k4_cases(np):
          ("bfloat16",)),
         ("serving_short_contexts", dict(decode, positions=short), None,
          ("bfloat16",)),
+        # block sizes other than the serving pool's 64: tiles over several
+        # blocks (16), chunks over two blocks (8, a ragged last split of a
+        # 37-block table, a window), blocks of 48 keys
+        ("decode_bs16", dict(decode, Hkv=2, bs=16, M=128, scratch_rows=(1,)),
+         None, ("bfloat16",)),
+        ("span_T2_bs8_window100", dict(B=8, T=2, Hq=8, Hkv=2, bs=8, M=37,
+                                       positions=[0, 7, 40, 99, 150, 201,
+                                                  260, 294],
+                                       scratch_rows=(2,)), 100,
+         ("bfloat16",)),
+        ("decode_bs48", dict(B=4, T=1, Hq=4, Hkv=4, bs=48, M=10,
+                             positions=[0, 47, 300, 479]), None,
+         ("bfloat16",)),
     ]
 
 
@@ -316,8 +330,9 @@ def phase_kernels(torch, np, F):
                   and (same_bits or route != "split"))
             row = {"case": name, "dtype": str(dtype).split(".")[-1],
                    "route": route,
-                   "shape": {k: kw.get(k, 64) for k in ("B", "T", "Hq",
-                                                        "Hkv", "D")},
+                   "shape": {"D": 64, "bs": 64, "M": 32, **{
+                       k: v for k, v in kw.items() if k in (
+                           "B", "T", "Hq", "Hkv", "D", "bs", "M")}},
                    "window": window, "max_abs_err": err, "tolerance": tol,
                    "two_launches_equal": same_bits}
             if route == "split":
