@@ -24,11 +24,10 @@ script exits non-zero without its final ``ok`` line:
    and block sizes 16, 8 and 48. Each row prints the route that served
    it (``split``: bf16 with at most 16 rows per kv head; ``rows``: the
    rest), which must be the rule's; a split row must give the same bits
-   on a second launch. Each
-   bf16 row times the kernel, the plain version and one library call
-   (``scaled_dot_product_attention`` over the gathered dense view, a
-   yardstick the port never calls) with CUDA events, beside the shape's
-   least possible time (``bound_ms``).
+   on a second launch. Each bf16 row times the kernel, the plain version
+   and one library call (``scaled_dot_product_attention`` over the
+   gathered dense view, a yardstick the port never calls) with CUDA
+   events, beside the shape's least possible time (``bound_ms``).
 3. Serving at full width: the Transformer-base LM (6 layers, d_model 512,
    8 heads, vocab 32000, bf16, seeded random weights) behind
    ``ServingEngine(num_slots=16, max_len=2048, kv_block_size=64,
@@ -252,7 +251,8 @@ def _sdpa_yardstick(torch, F, q, k_pool, v_pool, tables, positions, window):
 def _k4_cases(np):
     """(name, shape, window, dtypes) of each K4 row: the ten rows of
     decode, prefill, GQA and a window in fp32 and bf16, then bf16 rows at
-    the split route's edges and the serving path's short contexts."""
+    the split route's edges, the serving path's short contexts and other
+    block sizes."""
     f32_bf16 = ("float32", "bfloat16")
     spread = [int(x) for x in np.linspace(0, 2047, 16)]
     short = [int(x) for x in np.random.RandomState(7).randint(16, 465, 16)]
