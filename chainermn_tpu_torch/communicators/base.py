@@ -5,20 +5,24 @@ model rather than the JAX package's one controller per host).
 
 What is ported: ``rank``/``size``/``intra_rank``/``intra_size``,
 ``bcast_data``, ``allreduce_grad`` with the compressed wire
-(``allreduce_grad_dtype`` ``'bfloat16'``/``'float16'``/None) and
-``barrier``. When no default process group exists, the communicator makes
-a one-rank group in this process over an in-process ``HashStore``.
+(``allreduce_grad_dtype`` ``'bfloat16'``/``'float16'``/None),
+``allreduce_mean``, ``barrier`` and the object calls ``bcast_obj``,
+``gather_obj``, ``allgather_obj`` and ``allreduce_obj``. When no default
+process group exists, the communicator makes a one-rank group in this
+process over an in-process ``HashStore``; several ranks come from
+:func:`chainermn_tpu_torch.testing.run_distributed` (gloo) or from any
+launcher that initialises the default group first.
 
-Left for later (ROADMAP queue 3.2, communicators): the multi-rank
-launcher, the int8 wire, ``split``, the ``*_obj`` calls, tagged
-send/recv, the array collectives and the trace ``wire`` events.
+Left for later (ROADMAP queue 3.2, communicators): the int8 wire,
+``split``, tagged send/recv, the array collectives and the trace
+``wire`` events.
 """
 
 from __future__ import annotations
 
 import socket
 import sys
-from typing import Iterable, Optional, Union
+from typing import Any, Callable, Iterable, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -139,6 +143,13 @@ class CommunicatorBase:
     def intra_size(self) -> int:
         return self._intra_ranks()[1]
 
+    @property
+    def host(self) -> "CommunicatorBase":
+        """The host plane of the JAX package's communicator. One rank
+        per device here, so the host plane is the communicator itself
+        (``host.size == size``)."""
+        return self
+
     def __repr__(self) -> str:
         wire = self.allreduce_grad_dtype
         return (f"{type(self).__name__}(name={self.name!r}, backend="
@@ -210,7 +221,46 @@ class CommunicatorBase:
         dist.all_reduce(buf, group=self.group)
         return buf.div_(self.size).to(values.device)
 
+    # ------------------------------------------------------- object calls
+
+    def bcast_obj(self, obj: Any, root: int = 0) -> Any:
+        """``obj`` of rank ``root`` on every rank (pickled)."""
+        box = [obj]
+        dist.broadcast_object_list(box, src=root, group=self.group)
+        return box[0]
+
+    def allgather_obj(self, obj: Any) -> list:
+        """Every rank's ``obj``, in rank order, on every rank."""
+        out = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+    def gather_obj(self, obj: Any, root: int = 0) -> Optional[list]:
+        """Every rank's ``obj`` on ``root``; None on the other ranks."""
+        everyone = self.allgather_obj(obj)
+        return everyone if self.rank == root else None
+
+    def allreduce_obj(self, obj: Any,
+                      op: Optional[Callable[[Any, Any], Any]] = None) -> Any:
+        """Reduce python objects over the ranks, in rank order. The
+        default ``op`` sums numbers, and dicts, lists and tuples of them
+        element-wise (the multi-node evaluator's use)."""
+        items = self.allgather_obj(obj)
+        op = _default_sum if op is None else op
+        out = items[0]
+        for item in items[1:]:
+            out = op(out, item)
+        return out
+
     def barrier(self) -> None:
         """Block until every rank arrives (one all_reduce of one value
         on the communicator's device)."""
         dist.all_reduce(torch.zeros(1, device=self.device), group=self.group)
+
+
+def _default_sum(a: Any, b: Any) -> Any:
+    if isinstance(a, dict):
+        return {k: _default_sum(a[k], b[k]) for k in a}
+    if isinstance(a, (list, tuple)):
+        return type(a)(_default_sum(x, y) for x, y in zip(a, b))
+    return a + b

@@ -6,8 +6,10 @@ so this module never sees JAX. Dense kernels ``[in, out]`` become
 ``nn.Linear.weight`` ``[out, in]``; the fused ``q|k|v`` column order is
 kept as it is, which is the order the block splits it in.
 
-Only the Transformer LM is converted so far; the ViT, ResNet and MLP
-converters land with their models.
+Conv kernels ``[H, W, in, out]`` (HWIO) become ``[out, in, H, W]`` (OIHW),
+and BatchNorm's ``batch_stats`` become the module's running-statistics
+buffers. Converted so far: the Transformer LM, the MLP and the ResNets;
+the ViT converter lands with its model.
 """
 
 from __future__ import annotations
@@ -49,4 +51,70 @@ def lm_state_from_flax(params: Mapping) -> dict:
             state[pre + name + ".weight"] = _t(b[name]["kernel"]).T.contiguous()
             if "bias" in b[name]:
                 state[pre + name + ".bias"] = _t(b[name]["bias"])
+    return state
+
+
+def _hwio(a) -> torch.Tensor:
+    """A flax conv kernel ``[H, W, in, out]`` as torch's ``[out, in, H, W]``."""
+    return _t(np.asarray(a).transpose(3, 2, 0, 1))
+
+
+def _dense(state: dict, prefix: str, p: Mapping) -> None:
+    state[prefix + ".weight"] = _t(p["kernel"]).T.contiguous()
+    state[prefix + ".bias"] = _t(p["bias"])
+
+
+def mlp_state_from_flax(params: Mapping) -> dict:
+    """``state_dict`` of :class:`~chainermn_tpu_torch.models.mlp.MLP` from
+    the flax ``MLP`` params: ``Dense_i`` -> ``dense{i}``."""
+    p = params.get("params", params)
+    state: dict = {}
+    for i in range(3):
+        _dense(state, f"dense{i}", p[f"Dense_{i}"])
+    return state
+
+
+def resnet_state_from_flax(params: Mapping, batch_stats: Mapping) -> dict:
+    """``state_dict`` of :class:`~chainermn_tpu_torch.models.resnet.ResNet`
+    from the flax ``ResNet``'s ``params`` and ``batch_stats``.
+
+    Names: ``conv_init``, ``bn_init``, the blocks ``BasicBlock_i`` or
+    ``BottleneckBlock_i`` (numbered over all stages) -> ``blocks.i`` with
+    ``Conv_j`` -> ``conv{j}``, ``MultiNodeBatchNormalization_j`` ->
+    ``norm{j}``, ``conv_proj`` and ``norm_proj`` as they are, and
+    ``Dense_0`` -> ``head``. A BN's ``scale``/``bias`` are the module's
+    ``weight``/``bias``, its ``mean``/``var`` the ``running_mean``/
+    ``running_var`` buffers."""
+    p = params.get("params", params)
+    stats = batch_stats.get("batch_stats", batch_stats)
+    state: dict = {}
+
+    def norm(prefix, pp, st):
+        state[prefix + ".weight"] = _t(pp["scale"])
+        state[prefix + ".bias"] = _t(pp["bias"])
+        state[prefix + ".running_mean"] = _t(st["mean"])
+        state[prefix + ".running_var"] = _t(st["var"])
+
+    state["conv_init.weight"] = _hwio(p["conv_init"]["kernel"])
+    norm("bn_init", p["bn_init"], stats["bn_init"])
+    blocks = sorted((k for k in p if k.startswith(("BasicBlock_",
+                                                    "BottleneckBlock_"))),
+                    key=lambda k: int(k.rsplit("_", 1)[1]))
+    for i, name in enumerate(blocks):
+        b, s = p[name], stats[name]
+        for key in b:
+            if key.startswith("Conv_"):
+                state[f"blocks.{i}.conv{key[5:]}.weight"] = _hwio(
+                    b[key]["kernel"])
+            elif key == "conv_proj":
+                state[f"blocks.{i}.conv_proj.weight"] = _hwio(
+                    b[key]["kernel"])
+            elif key.startswith("MultiNodeBatchNormalization_"):
+                norm(f"blocks.{i}.norm{key.rsplit('_', 1)[1]}", b[key],
+                     s[key])
+            elif key == "norm_proj":
+                norm(f"blocks.{i}.norm_proj", b[key], s[key])
+            else:
+                raise KeyError(f"unexpected flax module {name}/{key}")
+    _dense(state, "head", p["Dense_0"])
     return state

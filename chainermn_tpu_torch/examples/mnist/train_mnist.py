@@ -1,0 +1,182 @@
+"""Distributed MNIST training, the port's twin of
+``examples/mnist/train_mnist.py``: the same synthetic data (``get_mnist``),
+shards, iterator seeds, optimizer and evaluation.
+
+    python -m chainermn_tpu_torch.examples.mnist.train_mnist
+    python -m chainermn_tpu_torch.examples.mnist.train_mnist \\
+        --device cpu --iterations 100
+
+``--device`` defaults to the CUDA card (and raises without one); the
+communicator defaults to ``pure_nccl`` there and to ``naive`` (gloo) on
+the CPU. Several ranks: one process each, launched by
+:func:`chainermn_tpu_torch.testing.run_distributed` on the CPU (or by any
+launcher that initialises the default process group first).
+
+Left for later, each refused with an error naming its ROADMAP item:
+``--local-sgd``, ``--outer-momentum``, ``--error-feedback`` and
+``--reduction-schedule`` (queue 3.3), ``--checkpoint*`` (queue 4).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from chainermn_tpu_torch._device import resolve_device
+from chainermn_tpu_torch.communicators import create_communicator
+from chainermn_tpu_torch.datasets import scatter_dataset
+from chainermn_tpu_torch.extensions import create_multi_node_evaluator
+from chainermn_tpu_torch.iterators import create_synchronized_iterator
+from chainermn_tpu_torch.models.mlp import MLP
+from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
+from chainermn_tpu_torch.training import (
+    Trainer,
+    create_train_state,
+    default_collate,
+    make_eval_step,
+    make_train_step,
+)
+from chainermn_tpu_torch.training.prefetch import to_device
+
+_LATER = {
+    "local_sgd": "ROADMAP queue 3.3 (LocalSGDOptimizer)",
+    "outer_momentum": "ROADMAP queue 3.3 (LocalSGDOptimizer)",
+    "error_feedback": "ROADMAP queue 3.3 (error feedback on the int8 wire)",
+    "reduction_schedule": "ROADMAP queue 3.3 (the reduction schedules)",
+    "checkpoint": "ROADMAP queue 4 (the multi-node checkpointer)",
+    "checkpoint_interval": "ROADMAP queue 4 (the multi-node checkpointer)",
+    "checkpoint_backend": "ROADMAP queue 4 (the multi-node checkpointer)",
+}
+
+
+def get_mnist(n_train=8192, n_test=1024, seed=0):
+    """Synthetic stand-in with MNIST shapes: 10 gaussian blobs in 784-d,
+    the JAX example's data number for number."""
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(10, 784).astype(np.float32)
+
+    def make(n):
+        y = rng.randint(0, 10, size=n)
+        x = centers[y] + 0.5 * rng.randn(n, 784).astype(np.float32)
+        return [(x[i], np.int32(y[i])) for i in range(n)]
+
+    return make(n_train), make(n_test)
+
+
+def _parser():
+    p = argparse.ArgumentParser(
+        description="chainermn_tpu_torch example: MNIST")
+    p.add_argument("--communicator", default=None,
+                   help="default: pure_nccl on cuda, naive on cpu")
+    p.add_argument("--device", default=None,
+                   help="default: the current CUDA card")
+    p.add_argument("--batchsize", type=int, default=256,
+                   help="per-rank batch size")
+    p.add_argument("--iterations", type=int, default=200)
+    p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument("--double-buffering", action="store_true")
+    p.add_argument("--local-sgd", type=int, default=0, metavar="H")
+    p.add_argument("--outer-momentum", type=float, default=0.0)
+    p.add_argument("--allreduce-grad-dtype", default=None)
+    p.add_argument("--reduction-schedule", default=None, metavar="SCHED")
+    p.add_argument("--error-feedback", action="store_true")
+    p.add_argument("--checkpoint", default=None, metavar="DIR")
+    p.add_argument("--checkpoint-interval", type=int, default=None)
+    p.add_argument("--checkpoint-backend", default=None,
+                   choices=("npz", "orbax"))
+    p.add_argument("--prefetch", type=int, default=0,
+                   help="batches copied to the device ahead of the step "
+                        "(0 = off)")
+    return p
+
+
+def _cross_entropy(logits, y):
+    return F.cross_entropy(logits.float(), y.long())
+
+
+def loss_fn(model, batch):
+    x, y = batch
+    logits = model(x)
+    acc = (logits.argmax(-1) == y).float().mean()
+    return _cross_entropy(logits, y), {"accuracy": acc}
+
+
+def metric_fn(model, batch):
+    x, y = batch
+    logits = model(x)
+    return {"val_loss": _cross_entropy(logits, y),
+            "val_acc": (logits.argmax(-1) == y).float().mean()}
+
+
+def _evaluate(eval_step, dataset, batchsize, comm):
+    """Mean of the eval step's metrics over this rank's full batches; every
+    rank runs the same number of batches (its eval step is collective)."""
+    def fn(state):
+        items = list(dataset)
+        n_batches = max(0, (len(items) - batchsize) // batchsize + 1)
+        if comm.size > 1:
+            n_batches = min(comm.allgather_obj(n_batches))
+        totals: dict = {}
+        for b in range(n_batches):
+            i = b * batchsize
+            batch = to_device(default_collate(items[i:i + batchsize]),
+                              comm.device)
+            for k, v in eval_step(state.model, batch).items():
+                totals[k] = totals.get(k, 0.0) + float(v)
+        return {k: v / max(n_batches, 1) for k, v in totals.items()}
+
+    return fn
+
+
+def main(argv=None):
+    """Train; returns the final evaluation ``{'val_loss', 'val_acc'}``."""
+    p = _parser()
+    args = p.parse_args(argv)
+    for flag, item in _LATER.items():
+        if getattr(args, flag):
+            p.error(f"--{flag.replace('_', '-')} is not ported yet ({item})")
+    device = resolve_device(args.device)
+    comm = create_communicator(
+        args.communicator or ("pure_nccl" if device.type == "cuda"
+                              else "naive"),
+        allreduce_grad_dtype=args.allreduce_grad_dtype, device=device)
+    if comm.rank == 0:
+        print(f"communicator: {comm}")
+
+    train, test = get_mnist()
+    train = scatter_dataset(train, comm, shuffle=True, seed=42)
+    test = scatter_dataset(test, comm)
+
+    model = MLP(seed=0, device=device)
+    optimizer = create_multi_node_optimizer(
+        torch.optim.SGD(model.parameters(), lr=args.lr, momentum=0.9),
+        comm, double_buffering=args.double_buffering)
+    state = create_train_state(model, optimizer, comm)
+    step = make_train_step(loss_fn, optimizer, comm)
+    evaluator = create_multi_node_evaluator(
+        _evaluate(make_eval_step(metric_fn, comm), test, args.batchsize,
+                  comm), comm)
+
+    train_iter = create_synchronized_iterator(train, args.batchsize, comm,
+                                              seed=1)
+    trainer = Trainer(step, state, train_iter, comm, log_interval=50,
+                      prefetch=args.prefetch)
+
+    def run_eval(tr):
+        metrics = evaluator(tr.state)
+        if comm.rank == 0:
+            print("  eval:", {k: round(v, 4) for k, v in metrics.items()})
+
+    trainer.extend(run_eval, interval=100)
+    state = trainer.run(args.iterations)
+    final = evaluator(state)
+    if comm.rank == 0:
+        print("final:", {k: round(v, 4) for k, v in final.items()})
+    return final
+
+
+if __name__ == "__main__":
+    main()

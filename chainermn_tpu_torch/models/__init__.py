@@ -1,6 +1,17 @@
 """Models of the port (counterpart of :mod:`chainermn_tpu.models`): the
-Transformer-base causal LM so far."""
+Transformer-base causal LM, the MNIST MLP and the ResNet family."""
 
+from chainermn_tpu_torch.models.mlp import MLP
+from chainermn_tpu_torch.models.resnet import (
+    BasicBlock,
+    BottleneckBlock,
+    ResNet,
+    ResNet18,
+    ResNet34,
+    ResNet50,
+    ResNet101,
+    ResNet152,
+)
 from chainermn_tpu_torch.models.transformer import (
     LayerNorm,
     TransformerBlock,
@@ -9,5 +20,6 @@ from chainermn_tpu_torch.models.transformer import (
     lm_loss,
 )
 
-__all__ = ["LayerNorm", "TransformerBlock", "TransformerLM", "apply_rope",
-           "lm_loss"]
+__all__ = ["BasicBlock", "BottleneckBlock", "LayerNorm", "MLP", "ResNet",
+           "ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152",
+           "TransformerBlock", "TransformerLM", "apply_rope", "lm_loss"]

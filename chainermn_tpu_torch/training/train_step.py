@@ -39,7 +39,11 @@ def create_train_state(model: nn.Module, optimizer,
     """Broadcast the model's parameters and buffers from rank 0 (the
     reference's first-update ``bcast_data``) and wrap model and optimizer
     into a :class:`TrainState`. The optimizer must hold exactly the
-    model's parameters."""
+    model's parameters.
+
+    The buffers are the JAX ``create_train_state(..., model_state=)``:
+    BatchNorm's running statistics are broadcast with the parameters, so
+    every rank starts from rank 0's."""
     owned = {id(p) for p in model.parameters()}
     held = {id(p) for g in optimizer.param_groups for p in g["params"]}
     if owned != held:
@@ -53,8 +57,8 @@ def normalize_loss_fn(loss_fn: Callable) -> Callable:
     """Wrap ``loss_fn(model, batch)`` into ``(loss, metrics)``, accepting
     every documented return shape: ``loss``, ``(loss, metrics)`` or
     ``(loss, (metrics, new_model_state))`` — the module's buffers ARE its
-    model state and its forward updates them in place, so the third
-    form's state is dropped."""
+    model state and its train-mode forward updates them in place (as
+    BatchNorm does), so the third form's state is dropped."""
     def _loss_with_aux(model, batch):
         out = loss_fn(model, batch)
         if not isinstance(out, tuple):
@@ -129,6 +133,10 @@ def make_train_step(loss_fn: Callable, optimizer, comm: CommunicatorBase,
         if reduce_in_step:
             comm.allreduce_grad(model)
         optimizer.step()
+        if comm.size > 1:
+            # the JAX step's pmean of model_state: buffers must not drift
+            # across ranks (sync-BN keeps them equal already)
+            _mean_buffers(model, comm)
         names = list(totals)
         means = comm.allreduce_mean(torch.stack([totals[n].reshape(())
                                                  for n in names]))
@@ -137,3 +145,42 @@ def make_train_step(loss_fn: Callable, optimizer, comm: CommunicatorBase,
 
     return step
 
+
+
+@torch.no_grad()
+def _mean_buffers(model: nn.Module, comm: CommunicatorBase) -> None:
+    """Average the module's floating buffers over the ranks, as one
+    packed all_reduce."""
+    bufs = [b for b in model.buffers() if b.is_floating_point()]
+    if not bufs:
+        return
+    flat = torch.cat([b.reshape(-1).float() for b in bufs])
+    flat = comm.allreduce_mean(flat)
+    off = 0
+    for b in bufs:
+        n = b.numel()
+        b.copy_(flat[off:off + n].view_as(b))
+        off += n
+
+
+def make_eval_step(metric_fn: Callable, comm: CommunicatorBase):
+    """Build the eval step: ``metric_fn(model, batch) -> {name: scalar}``
+    of local-batch means, run without gradients in eval mode (BatchNorm
+    on its running averages), each metric averaged over the ranks.
+
+    Returns ``eval_step(model, batch) -> {name: 0-dim fp32 tensor}``;
+    the model's train/eval mode is restored afterwards."""
+    def eval_step(model: nn.Module, batch):
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                metrics = metric_fn(model, batch)
+        finally:
+            model.train(was_training)
+        names = list(metrics)
+        means = comm.allreduce_mean(torch.stack(
+            [torch.as_tensor(metrics[n]).float().reshape(()) for n in names]))
+        return dict(zip(names, means.unbind()))
+
+    return eval_step

@@ -78,6 +78,21 @@ script exits non-zero without its final ``ok`` line:
 8. Gradient equivalence: at fp32 (TF32 off), 2 layers at full width,
    B 2 x T 512 with segments, the loss and every parameter gradient with
    ``attention_fn=flash_attention`` against ``attention(impl='xla')``.
+9. ResNet-50 data-parallel training at full width through the ImageNet
+   twin's ``setup``: ``pure_nccl``, the bf16 wire, sync-BN over the
+   one-rank NCCL group, per-rank batch 64 at 224x224, 1000 classes, bf16
+   compute, channels_last, SGD(0.1, momentum 0.9); once without and once
+   with double buffering. Step 1's loss must be within
+   ``RESNET_LOSS_REL_TOL`` of the same weights' fp32 loss on the CPU; 30
+   steps on 4 fixed batches must bring the loss below
+   ``RESNET_LOSS_FRACTION`` of step 1's (without double buffering); then
+   30 timed steps on fresh synthetic batches copied through the
+   prefetcher: img/s, step p50/p99, peak memory, the H2D copy, the host
+   draw of a batch, and a ``torch.profiler`` window over one step (busy
+   share, busiest kernels). No TPU-kernel port may launch on this path.
+10. The MNIST twin at full width: 200 iterations of batch 256 over
+    ``pure_nccl`` with ``--prefetch 2``; final validation accuracy at
+    least 0.9, and its time per iteration.
 
 The ``kernels`` JSON and the card's name and power limit come on the two
 lines before the last; the last line is ``{"ok": true, "device": {...}}``.
@@ -971,6 +986,195 @@ def phase_grad_equivalence(torch, np):
                              f"{errs[worst]}")
 
 
+# ---------------------------------------------------------------- phase 9
+
+#: phase 9's gate on 4 fixed batches repeated over RESNET_FIXED_STEPS
+#: steps: the mean loss of the last pass over them (4 steps) must fall
+#: below this fraction of step 1's loss. Chosen from CPU runs of the twin
+#: before the first card run (fp32, full width, 30 steps on 4 fixed
+#: batches; last loss over step 1's): 64x64 images at batch 32 0.001, at
+#: batch 16 0.0003, 128x128 at batch 16 0.0003; 96x96 at batch 8 swung
+#: between 0.001 and 5.4 (of 6.96) and ended at 0.15. Double buffering
+#: applies each step's gradients one step late and oscillates at this
+#: learning rate (CPU: 0.449 and 1.109 at the end), so that run is held
+#: to finite losses only.
+RESNET_LOSS_FRACTION = 0.5
+RESNET_FIXED_STEPS = 30
+RESNET_TIMED_STEPS = 30
+#: card bf16 vs CPU fp32, step 1's loss on the same weights and batch
+RESNET_LOSS_REL_TOL = 2e-2
+
+
+def _h2d_ms(torch, host, pinned):
+    """Device time of copying ``host`` to the card (CUDA events, median
+    of 5)."""
+    src = host.pin_memory() if pinned else host
+    times = []
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        src.to("cuda", non_blocking=pinned)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def _cpu_step1_loss(torch, run, batch):
+    """Step 1's loss of the same weights and batch in fp32 on the CPU
+    (local BN, batch statistics)."""
+    import torch.nn.functional as F
+
+    from chainermn_tpu_torch.examples.imagenet import train_imagenet as ti
+    from chainermn_tpu_torch.models import ResNet50
+
+    cpu = ResNet50(compute_dtype=torch.float32, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         run.model.state_dict().items()})
+    with torch.no_grad():
+        x, y = ti.to_model_input(batch, "cpu")
+        return float(F.cross_entropy(cpu(x), y.long()))
+
+
+def phase_resnet(torch, np, smi):
+    """ResNet-50 data-parallel training through the example twin's path:
+    ``train_imagenet.setup`` (pure_nccl, the bf16 wire, sync-BN over the
+    one-rank NCCL group, per-rank batch 64 at 224x224, 1000 classes,
+    bf16 compute, channels_last, SGD(0.1, momentum 0.9)), once without
+    and once with ``--double-buffering``."""
+    from chainermn_tpu_torch.examples.imagenet import train_imagenet as ti
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.ops import paged_decode as pd
+    from chainermn_tpu_torch.training.prefetch import prefetch_to_device
+
+    summaries = {}
+    for db in (False, True):
+        tag = "double-buffering" if db else "plain"
+        run = ti.setup(["--batchsize", "64", "--image-size", "224"]
+                       + (["--double-buffering"] if db else []))
+        assert run.comm.backend == "nccl" and run.comm.size == 1
+        for name in fa.LAUNCHES:
+            fa.LAUNCHES[name] = 0
+        pd.LAUNCHES = 0
+        fixed = [run.next_batch() for _ in range(4)]  # as the example draws
+        cpu_loss = _cpu_step1_loss(torch, run, fixed[0])
+        dev_fixed = [ti.to_model_input(b, run.device) for b in fixed]
+        state, losses = run.state, []
+        for i in range(RESNET_FIXED_STEPS):
+            state, metrics = run.step(state, dev_fixed[i % 4])
+            losses.append(float(metrics["loss"]))
+        rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+        tail = statistics.fmean(losses[-4:])
+        print(f"resnet50 {tag}: step 1 loss {losses[0]:.6f} on the card "
+              f"(bf16) vs {cpu_loss:.6f} on the CPU (fp32, same weights "
+              f"and batch of 64): rel err {rel:.3e} (limit "
+              f"{RESNET_LOSS_REL_TOL}); {RESNET_FIXED_STEPS} steps on 4 "
+              f"fixed batches: losses {[round(x, 4) for x in losses]}; "
+              f"mean of the last 4 {tail:.4f} = {tail / losses[0]:.4f} of "
+              f"step 1's", flush=True)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite ResNet-50 loss: {losses}")
+        if rel > RESNET_LOSS_REL_TOL:
+            raise AssertionError(f"step 1's loss on the card {losses[0]} is "
+                                 f"{rel} from the CPU's {cpu_loss}")
+        if not db and not tail < RESNET_LOSS_FRACTION * losses[0]:
+            raise AssertionError(
+                f"the fixed-batch loss fell to {tail} of step 1's "
+                f"{losses[0]}, not below {RESNET_LOSS_FRACTION} of it")
+
+        # fresh synthetic batches as the example draws them; drawn before
+        # the clock starts (the host RNG is timed on its own), copied to
+        # the card through the prefetcher inside each timed step
+        t0 = time.perf_counter()
+        fresh = [run.next_batch()
+                 for _ in range(RESNET_TIMED_STEPS + TRAIN_WARMUP)]
+        draw_ms = (time.perf_counter() - t0) * 1e3 / len(fresh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        batches = prefetch_to_device(iter(fresh), 2)
+        step_ms, t_run = [], time.perf_counter()
+        for i in range(len(fresh)):
+            if i == TRAIN_WARMUP:
+                t_run = time.perf_counter()
+            t0 = time.perf_counter()
+            x, y = next(batches)
+            state, metrics = run.step(state, (x.permute(0, 3, 1, 2), y))
+            losses.append(float(metrics["loss"]))  # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        wall = time.perf_counter() - t_run
+        peak = torch.cuda.max_memory_allocated()
+        steady = sorted(step_ms[TRAIN_WARMUP:])
+        p50 = statistics.median(steady)
+        p99 = steady[min(len(steady) - 1, -(-99 * len(steady) // 100) - 1)]
+        ours = {**fa.LAUNCHES, "paged_flash_decode": pd.LAUNCHES}
+        x_host = torch.from_numpy(fresh[0][0])
+        h2d = {"pageable": _h2d_ms(torch, x_host, False),
+               "pinned": _h2d_ms(torch, x_host, True)}
+        batch = (x.permute(0, 3, 1, 2), y)
+
+        def one_step():
+            nonlocal state
+            state, m = run.step(state, batch)
+            float(m["loss"])
+
+        prof_wall, busy, kernels = _profile_window(
+            torch, one_step, f"resnet50 {tag} profile",
+            ("gemm", "elementwise", "reduce", "copy", "nccl", "pool"))
+        images = 64 * RESNET_TIMED_STEPS
+        summaries[tag] = {
+            "img_per_s": images / wall, "img_per_s_at_p50": 64 / (p50 / 1e3),
+            "step_ms_p50": p50, "step_ms_p99": p99,
+            "step_ms_first_fresh": step_ms[0], "peak_memory_bytes": peak,
+            "busy_share": busy / prof_wall, "profiled_wall_ms": prof_wall,
+            "device_busy_ms": busy, "h2d_ms": h2d,
+            "host_batch_draw_ms": draw_ms,
+            "fixed_batch_losses": losses[:RESNET_FIXED_STEPS],
+            "cpu_step1_loss": cpu_loss, "tpu_kernel_port_launches": ours}
+        print(f"resnet50 {tag} summary", json.dumps(summaries[tag]),
+              flush=True)
+        print(f"resnet50 {tag}: {images / wall:.1f} img/s over "
+              f"{RESNET_TIMED_STEPS} steps on fresh batches (after "
+              f"{TRAIN_WARMUP} warm-up), step p50 {p50:.3f} ms p99 "
+              f"{p99:.3f} ms, peak memory {peak / 2**30:.3f} GiB, device "
+              f"busy {busy / prof_wall:.4f} of one profiled step's wall; "
+              f"H2D of one batch (38.5 MB fp32) {h2d['pageable']:.3f} ms "
+              f"pageable, {h2d['pinned']:.3f} ms pinned; host draw of one "
+              f"batch {draw_ms:.1f} ms; launches of the TPU-kernel ports "
+              f"{ours}; card {smi}", flush=True)
+        if any(ours.values()):
+            raise AssertionError(f"the ResNet path launched a TPU-kernel "
+                                 f"port: {ours}")
+        torch.cuda.empty_cache()
+    return summaries
+
+
+# ---------------------------------------------------------------- phase 10
+
+MNIST_ITERATIONS = 200
+MNIST_MIN_ACC = 0.9
+
+
+def phase_mnist(torch, smi):
+    """The MNIST twin at full width over pure_nccl: 200 iterations of
+    batch 256 with ``--prefetch 2``, evaluated every 100."""
+    from chainermn_tpu_torch.examples.mnist import train_mnist
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final = train_mnist.main(["--iterations", str(MNIST_ITERATIONS),
+                              "--batchsize", "256", "--prefetch", "2"])
+    wall = time.perf_counter() - t0
+    print(f"mnist: {MNIST_ITERATIONS} iterations of batch 256 in "
+          f"{wall:.3f} s, {wall / MNIST_ITERATIONS * 1e3:.3f} ms per "
+          f"iteration (set-up and 3 evaluations included); final "
+          f"{final}; card {smi}", flush=True)
+    if not final["val_acc"] >= MNIST_MIN_ACC:
+        raise AssertionError(f"MNIST val accuracy {final['val_acc']} < "
+                             f"{MNIST_MIN_ACC}")
+    return final
+
+
 # ---------------------------------------------------------------- main
 
 #: the bf16 kernels whose tensor-core instructions are counted
@@ -1098,9 +1302,11 @@ def main() -> int:
     flash_rows = phase_flash_kernels(torch, np, F)
     flash_launches, _ = phase_training(torch, np)
     phase_grad_equivalence(torch, np)
+    phase_resnet(torch, np, smi)
+    phase_mnist(torch, smi)
     import torch.distributed as dist
 
-    dist.destroy_process_group()  # the training phase's one-rank group
+    dist.destroy_process_group()  # the training phases' one-rank group
 
     main_row = next(r for r in rows
                     if r["case"] == "decode" and r["dtype"] == "bfloat16")

@@ -7,15 +7,20 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import chainermn_tpu_torch
 from chainermn_tpu_torch.communicators import create_communicator
+from chainermn_tpu_torch.examples.imagenet import train_imagenet
+from chainermn_tpu_torch.examples.mnist import train_mnist
 from chainermn_tpu_torch.examples.transformer import train_transformer_lm
-from chainermn_tpu_torch.models import TransformerLM
+from chainermn_tpu_torch.links import MultiNodeBatchNormalization
+from chainermn_tpu_torch.models import MLP, ResNet50, TransformerLM
 from chainermn_tpu_torch.ops import flash_attention as fa
 from chainermn_tpu_torch.serving import ServingEngine
+from chainermn_tpu_torch.training import Trainer, prefetch_to_device
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "chainermn_tpu_torch"
@@ -38,8 +43,14 @@ print("ok", len(sys.argv) - 2)
 
 
 def test_every_port_module_imports_with_jax_blocked():
-    assert "chainermn_tpu_torch.ops.paged_decode" in PORT_MODULES
-    assert "chainermn_tpu_torch.ops.flash_attention" in PORT_MODULES
+    for name in ("ops.paged_decode", "ops.flash_attention", "testing",
+                 "datasets.scatter_dataset", "datasets.empty_dataset",
+                 "iterators", "links.batch_normalization", "models.mlp",
+                 "models.resnet", "training.trainer", "training.prefetch",
+                 "extensions.evaluator", "extensions.allreduce_persistent",
+                 "examples.mnist.train_mnist",
+                 "examples.imagenet.train_imagenet"):
+        assert "chainermn_tpu_torch." + name in PORT_MODULES
     out = subprocess.run(
         [sys.executable, "-c", _BLOCK_AND_IMPORT, str(SMOKE), *PORT_MODULES],
         capture_output=True, text=True, cwd=ROOT, timeout=120)
@@ -79,6 +90,23 @@ def test_entry_points_raise_without_a_card_or_a_device(monkeypatch):
         create_communicator("pure_nccl")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_transformer_lm.main(["--iterations", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_mnist.main(["--iterations", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_imagenet.main(["--iterations", "1"])
+    for make in (MLP, ResNet50, lambda: MultiNodeBatchNormalization(4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prefetch_to_device(iter([]), 2)
+    # the Trainer runs on its communicator's device: the default
+    # communicator is NCCL on the card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(None, None, [], create_communicator())
+    # CPU input needs no card: the prefetcher passes CPU batches through
+    batch = np.arange(3, dtype=np.float32)
+    (got,) = list(prefetch_to_device([batch], 2, device="cpu"))
+    assert got.data_ptr() == torch.from_numpy(batch).data_ptr()
     # CPU input needs no card: the plain versions of K1-K3, no launch
     before = dict(fa.LAUNCHES)
     q = torch.zeros(1, 4, 2, 8, requires_grad=True)
