@@ -55,7 +55,7 @@ def lm_state_from_flax(params: Mapping) -> dict:
 
 
 def _hwio(a) -> torch.Tensor:
-    """A flax conv kernel ``[H, W, in, out]`` as torch's ``[out, in, H, W]``."""
+    """A flax conv kernel ``[H, W, in, out]`` as ``[out, in, H, W]``."""
     return _t(np.asarray(a).transpose(3, 2, 0, 1))
 
 

@@ -113,7 +113,7 @@ def _parser():
 
 def setup(argv=None) -> SimpleNamespace:
     """Parse ``argv`` and build the run: ``args``, ``comm``, ``device``,
-    ``model``, ``optimizer``, ``state``, ``step`` and ``next_batch()``
+    ``model``, ``state``, ``step`` and ``next_batch()``
     (this rank's slice of the next global batch, NHWC numpy)."""
     p = _parser()
     args = p.parse_args(argv)
@@ -154,8 +154,7 @@ def setup(argv=None) -> SimpleNamespace:
         return x[lo:lo + args.batchsize], y[lo:lo + args.batchsize]
 
     return SimpleNamespace(args=args, comm=comm, device=device, model=model,
-                           optimizer=optimizer, state=state, step=step,
-                           next_batch=next_batch)
+                           state=state, step=step, next_batch=next_batch)
 
 
 def main(argv=None):

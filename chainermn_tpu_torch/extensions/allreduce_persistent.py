@@ -13,18 +13,15 @@ from chainermn_tpu_torch.communicators.base import CommunicatorBase
 
 
 class AllreducePersistent:
-    """Callable extension: ``ext(model)`` (or ``ext(trainer)``, whose
-    ``state.model`` it takes) averages every floating buffer of the model
-    over the ranks, in place, through ``allreduce_obj`` and returns the
-    model."""
+    """``ext(model)`` averages every floating buffer of the model over
+    the ranks, in place, through ``allreduce_obj`` and returns the model
+    (as a Trainer extension: ``lambda tr: ext(tr.state.model)``)."""
 
     def __init__(self, communicator: CommunicatorBase) -> None:
         self.comm = communicator
 
     @torch.no_grad()
-    def __call__(self, target):
-        model = target if isinstance(target, nn.Module) \
-            else target.state.model
+    def __call__(self, model: nn.Module) -> nn.Module:
         if self.comm.size > 1:
             bufs = [b for b in model.buffers() if b.is_floating_point()]
             summed = self.comm.allreduce_obj(

@@ -5,22 +5,20 @@ so every rank holds the whole-dataset metrics."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping, Optional
+from typing import Any, Callable, Mapping
 
 from chainermn_tpu_torch.communicators.base import CommunicatorBase
 
 
 def create_multi_node_evaluator(
         evaluator: Callable[..., Mapping[str, Any]],
-        communicator: CommunicatorBase, *, reduce: str = "mean",
-        finalize: Optional[Callable[[dict], Mapping[str, Any]]] = None):
+        communicator: CommunicatorBase, *, reduce: str = "mean"):
     """Wrap ``evaluator`` (any callable returning ``{name: scalar}``) so
     its results are combined over the ranks.
 
     ``reduce='mean'``: the mean over the ranks, weighted by the local
     example count when the dict has the key ``'n'``. ``reduce='sum'``:
-    the element-wise sum (for metrics made from summed statistics).
-    ``finalize`` is applied to the combined dict on every rank."""
+    the element-wise sum (for metrics made from summed statistics)."""
     if reduce not in ("mean", "sum"):
         raise ValueError(f"reduce must be 'mean' or 'sum', got {reduce!r}")
 
@@ -36,6 +34,6 @@ def create_multi_node_evaluator(
             total = communicator.allreduce_obj(weighted)
             n_total = total.pop("__n")
             total = {k: v / n_total for k, v in total.items()}
-        return dict(finalize(total)) if finalize is not None else total
+        return total
 
     return evaluate

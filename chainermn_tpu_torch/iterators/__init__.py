@@ -1,4 +1,5 @@
-"""Multi-node iterators (counterpart of ``chainermn_tpu/iterators/__init__.py``).
+"""Multi-node iterators (counterpart of
+``chainermn_tpu/iterators/__init__.py``).
 
 ``create_synchronized_iterator``: every rank draws the same order from a
 shared seed, with no communication. ``create_multi_node_iterator``: the
@@ -49,9 +50,6 @@ class _BatchIterator:
         idx = self._order[self._pos:self._pos + self.batch_size]
         self._pos += len(idx)
         return [self.dataset[int(i)] for i in idx]
-
-    def reset(self) -> None:
-        self._pos = 0
 
 
 def create_multi_node_iterator(dataset: Sequence[Any], batch_size: int,

@@ -159,12 +159,5 @@ def assert_distributed_equals_single(distributed_fn: Callable,
                          rtol=rtol, atol=atol)
 
 
-def seeded_batch(shape, seed: int = 0, *, scale: float = 1.0) -> np.ndarray:
-    """Deterministic fp32 data, the generator of the JAX package's
-    ``seeded_batch``, so both packages see the same numbers."""
-    rng = np.random.RandomState(seed)
-    return (rng.randn(*shape) * scale).astype(np.float32)
-
-
 __all__ = ["run_distributed", "assert_allclose_tree",
-           "assert_distributed_equals_single", "seeded_batch"]
+           "assert_distributed_equals_single"]

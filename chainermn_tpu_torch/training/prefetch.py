@@ -20,12 +20,12 @@ import torch
 from chainermn_tpu_torch._device import resolve_device
 
 
-def tree_map(fn, batch: Any) -> Any:
+def _tree_map(fn, batch: Any) -> Any:
     """``fn`` over the leaves of nested tuples, lists and dicts."""
     if isinstance(batch, (tuple, list)):
-        return type(batch)(tree_map(fn, b) for b in batch)
+        return type(batch)(_tree_map(fn, b) for b in batch)
     if isinstance(batch, dict):
-        return {k: tree_map(fn, v) for k, v in batch.items()}
+        return {k: _tree_map(fn, v) for k, v in batch.items()}
     return fn(batch)
 
 
@@ -36,7 +36,7 @@ def _as_tensor(leaf) -> torch.Tensor:
 def to_device(batch: Any, device) -> Any:
     """``batch`` with every numpy or tensor leaf as a tensor on
     ``device`` (a synchronous copy; none on the CPU)."""
-    return tree_map(lambda a: _as_tensor(a).to(device), batch)
+    return _tree_map(lambda a: _as_tensor(a).to(device), batch)
 
 
 def prefetch_to_device(iterator: Iterable[Any], size: int = 2, *,
@@ -59,7 +59,7 @@ def prefetch_to_device(iterator: Iterable[Any], size: int = 2, *,
 
     def put(batch):
         with torch.cuda.stream(stream):
-            out = tree_map(copy, batch)
+            out = _tree_map(copy, batch)
             done = torch.cuda.Event()
             done.record(stream)
         return out, done
@@ -70,7 +70,7 @@ def prefetch_to_device(iterator: Iterable[Any], size: int = 2, *,
         consumer.wait_event(done)
         # the tensors were allocated on the side stream: tell the caching
         # allocator that the consumer's stream uses them too
-        tree_map(lambda t: t.record_stream(consumer), out)
+        _tree_map(lambda t: t.record_stream(consumer), out)
         return out
 
     def gen() -> Iterator[Any]:
@@ -86,4 +86,4 @@ def prefetch_to_device(iterator: Iterable[Any], size: int = 2, *,
     return gen()
 
 
-__all__ = ["prefetch_to_device", "to_device", "tree_map"]
+__all__ = ["prefetch_to_device", "to_device"]

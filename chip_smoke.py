@@ -846,7 +846,8 @@ def _profile_window(torch, fn, label, markers):
         raise AssertionError("the profiler saw no device time")
     shares = {m: sum(kc[0] for kc in kernels if m in kc[2]) for m in markers}
     print(f"{label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
-          f"({busy / wall_ms:.4f} of wall), " + ", ".join(
+          f"({busy / wall_ms:.4f} of wall, "
+          f"{sum(kc[1] for kc in kernels)} device ops), " + ", ".join(
               f"{m} {t:.3f} ms ({t / busy:.4f} of busy)"
               for m, t in shares.items()), flush=True)
     for ms, count, name in kernels[:12]:
@@ -1120,14 +1121,17 @@ def phase_resnet(torch, np, smi):
 
         prof_wall, busy, kernels = _profile_window(
             torch, one_step, f"resnet50 {tag} profile",
-            ("gemm", "elementwise", "reduce", "copy", "nccl", "pool"))
+            ("xmma", "gemm", "elementwise", "reduce", "copy", "nccl",
+             "pool"))
         images = 64 * RESNET_TIMED_STEPS
         summaries[tag] = {
             "img_per_s": images / wall, "img_per_s_at_p50": 64 / (p50 / 1e3),
             "step_ms_p50": p50, "step_ms_p99": p99,
             "step_ms_first_fresh": step_ms[0], "peak_memory_bytes": peak,
             "busy_share": busy / prof_wall, "profiled_wall_ms": prof_wall,
-            "device_busy_ms": busy, "h2d_ms": h2d,
+            "device_busy_ms": busy,
+            "device_ops_per_step": sum(kc[1] for kc in kernels),
+            "h2d_ms": h2d,
             "host_batch_draw_ms": draw_ms,
             "fixed_batch_losses": losses[:RESNET_FIXED_STEPS],
             "cpu_step1_loss": cpu_loss, "tpu_kernel_port_launches": ours}

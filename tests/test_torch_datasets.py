@@ -8,10 +8,14 @@ package's.
   real gloo ranks (2 and 4) where ``comm.rank`` decides;
 - the synchronized iterator's batches over 2 epochs, the multi-node
   iterator's broadcast batches, the object calls, the evaluator's
-  reductions and ``AllreducePersistent`` on the same ranks.
+  reductions and ``AllreducePersistent`` on the same ranks;
+- the launcher itself: a rank that raises fails the call with its
+  traceback at once, and a rank that hangs is killed at the deadline.
 
 Everything here is exact: indices and batches are integers.
 """
+
+import time
 
 import jax
 import numpy as np
@@ -28,8 +32,15 @@ from chainermn_tpu_torch.iterators import (
     create_multi_node_iterator,
     create_synchronized_iterator,
 )
-from chainermn_tpu_torch.testing import run_distributed
-from torch_rank_workers import datasets_worker
+from chainermn_tpu_torch.testing import (
+    assert_distributed_equals_single,
+    run_distributed,
+)
+from torch_rank_workers import (
+    datasets_worker,
+    failing_worker,
+    hanging_worker,
+)
 
 N_ITEMS = 23
 BATCH = 2
@@ -155,3 +166,29 @@ def test_sub_and_empty_datasets():
     assert empty[1:3] == [None, None] and empty[-1] is None
     with pytest.raises(IndexError):
         empty[4]
+
+
+def test_launcher_reports_a_failing_rank_without_waiting_for_its_peer():
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
+        run_distributed(failing_worker, 2, timeout=120)
+    assert time.monotonic() - t0 < 60
+
+
+def test_launcher_kills_a_hung_rank_at_its_deadline():
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="still running after 8"):
+        run_distributed(hanging_worker, 2, {"x": np.ones(2)}, timeout=8)
+    assert time.monotonic() - t0 < 30
+
+
+def test_assert_distributed_equals_single_at_one_rank():
+    comm = create_communicator("naive")
+    batch = np.arange(12, dtype=np.float32).reshape(4, 3)
+    assert_distributed_equals_single(
+        lambda c, b: {"s": comm.allreduce_obj(b.sum(0))},
+        lambda b: {"s": b.sum(0)}, comm, batch)
+    with pytest.raises(AssertionError):
+        assert_distributed_equals_single(
+            lambda c, b: {"s": b.sum(0) + 1}, lambda b: {"s": b.sum(0)},
+            comm, batch)

@@ -2,7 +2,8 @@
 package's ``make_train_step`` on a 2-device CPU mesh, same weights and
 batches (each rank holds its contiguous half of the JAX global batch).
 
-- MLP (16 -> 32 -> 32 -> 10): 3 steps of SGD(0.05, momentum 0.9) behind
+- MLP (16 -> 32 -> 32 -> 10): logits, loss and gradients (1e-5); then
+  3 steps of SGD(0.05, momentum 0.9) behind
   ``create_multi_node_optimizer`` on the fp32 wire, the bf16 wire and
   with double buffering: each step's loss and the parameters after step
   3. Tolerance 1e-5 (relative and absolute): fp32 with sums in other
@@ -138,6 +139,31 @@ def _jax_mlp(case):
         losses.append(float(metrics["loss"]))
     return losses, mlp_state_from_flax(jax.tree.map(np.asarray,
                                                     state.params))
+
+
+def test_mlp_logits_and_gradients_match():
+    x, y = _mlp_batches()[0]
+    model = JaxMLP(n_units=32, n_out=10)
+
+    def loss_fn(params):
+        logits = model.apply({"params": params}, x)
+        return optax.softmax_cross_entropy_with_integer_labels(
+            logits, y).mean(), logits
+
+    (loss, logits), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+        _mlp_params())
+    port = MLP(n_units=32, n_out=10, in_features=16, device="cpu")
+    port.load_state_dict(mlp_state_from_flax(_mlp_params()))
+    got = port(torch.from_numpy(x))
+    got_loss = mlp_loss(port, (torch.from_numpy(x), torch.from_numpy(y)))
+    got_loss.backward()
+    np.testing.assert_allclose(got.detach().numpy(), logits, **MLP_TOL)
+    np.testing.assert_allclose(float(got_loss.detach()), float(loss),
+                               **MLP_TOL)
+    want = mlp_state_from_flax(jax.tree.map(np.asarray, grads))
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   err_msg=name, **MLP_TOL)
 
 
 @pytest.mark.parametrize("case", list(MLP_CASES))

@@ -46,6 +46,13 @@ def test_imagenet_twin_trains_resnet18_to_a_finite_loss(flags, capsys):
     assert "iter 3/3 loss=" in out and "images/sec" in out
 
 
+def test_imagenet_twin_profiles_iterations_10_to_20(tmp_path, capsys):
+    train_imagenet.main(IMAGENET_TINY[:-1] + ["21", "--profile",
+                                              str(tmp_path)])
+    assert (tmp_path / "trace_rank0.json").stat().st_size > 0
+    assert "profile written to" in capsys.readouterr().out
+
+
 def test_imagenet_twin_takes_its_rank_slice_of_the_global_batch():
     run = train_imagenet.setup(IMAGENET_TINY)
     x, y = run.next_batch()

@@ -9,6 +9,7 @@ test file in one launch and returns flat ``{name: ndarray}`` results.
 from __future__ import annotations
 
 import io
+import time
 
 import numpy as np
 import torch
@@ -248,3 +249,21 @@ def examples_worker(inputs: dict) -> dict:
     return {"mnist/val_acc": np.array(final["val_acc"]),
             "mnist/val_loss": np.array(final["val_loss"]),
             "imagenet/loss": _np(metrics["loss"])}
+
+
+# ------------------------------------------------------- the launcher
+
+
+def failing_worker(inputs: dict) -> dict:
+    """Rank 1 raises; rank 0 waits in a collective for it."""
+    if torch.distributed.get_rank() == 1:
+        raise ValueError("rank 1 fails on purpose")
+    torch.distributed.barrier()
+    return {}
+
+
+def hanging_worker(inputs: dict) -> dict:
+    """Rank 1 never returns."""
+    if torch.distributed.get_rank() == 1:
+        time.sleep(3600)
+    return {"x": inputs["x"] * 2}
