@@ -6,11 +6,14 @@ under ``chainermn_tpu/``. It imports ``torch`` and never ``jax``, ``flax``
 or anything of the JAX package: where it needs code from a jax-free
 module there, it keeps its own copy.
 
-What it serves today: the Transformer-base causal LM through the paged
-continuous-batching engine (``serving.ServingEngine`` under
-``serving.Scheduler``), with the paged-decode attention running in a
-hand-written CUDA kernel (``ops.paged_decode``, source
-``csrc/paged_decode.cu``).
+What it does today: it serves the Transformer-base causal LM through the
+paged continuous-batching engine (``serving.ServingEngine`` under
+``serving.Scheduler``), its paged-decode attention in hand-written CUDA
+kernels (``ops.paged_decode``); it trains that LM with the
+flash-attention kernels (``ops.flash_attention``); and it trains the
+MNIST MLP and the ResNets data-parallel with synchronized BatchNorm
+(``models``, ``links``, ``training.Trainer``), one process per rank
+(``testing.run_distributed`` launches gloo ranks on the CPU).
 
 Entry points run on ``cuda`` unless the caller passes ``device=`` (the
 CPU tests pass ``device="cpu"``); with no card and no ``device=`` they

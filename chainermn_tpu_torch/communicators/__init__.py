@@ -57,8 +57,7 @@ def create_communicator(communicator_name: str = "xla", **kwargs
     if communicator_name in _LATER:
         raise NotImplementedError(
             f"communicator {communicator_name!r} is not ported yet (ROADMAP "
-            "queue 3.2, communicators: the topology-aware names and the "
-            "multi-rank launcher)")
+            "queue 3.2, communicators: the topology-aware names)")
     raise ValueError(f"unknown communicator {communicator_name!r}; available: "
                      f"{sorted(('naive',) + _NCCL_NAMES + _LATER)}")
 

@@ -3,7 +3,7 @@
 
 Prompts are padded up to a small fixed ladder of lengths, so the
 prefill runs at a handful of shapes. ``pad_to`` and ``bucket_batches``
-land with the data slice.
+land with the serving extensions (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
