@@ -64,6 +64,14 @@ def synthetic_batch(rng, batch, size):
     return x, y
 
 
+def local_batch(rng, batchsize, image_size, rank, size):
+    """This rank's contiguous slice of the next global batch
+    (``batchsize x size`` images drawn by :func:`synthetic_batch`)."""
+    x, y = synthetic_batch(rng, batchsize * size, image_size)
+    lo = rank * batchsize
+    return x[lo:lo + batchsize], y[lo:lo + batchsize]
+
+
 def to_model_input(batch, device):
     """An NHWC numpy batch as NCHW tensors on ``device``: the permuted
     view has channels_last strides, which the copy keeps."""
@@ -146,12 +154,10 @@ def setup(argv=None) -> SimpleNamespace:
     state = create_train_state(model, optimizer, comm)
     step = make_train_step(loss_fn, optimizer, comm)
     rng = np.random.default_rng(0)
-    lo = comm.rank * args.batchsize
 
     def next_batch():
-        x, y = synthetic_batch(rng, args.batchsize * comm.size,
-                               args.image_size)
-        return x[lo:lo + args.batchsize], y[lo:lo + args.batchsize]
+        return local_batch(rng, args.batchsize, args.image_size, comm.rank,
+                           comm.size)
 
     return SimpleNamespace(args=args, comm=comm, device=device, model=model,
                            state=state, step=step, next_batch=next_batch)

@@ -40,6 +40,7 @@ from torch_rank_workers import (
     datasets_worker,
     failing_worker,
     hanging_worker,
+    few_threads,  # noqa: F401
 )
 
 N_ITEMS = 23

@@ -54,7 +54,12 @@ from chainermn_tpu_torch.training import (
     make_train_step,
 )
 from torch_flax_params import random_variables
-from torch_rank_workers import dp_training_worker, mlp_loss, resnet_loss
+from torch_rank_workers import (
+    dp_training_worker,
+    mlp_loss,
+    resnet_loss,
+    few_threads,  # noqa: F401
+)
 
 N = 2
 MLP_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -2,8 +2,9 @@
 ``examples/imagenet/train_imagenet.py`` run end to end on the CPU, at
 world size 1 in this process and at 2 gloo ranks through the launcher.
 
-The MNIST twin trains 60 iterations (per-rank batch 256) on the
-example's synthetic blobs; its final validation accuracy must pass 0.9.
+The MNIST twin trains 60 iterations (per-rank batch 64, a quarter of
+the example's, to keep the CPU suite short) on the example's synthetic
+blobs; its final validation accuracy must pass 0.9.
 The ImageNet twin trains ResNet18 at image 32, batch 2, for 3
 iterations to a finite loss. The options the twins leave out exit naming
 their ROADMAP item.
@@ -13,13 +14,16 @@ import math
 
 import numpy as np
 import pytest
+from conftest import load_example
 
 from chainermn_tpu_torch.examples.imagenet import train_imagenet
 from chainermn_tpu_torch.examples.mnist import train_mnist
 from chainermn_tpu_torch.testing import run_distributed
-from torch_rank_workers import examples_worker
+from torch_rank_workers import examples_worker, few_threads  # noqa: F401
 
 MNIST_ITERATIONS = 60
+MNIST_BATCH = 64
+MNIST = ["--device", "cpu", "--batchsize", str(MNIST_BATCH)]
 IMAGENET_TINY = ["--device", "cpu", "--arch", "resnet18", "--image-size",
                  "32", "--batchsize", "2", "--iterations", "3"]
 
@@ -29,41 +33,37 @@ IMAGENET_TINY = ["--device", "cpu", "--arch", "resnet18", "--image-size",
                                         "bfloat16"]],
                          ids=["plain", "db-prefetch-bf16"])
 def test_mnist_twin_learns_the_blobs(flags, capsys):
-    final = train_mnist.main(["--device", "cpu", "--iterations",
-                              str(MNIST_ITERATIONS), *flags])
+    final = train_mnist.main(MNIST + ["--iterations", str(MNIST_ITERATIONS),
+                                      *flags])
     assert final["val_acc"] > 0.9, final
     out = capsys.readouterr().out
     assert f"iter {MNIST_ITERATIONS}/{MNIST_ITERATIONS}" in out
     assert "final:" in out
 
 
-@pytest.mark.parametrize("flags", [[], ["--double-buffering"]],
-                         ids=["plain", "db"])
-def test_imagenet_twin_trains_resnet18_to_a_finite_loss(flags, capsys):
-    metrics = train_imagenet.main(IMAGENET_TINY + flags)
+def test_imagenet_twin_trains_resnet18_to_a_finite_loss(capsys):
+    metrics = train_imagenet.main(IMAGENET_TINY)
     assert math.isfinite(float(metrics["loss"]))
     out = capsys.readouterr().out
     assert "iter 3/3 loss=" in out and "images/sec" in out
 
 
-def test_imagenet_twin_profiles_iterations_10_to_20(tmp_path, capsys):
-    train_imagenet.main(IMAGENET_TINY[:-1] + ["21", "--profile",
-                                              str(tmp_path)])
-    assert (tmp_path / "trace_rank0.json").stat().st_size > 0
-    assert "profile written to" in capsys.readouterr().out
-
-
-def test_imagenet_twin_takes_its_rank_slice_of_the_global_batch():
-    run = train_imagenet.setup(IMAGENET_TINY)
-    x, y = run.next_batch()
-    assert x.shape == (2, 32, 32, 3) and y.shape == (2,)
-    want = train_imagenet.synthetic_batch(np.random.default_rng(0), 2, 32)
-    np.testing.assert_array_equal(x, want[0])
+def test_imagenet_twin_draws_the_jax_examples_batches():
+    """Rank r of n takes its slice of the global batch the JAX example
+    draws from ``np.random.default_rng(0)``."""
+    jax_example = load_example("imagenet", "train_imagenet.py")
+    want = jax_example.synthetic_batch(np.random.default_rng(0), 6, 8)
+    for rank in range(3):
+        got = train_imagenet.local_batch(np.random.default_rng(0), 2, 8,
+                                         rank, 3)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w[2 * rank:2 * rank + 2])
 
 
 def test_both_twins_at_two_ranks():
     outs = run_distributed(examples_worker, 2,
-                           {"mnist_iterations": MNIST_ITERATIONS})
+                           {"mnist_iterations": MNIST_ITERATIONS,
+                            "mnist_batch": MNIST_BATCH})
     for out in outs:
         assert float(out["mnist/val_acc"]) > 0.9
         assert math.isfinite(float(out["imagenet/loss"]))
@@ -78,7 +78,7 @@ def test_both_twins_at_two_ranks():
     ["--checkpoint-interval", "10"], ["--checkpoint-backend", "npz"]])
 def test_mnist_left_out_flags_exit_naming_their_roadmap_item(flag, capsys):
     with pytest.raises(SystemExit):
-        train_mnist.main(["--device", "cpu", *flag])
+        train_mnist.main(MNIST + flag)
     assert "ROADMAP queue" in capsys.readouterr().err
 
 

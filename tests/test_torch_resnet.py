@@ -46,7 +46,10 @@ from chainermn_tpu_torch.models import ResNet18, ResNet50
 from chainermn_tpu_torch.models import resnet
 from chainermn_tpu_torch.testing import run_distributed
 from torch_flax_params import random_variables
-from torch_rank_workers import resnet_worker
+from torch_rank_workers import (
+    resnet_worker,
+    few_threads,  # noqa: F401
+)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = 2e-2

@@ -34,7 +34,10 @@ from chainermn_tpu.links.batch_normalization import (
 from chainermn_tpu_torch.communicators import create_communicator
 from chainermn_tpu_torch.links import MultiNodeBatchNormalization
 from chainermn_tpu_torch.testing import run_distributed
-from torch_rank_workers import sync_bn_worker
+from torch_rank_workers import (
+    sync_bn_worker,
+    few_threads,  # noqa: F401
+)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CASES = {"2d": (8, 6), "4d": (8, 5, 3, 3)}

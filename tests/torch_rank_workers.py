@@ -12,6 +12,7 @@ import io
 import time
 
 import numpy as np
+import pytest
 import torch
 import torch.nn.functional as F
 
@@ -33,6 +34,22 @@ from chainermn_tpu_torch.training import (
     create_train_state,
     make_train_step,
 )
+
+
+#: torch threads in a test process that runs these tests: the suite
+#: runs several test processes at once, and the port's CPU tests are
+#: small
+TEST_THREADS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Run a test module that imports this fixture on TEST_THREADS torch
+    threads, then restore the count."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(min(TEST_THREADS, before))
+    yield
+    torch.set_num_threads(before)
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -241,7 +258,8 @@ def examples_worker(inputs: dict) -> dict:
     from chainermn_tpu_torch.examples.imagenet import train_imagenet
     from chainermn_tpu_torch.examples.mnist import train_mnist
 
-    final = train_mnist.main(["--device", "cpu", "--iterations",
+    final = train_mnist.main(["--device", "cpu", "--batchsize",
+                              str(int(inputs["mnist_batch"])), "--iterations",
                               str(int(inputs["mnist_iterations"]))])
     metrics = train_imagenet.main(
         ["--device", "cpu", "--arch", "resnet18", "--image-size", "32",
