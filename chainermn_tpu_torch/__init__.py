@@ -13,13 +13,24 @@ kernels (``ops.paged_decode``); it trains that LM with the
 flash-attention kernels (``ops.flash_attention``); and it trains the
 MNIST MLP and the ResNets data-parallel with synchronized BatchNorm
 (``models``, ``links``, ``training.Trainer``), one process per rank
-(``testing.run_distributed`` launches gloo ranks on the CPU).
+(``testing.run_distributed`` launches gloo ranks on the CPU). Training
+resumes where it stopped: ``create_multi_node_checkpointer`` saves
+per-rank snapshots (async through a native writer, or through
+``torch.distributed.checkpoint`` with ``extensions.dcp_adapter``) and
+agrees on the newest common one at restart; ``utils.preemption`` turns
+SIGTERM into a checkpoint and a clean exit, and ``global_except_hook``
+turns one rank's crash into the whole job's end.
 
 Entry points run on ``cuda`` unless the caller passes ``device=`` (the
 CPU tests pass ``device="cpu"``); with no card and no ``device=`` they
 raise instead of falling back.
 """
 
+from chainermn_tpu_torch import global_except_hook  # installs nothing
 from chainermn_tpu_torch._device import resolve_device
+from chainermn_tpu_torch.extensions.checkpoint import (
+    create_multi_node_checkpointer,
+)
 
-__all__ = ["resolve_device"]
+__all__ = ["create_multi_node_checkpointer", "global_except_hook",
+           "resolve_device"]

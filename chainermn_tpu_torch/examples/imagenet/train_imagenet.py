@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from chainermn_tpu_torch import global_except_hook
 from chainermn_tpu_torch._device import resolve_device
 from chainermn_tpu_torch.communicators import create_communicator
 from chainermn_tpu_torch.models import resnet
@@ -140,6 +141,7 @@ def setup(argv=None) -> SimpleNamespace:
                               else "naive"),
         allreduce_grad_dtype=args.allreduce_grad_dtype or None,
         device=device)
+    global_except_hook._add_hook()
     if comm.rank == 0:
         print(f"communicator: {comm}  arch: {args.arch}")
     compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32

@@ -12,12 +12,17 @@
 communicator defaults to ``pure_nccl`` there and to ``naive`` (gloo) on
 the CPU. Compute is bf16 on the card and fp32 on the CPU. The packed mode
 and ``--window`` attend through the flash kernels; the plain mode takes
-the blockwise reference.
+the blockwise reference. ``--mlm`` trains the bidirectional encoder
+(``causal=False``) on the BERT recipe as the JAX example does: token
+``VOCAB - 1`` is the mask symbol, targets are the synthetic tokens modulo
+it, and each iteration's corruption is drawn from a generator seeded
+with the iteration; like the JAX example it attends through the model's
+default (blockwise) attention.
 
 Left for later, each refused with an error naming its ROADMAP item:
 ``--sequence-parallel`` (queue 6.5), ``--local-sgd`` and
-``--error-feedback`` (queue 3.3), ``--mlm``, ``--generate`` and ``--beam``
-(queue 1, items 1-2).
+``--error-feedback`` (queue 3.3), ``--generate`` and ``--beam`` (queue 1,
+item 1).
 """
 
 from __future__ import annotations
@@ -29,9 +34,15 @@ import time
 import numpy as np
 import torch
 
+from chainermn_tpu_torch import global_except_hook
 from chainermn_tpu_torch._device import resolve_device
 from chainermn_tpu_torch.communicators import create_communicator
-from chainermn_tpu_torch.models import TransformerLM, lm_loss
+from chainermn_tpu_torch.models import (
+    TransformerLM,
+    lm_loss,
+    mlm_corrupt,
+    mlm_loss,
+)
 from chainermn_tpu_torch.ops.flash_attention import flash_attention
 from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
 from chainermn_tpu_torch.training import create_train_state, make_train_step
@@ -42,7 +53,6 @@ _LATER = {
     "sequence_parallel": "ROADMAP queue 6.5 (ring/Ulysses/local attention)",
     "local_sgd": "ROADMAP queue 3.3 (LocalSGDOptimizer)",
     "error_feedback": "ROADMAP queue 3.3 (error feedback on the int8 wire)",
-    "mlm": "ROADMAP queue 1, item 2 (the bidirectional MLM encoder)",
     "generate": "ROADMAP queue 1, item 1 (the dense decode ring, generate)",
     "beam": "ROADMAP queue 1, item 1 (beam_search)",
 }
@@ -106,7 +116,9 @@ def _parser():
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--double-buffering", action="store_true")
     p.add_argument("--allreduce-grad-dtype", default="bfloat16")
-    p.add_argument("--mlm", action="store_true")
+    p.add_argument("--mlm", action="store_true",
+                   help="masked-LM pretraining of the bidirectional "
+                        "encoder (causal=False)")
     p.add_argument("--local-sgd", type=int, default=0, metavar="H")
     p.add_argument("--error-feedback", action="store_true")
     p.add_argument("--sequence-parallel", action="store_true")
@@ -140,6 +152,7 @@ def main(argv=None):
                               else "naive"),
         allreduce_grad_dtype=args.allreduce_grad_dtype or None,
         device=device)
+    global_except_hook._add_hook()
     if comm.rank == 0:
         print(f"communicator: {comm}")
     compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -153,7 +166,8 @@ def main(argv=None):
         d_ff=4 * args.d_model, max_len=args.seq_len,
         compute_dtype=compute_dtype, attention_fn=attention_fn,
         num_kv_heads=args.num_kv_heads, pos_encoding=args.pos_encoding,
-        window=args.window or None, seed=0, device=device)
+        window=args.window or None, causal=not args.mlm, seed=0,
+        device=device)
     optimizer = _make_optimizer(args, model, comm)
     state = create_train_state(model, optimizer, comm)
 
@@ -167,23 +181,40 @@ def main(argv=None):
                               dim=1)
             return lm_loss(logits, tokens, mask=valid)
 
-        def make_batch():
+        def make_batch(it):
             return tuple(torch.from_numpy(x).to(device) for x in
                          pack_documents(rng, args.batchsize, args.seq_len))
+    elif args.mlm:
+        mask_id = VOCAB - 1  # the top id is reserved as [MASK]
+
+        def loss_fn(model, batch):
+            x, targets, sel = batch
+            return mlm_loss(model(x), targets, sel)
+
+        def make_batch(it):
+            # data lives in [0, mask_id): a real token must never equal
+            # the mask symbol
+            targets = torch.from_numpy(synthetic_tokens(
+                rng, args.batchsize, args.seq_len) % mask_id).to(device)
+            gen = torch.Generator(device=device).manual_seed(it)
+            x, sel = mlm_corrupt(gen, targets, mask_id=mask_id,
+                                 vocab_size=VOCAB, rate=0.15)
+            return x, targets, sel
     else:
         def loss_fn(model, tokens):
             return lm_loss(model(tokens), tokens)
 
-        def make_batch():
+        def make_batch(it):
             return torch.from_numpy(synthetic_tokens(
                 rng, args.batchsize, args.seq_len)).to(device)
 
     step = make_train_step(loss_fn, optimizer, comm)
-    mode = "packed" if args.packed else "data-parallel"
+    mode = ("packed" if args.packed else "mlm" if args.mlm
+            else "data-parallel")
     metrics = None
     t0 = time.perf_counter()
     for it in range(args.iterations):
-        state, metrics = step(state, make_batch())
+        state, metrics = step(state, make_batch(it))
         if comm.rank == 0 and ((it + 1) % 10 == 0
                                or it + 1 == args.iterations):
             loss = float(metrics["loss"])  # waits for the step

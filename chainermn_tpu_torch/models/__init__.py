@@ -1,5 +1,6 @@
 """Models of the port (counterpart of :mod:`chainermn_tpu.models`): the
-Transformer-base causal LM, the MNIST MLP and the ResNet family."""
+Transformer-base LM (causal, or the bidirectional MLM encoder) with its
+losses, the MNIST MLP and the ResNet family."""
 
 from chainermn_tpu_torch.models.mlp import MLP
 from chainermn_tpu_torch.models.resnet import (
@@ -18,8 +19,14 @@ from chainermn_tpu_torch.models.transformer import (
     TransformerLM,
     apply_rope,
     lm_loss,
+    lm_loss_fused,
+    mlm_corrupt,
+    mlm_corrupt_from_draws,
+    mlm_loss,
 )
 
 __all__ = ["BasicBlock", "BottleneckBlock", "LayerNorm", "MLP", "ResNet",
            "ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152",
-           "TransformerBlock", "TransformerLM", "apply_rope", "lm_loss"]
+           "TransformerBlock", "TransformerLM", "apply_rope", "lm_loss",
+           "lm_loss_fused", "mlm_corrupt", "mlm_corrupt_from_draws",
+           "mlm_loss"]

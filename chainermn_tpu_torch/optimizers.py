@@ -9,6 +9,9 @@ optimizer. ``double_buffering=True`` keeps the JAX package's staleness-1
 semantics exactly: each step applies the gradients reduced at the
 previous step (zeros at the first step, still run through the inner
 optimizer) and banks this step's reduced gradients for the next.
+:meth:`MultiNodeOptimizer.state_dict` carries the inner optimizer's state
+and that bank, as the JAX ``opt_state`` carries the stale gradient, so a
+resumed run applies the same gradients as one that never stopped.
 
 Left for later (ROADMAP queue 3.3, optimizer and reduction):
 ``error_feedback`` and ``reduction_schedule`` (the four schedules,
@@ -77,6 +80,41 @@ class MultiNodeOptimizer:
             for i, p in enumerate(params):
                 p.grad, self._bank[i] = self._bank[i], p.grad
         self.actual_optimizer.step()
+
+    def state_dict(self) -> dict:
+        """``{"actual_optimizer": inner.state_dict(), "bank": ...}``. The
+        bank is the list of gradients reduced at the last step with
+        double buffering (zeros before the first step: what that step
+        applies), None without it."""
+        bank = None
+        if self.double_buffering:
+            bank = (self._bank if self._bank is not None
+                    else [torch.zeros_like(p) for p in self._params()])
+        return {"actual_optimizer": self.actual_optimizer.state_dict(),
+                "bank": bank}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Restore :meth:`state_dict`'s output: the inner optimizer's
+        state, and the bank copied onto each parameter's device."""
+        bank = state_dict["bank"]
+        if (bank is None) != (not self.double_buffering):
+            raise ValueError(
+                f"the state's bank is {'absent' if bank is None else 'present'}"
+                f" but this optimizer has double_buffering="
+                f"{self.double_buffering}")
+        params = self._params()
+        if bank is not None:
+            if len(bank) != len(params):
+                raise ValueError(f"the state banks {len(bank)} gradients for "
+                                 f"{len(params)} parameters")
+            for b, p in zip(bank, params):
+                if b.shape != p.shape:
+                    raise ValueError(f"a banked gradient of shape "
+                                     f"{tuple(b.shape)} for a parameter of "
+                                     f"shape {tuple(p.shape)}")
+            self._bank = [b.to(device=p.device, dtype=p.dtype, copy=True)
+                          for b, p in zip(bank, params)]
+        self.actual_optimizer.load_state_dict(state_dict["actual_optimizer"])
 
     def __getattr__(self, item):
         # Guard against re-entry while __dict__ is still empty (copy,

@@ -19,6 +19,13 @@ cross as ``.npz`` files in a temporary directory, which also holds the
 has a deadline: a rank that hangs is killed and the call raises, with
 each failing rank's traceback.
 
+:func:`launch_ranks` is the launch for drills in which a rank ends its
+own process — a preemption guard's ``os._exit(0)``, the except hook's
+``os._exit(1)``: each rank is a command of its own (a script that calls
+:func:`init_rank_from_env` first), every rank runs until it exits or
+reaches the deadline, and the call returns each rank's exit code,
+output and time instead of raising.
+
 :func:`assert_distributed_equals_single` is the suite's invariant,
 distributed result == single-process result, in torch form.
 """
@@ -26,10 +33,12 @@ distributed result == single-process result, in torch form.
 from __future__ import annotations
 
 import os
+import subprocess
+import sys
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Mapping, Optional
+from typing import Any, Callable, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -120,6 +129,73 @@ def run_distributed(worker: Callable[[dict], Mapping[str, Any]], size: int,
         return outs
 
 
+class RankExit(NamedTuple):
+    """How one rank of :func:`launch_ranks` ended."""
+
+    returncode: Optional[int]  # None: killed at the deadline
+    output: str  # stdout and stderr, interleaved
+    seconds: float  # from the launch to its exit (or the deadline)
+    timed_out: bool
+
+
+def init_rank_from_env() -> tuple[int, int]:
+    """Join the gloo group a :func:`launch_ranks` rank was started for
+    (its ``CMT_RANK``, ``CMT_WORLD_SIZE`` and ``CMT_STORE`` file);
+    returns ``(rank, size)``."""
+    import torch.distributed as dist
+
+    rank = int(os.environ["CMT_RANK"])
+    size = int(os.environ["CMT_WORLD_SIZE"])
+    torch.set_num_threads(CHILD_THREADS)
+    dist.init_process_group("gloo",
+                            init_method="file://" + os.environ["CMT_STORE"],
+                            rank=rank, world_size=size)
+    return rank, size
+
+
+def launch_ranks(argv: Sequence[str], size: int, *, timeout: float = 120.0,
+                 env: Optional[Mapping[str, str]] = None) -> list:
+    """Run ``python argv...`` as ``size`` ranks (one process each, the
+    rank in ``CMT_RANK``, the world size in ``CMT_WORLD_SIZE``, a fresh
+    store file in ``CMT_STORE``, plus ``env``) and let each end on its
+    own: nothing is killed at another rank's failure, only at the
+    deadline. Returns a :class:`RankExit` per rank, in rank order."""
+    with tempfile.TemporaryDirectory(prefix="cmt_launch_") as tmp:
+        procs, logs = [], []
+        t0 = time.monotonic()
+        for r in range(size):
+            log = open(os.path.join(tmp, f"rank{r}.log"), "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, *argv], stdout=log, stderr=subprocess.STDOUT,
+                env={**os.environ, **(env or {}), "CMT_RANK": str(r),
+                     "CMT_WORLD_SIZE": str(size),
+                     "CMT_STORE": os.path.join(tmp, "store")}))
+        ended = [None] * size
+        try:
+            while (any(e is None for e in ended)
+                   and time.monotonic() - t0 < timeout):
+                for r, p in enumerate(procs):
+                    if ended[r] is None and p.poll() is not None:
+                        ended[r] = time.monotonic() - t0
+                time.sleep(0.02)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        out = []
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            text = log.read()
+            log.close()
+            timed_out = ended[r] is None
+            out.append(RankExit(None if timed_out else p.returncode, text,
+                                timeout if timed_out else ended[r],
+                                timed_out))
+        return out
+
+
 def assert_allclose_tree(actual: Any, desired: Any, *, rtol: float = 1e-5,
                          atol: float = 1e-6, path: str = "") -> None:
     """``np.testing.assert_allclose`` leaf by leaf over nested dicts,
@@ -159,5 +235,6 @@ def assert_distributed_equals_single(distributed_fn: Callable,
                          rtol=rtol, atol=atol)
 
 
-__all__ = ["run_distributed", "assert_allclose_tree",
-           "assert_distributed_equals_single"]
+__all__ = ["RankExit", "assert_allclose_tree",
+           "assert_distributed_equals_single", "init_rank_from_env",
+           "launch_ranks", "run_distributed"]

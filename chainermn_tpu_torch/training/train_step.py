@@ -9,9 +9,12 @@ eagerly in one process per rank: ``loss_fn(model, batch)`` forward,
 step for a plain optimizer), ``optimizer.step()``, and the rank-mean of
 the metrics.
 
+A :class:`TrainState` is what the checkpointer saves and restores
+(:mod:`chainermn_tpu_torch.extensions.checkpoint`): the module's and the
+optimizer's ``state_dict`` and the step.
+
 Left for later: ``plan=``, ``param_specs`` and ``pipeline`` (ROADMAP queue
-6, parallelism library), the error-feedback state, ``make_eval_step`` and
-the ``Trainer`` (ROADMAP queue 3.5).
+6, parallelism library) and the error-feedback state (queue 3.3).
 """
 
 from __future__ import annotations

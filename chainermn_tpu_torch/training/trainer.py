@@ -8,10 +8,12 @@ numpy arrays, puts them on the communicator's device (through
 rank 0 prints the metrics, and registered extensions run at their
 intervals.
 
+Checkpointing is an extension like any other: the MNIST twin registers
+a ``MultiNodeCheckpointer.save`` at ``--checkpoint-interval``.
+
 Left for later: the step-phase window (``consume_phase_window``, the
 straggler monitor's input) and the trace, metrics and hang-watchdog
-hooks (ROADMAP queue 8, observability), and checkpoint extensions
-(queue 4).
+hooks (ROADMAP queue 8, observability).
 """
 
 from __future__ import annotations

@@ -49,8 +49,11 @@ script exits non-zero without its final ``ok`` line:
    example twin's ``pack_documents`` makes them, GQA (2 kv heads), a
    256-wide window, a bias with its gradient (B 2, T 256), odd T = 1000,
    the block entries with ``q_offset = 1536``, query rows that see no key
-   (their O and dq must be exactly 0), and head dims 32 and 128
-   (packed). Every output is held to ``TOLERANCE`` x max(1, max |plain|),
+   (their O and dq must be exactly 0), head dims 32 and 128 (packed), and
+   no mask at all (``causal=False``, the encoder's attention: B 8, T 2048,
+   8 heads, 8 or 2 kv heads; every tile visited, none skipped, and the
+   library call is SDPA's unmasked one). Every output is held to
+   ``TOLERANCE`` x max(1, max |plain|),
    and K1's O and LSE per entry to ``ELEMENT_TOL`` at the scale of the
    entry. bf16 runs K1-K3 on the tensor-core kernels, fp32 on the
    CUDA-core ones. The tensor-core kernels count on the card the tiles
@@ -93,9 +96,40 @@ script exits non-zero without its final ``ok`` line:
 10. The MNIST twin at full width: 200 iterations of batch 256 over
     ``pure_nccl`` with ``--prefetch 2``; final validation accuracy at
     least 0.9, and its time per iteration.
+11. The bidirectional encoder and the LM losses at full width: (a) the
+    Transformer-base encoder (``causal=False``, flash attention, bf16)
+    trains 30 steps of the MLM recipe (mask id 31999, rate 0.15, B 8 x T
+    2048) through AdamW in ``create_multi_node_optimizer`` over
+    ``pure_nccl``; the loss must fall and K1, K2 and K3 must each launch
+    ``num_layers`` times a step; step p50/p99, tokens/s, peak memory and
+    the busy share of one profiled step. (b) ``lm_loss_fused`` (8 chunks)
+    against ``lm_loss`` on the same hidden states of the causal LM: the
+    loss within ``FUSED_LOSS_REL_TOL`` and both gradients within
+    ``FUSED_GRAD_TOL`` of their max; forward+backward time and peak
+    memory of each, and a profile of the fused one. (c) 5 encoder steps
+    with ``remat=True`` ('dots') against 5 without: peak memory, step
+    p50, the step-5 loss within ``REMAT_LOSS_REL_TOL`` (and whether the
+    losses are bit-identical); one step with ``dropout_rate=0.1`` must be
+    finite and differ from the step without it.
+12. Resume and preemption: (a) phase 7's training with double buffering,
+    20 steps without a stop against 10 steps, a snapshot (blocking, then
+    async through the native writer, timed), a freshly built model and
+    optimizer, ``maybe_load`` and 10 more steps, through the npz
+    checkpointer and the dcp adapter: the losses of steps 11-20 must be
+    bit-identical to the run without a stop. (b) A child process trains
+    the MNIST MLP under the preemption guard and gets SIGTERM after step
+    7; it must save at iteration 10, exit 0 and leave one snapshot; a
+    second child resumes and finishes with the parameters of a run
+    without a stop, bit for bit. (c) The MNIST twin with ``--checkpoint``
+    to 100 iterations, then to 200: the second run resumes from 100.
 
 The ``kernels`` JSON and the card's name and power limit come on the two
 lines before the last; the last line is ``{"ok": true, "device": {...}}``.
+K1-K3's ``launches`` are phase 7's (the LM training path); their
+``launches_by_path`` add phase 11's encoder run.
+
+``python3 chip_smoke.py --drill-child DIR MODE`` is phase 12's child
+process, not a check of its own.
 """
 
 from __future__ import annotations
@@ -103,9 +137,11 @@ from __future__ import annotations
 import json
 import math
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -538,6 +574,9 @@ def _flash_cases():
                              seg="no_key", block=True)),
         ("d32", dict(B=2, T=1024, H=8, Hkv=8, D=32, seg=True)),
         ("d128", dict(B=2, T=1024, H=8, Hkv=8, D=128, seg=True)),
+        # no mask at all: the bidirectional encoder's attention (phase 11)
+        ("full", dict(full, causal=False)),
+        ("full_gqa", dict(full, Hkv=2, causal=False)),
     ]
 
 
@@ -547,7 +586,7 @@ NO_KEY_ROWS = 16
 
 def _flash_inputs(torch, np, dtype, seed, *, B, T, H, Hkv, Tk=None, D=64,
                   seg=False, bias=False, window=None, q_offset=0,
-                  block=False):
+                  block=False, causal=True):
     from chainermn_tpu_torch.examples.transformer.train_transformer_lm \
         import pack_documents
 
@@ -569,7 +608,7 @@ def _flash_inputs(torch, np, dtype, seed, *, B, T, H, Hkv, Tk=None, D=64,
     elif seg:
         _, s = pack_documents(np.random.default_rng(seed), B, T)
         seg_q = seg_k = torch.from_numpy(s).cuda()
-    kw = dict(causal=True, scale=D ** -0.5, seg_q=seg_q, seg_k=seg_k,
+    kw = dict(causal=causal, scale=D ** -0.5, seg_q=seg_q, seg_k=seg_k,
               bias=(torch.randn(1, H, T, Tk, generator=gen, device="cuda")
                     * 0.5 if bias else None),
               window=window, q_offset=q_offset)
@@ -585,7 +624,8 @@ def _flash_work(fa, q, k, kw):
     Tk, Hkv = k.shape[1], k.shape[2]
     mask = fa._mask(q, k, kw["seg_q"], kw["seg_k"], kw["causal"],
                     kw["window"], kw["q_offset"])
-    pairs = H * int(mask.expand(B, 1, Tq, Tk).sum())
+    pairs = H * (B * Tq * Tk if mask is None
+                 else int(mask.expand(B, 1, Tq, Tk).sum()))
     esz = q.element_size()
     qo = B * Tq * H * D * esz        # q, O or dO
     kv = 2 * B * Tk * Hkv * D * esz  # k and v
@@ -622,14 +662,17 @@ def _tiles(torch, F, fa, q, k, kw):
 
 def _sdpa_attention(torch, F, fa, q, k, v, do, kw):
     """One library call computing the same attention (forward; and
-    forward+backward), over BHTD views: ``is_causal`` where that is the
-    whole mask, else the explicit mask (+ the bias)."""
+    forward+backward), over BHTD views: no mask where nothing is masked,
+    ``is_causal`` where that is the whole mask, else the explicit mask
+    (+ the bias)."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     gqa = q.shape[2] != k.shape[2]
-    plain_causal = (kw["seg_q"] is None and kw["bias"] is None
-                    and kw["window"] is None and kw["q_offset"] == 0
-                    and q.shape[1] == k.shape[1])
-    if plain_causal:
+    plain = (kw["seg_q"] is None and kw["bias"] is None
+             and kw["window"] is None and kw["q_offset"] == 0
+             and q.shape[1] == k.shape[1])
+    if plain and not kw["causal"]:
+        mkw = {}
+    elif plain:
         mkw = {"is_causal": True}
     else:
         mask = fa._mask(q, k, kw["seg_q"], kw["seg_k"], kw["causal"],
@@ -680,7 +723,7 @@ def phase_flash_kernels(torch, np, F):
             bias_grad = kw["bias"] is not None
             fa.tile_counts()  # zero the kernels' counts
             if shape.get("block"):  # the ring's block entries
-                bkw = dict(causal=True, scale=kw["scale"],
+                bkw = dict(causal=kw["causal"], scale=kw["scale"],
                            q_offset=kw["q_offset"], seg_q=kw["seg_q"],
                            seg_kv=kw["seg_k"])
                 out, lse = fa.flash_block_fwd(q, k, v, **bkw)
@@ -724,6 +767,16 @@ def phase_flash_kernels(torch, np, F):
                 "case": name, "dtype": row["dtype"],
                 "counted_by_kernels": counted,
                 "predicted_by_live_tiles": predicted}), flush=True)
+            unmasked = not kw["causal"] and kw["seg_q"] is None
+            if dtype == torch.bfloat16 and unmasked:
+                # every (q tile, k tile, head) triple visited, none skipped
+                B_, Tq_, H_ = q.shape[:3]
+                every = B_ * H_ * -(-Tq_ // fa.TILE) * -(-k.shape[1]
+                                                          // fa.TILE)
+                if predicted != (every, 0):
+                    raise AssertionError(f"K1-K3 {name}: the rule predicts "
+                                         f"{predicted}, not all {every} "
+                                         "tiles visited and none skipped")
             if any(c != predicted for c in counted.values()) or (
                     name == "packed" and dtype == torch.bfloat16
                     and predicted[1] == 0):
@@ -1179,6 +1232,532 @@ def phase_mnist(torch, smi):
     return final
 
 
+# ---------------------------------------------------------------- phase 11
+
+ENCODER_STEPS = 30
+MLM_MASK_ID = 31999
+MLM_RATE = 0.15
+#: lm_loss_fused against lm_loss on the same bf16 hidden states and
+#: table: the losses' relative difference, and each gradient's max error
+#: over its max |value|. Both heads multiply bf16 operands; the unfused
+#: one rounds its logits (and their gradient) to bf16, the fused one
+#: keeps them in fp32, so they part by bf16 rounding — TOLERANCE's bf16
+#: 2e-2 for the gradients, and for the mean loss over 16,376 targets,
+#: where the roundings average out, 1e-3.
+FUSED_LOSS_REL_TOL = 1e-3
+FUSED_GRAD_TOL = 2e-2
+FUSED_CHUNKS = 8
+REMAT_STEPS = 5
+#: the step-5 loss with and without remat: the recomputed block runs the
+#: same kernels on the same inputs
+REMAT_LOSS_REL_TOL = 1e-6
+FLASH_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
+                 "flash_dkv_mma_kernel")
+
+
+def _p50_p99(ms):
+    steady = sorted(ms)
+    return (statistics.median(steady),
+            steady[min(len(steady) - 1, -(-99 * len(steady) // 100) - 1)])
+
+
+def _run_steps(step, state, batches):
+    """Run ``step`` over ``batches``: (state, losses, host ms of each
+    step, each ending in a host read of its loss)."""
+    losses, ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, losses, ms
+
+
+def _mlm_batches(torch, np, n):
+    """``n`` MLM batches of B 8 x T 2048: the example twin's synthetic
+    tokens as targets (all below the mask id), corrupted by
+    ``mlm_corrupt`` from a card generator seeded with the step's index,
+    as the twin does."""
+    from chainermn_tpu_torch.examples.transformer.train_transformer_lm \
+        import synthetic_tokens
+    from chainermn_tpu_torch.models import mlm_corrupt
+
+    rng = np.random.default_rng(0)
+    out = []
+    for i in range(n):
+        targets = torch.from_numpy(
+            synthetic_tokens(rng, 8, 2048) % MLM_MASK_ID).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        x, sel = mlm_corrupt(gen, targets, mask_id=MLM_MASK_ID,
+                             vocab_size=32000, rate=MLM_RATE)
+        out.append((x, targets, sel))
+    return out
+
+
+def _mlm_loss(model, batch):
+    from chainermn_tpu_torch.models import mlm_loss
+
+    x, targets, sel = batch
+    return mlm_loss(model(x), targets, sel)
+
+
+def _trainer(torch, loss_fn, *, double_buffering=False, **model_kw):
+    """Transformer-base (bf16, seeded weights, flash attention) behind
+    AdamW(3e-4, weight decay 1e-4) in ``create_multi_node_optimizer``
+    over ``pure_nccl`` at world size 1: (comm, model, state, step)."""
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
+    from chainermn_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+
+    model = TransformerLM(seed=0, attention_fn=fa.flash_attention,
+                          **model_kw)
+    comm = create_communicator("pure_nccl")
+    opt = create_multi_node_optimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4), comm,
+        double_buffering=double_buffering)
+    return (comm, model, create_train_state(model, opt, comm),
+            make_train_step(loss_fn, opt, comm))
+
+
+def _reset_launches(fa):
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+
+
+def phase_encoder(torch, np, smi):
+    """(a) The bidirectional encoder at full width on the MLM recipe:
+    30 steps, K1-K3 without the mask, their launches per step."""
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    batches = _mlm_batches(torch, np, ENCODER_STEPS + 1)  # set-up
+    _, model, state, step = _trainer(torch, _mlm_loss, causal=False)
+    tokens_per_step = batches[0][0].numel()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(fa)
+    state, losses, ms = _run_steps(step, state, batches[:ENCODER_STEPS])
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    p50, p99 = _p50_p99(ms[TRAIN_WARMUP:])
+    expected = model.num_layers * ENCODER_STEPS
+
+    def one_step():
+        nonlocal state
+        state, metrics = step(state, batches[ENCODER_STEPS])
+        float(metrics["loss"])
+
+    wall, busy, _ = _profile_window(torch, one_step, "encoder profile",
+                                    FLASH_KERNELS)
+    summary = {
+        "steps": ENCODER_STEPS, "tokens_per_step": tokens_per_step,
+        "loss": {str(i): losses[i - 1] for i in (1, 10, 20, 30)},
+        "step_ms_p50": p50, "step_ms_p99": p99,
+        "tokens_per_s": tokens_per_step / (p50 / 1e3),
+        "peak_memory_bytes": peak, "busy_share": busy / wall,
+        "launches": launches,
+        "launches_per_step": {k: v / ENCODER_STEPS
+                              for k, v in launches.items()},
+        "expected_launches": expected}
+    print("encoder summary", json.dumps(summary), flush=True)
+    print(f"encoder (causal=False, MLM, mask id {MLM_MASK_ID}, rate "
+          f"{MLM_RATE}): loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+          f"{ENCODER_STEPS} steps, step p50 {p50:.3f} ms p99 {p99:.3f} ms, "
+          f"{tokens_per_step / (p50 / 1e3):,.0f} tokens/s, peak memory "
+          f"{peak / 2**30:.3f} GiB, device busy {busy / wall:.4f} of one "
+          f"profiled step, K1/K2/K3 launches {launches} (expected "
+          f"{expected} each); card {smi}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite encoder loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the encoder loss did not fall: {losses[0]} "
+                             f"-> {losses[-1]}")
+    if any(n != expected for n in launches.values()):
+        raise AssertionError(f"K1/K2/K3 launches {launches} != num_layers x "
+                             f"steps = {expected}")
+    del model, state, step
+    return batches, summary
+
+
+def _fwd_bwd_measure(torch, fn, flush):
+    """(result, peak bytes above the live memory before, device ms of
+    forward+backward)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return out, peak, _time_ms(torch, fn, flush)
+
+
+def phase_fused_loss(torch, np, smi):
+    """(b) ``lm_loss_fused`` (8 chunks) against ``lm_loss`` over the tied
+    head on the same hidden states of the causal LM, B 8 x T 2048."""
+    import torch.nn.functional as F
+
+    from chainermn_tpu_torch.models import (
+        TransformerLM,
+        lm_loss,
+        lm_loss_fused,
+    )
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    model = TransformerLM(seed=0, attention_fn=fa.flash_attention,
+                          return_hidden=True)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, model.vocab_size, (8, 2048))).cuda()
+    with torch.no_grad():
+        hidden = model(tokens)
+    table = model.tok_emb.weight
+    dt = model.compute_dtype
+
+    def unfused():
+        h = hidden.detach().requires_grad_()
+        loss = lm_loss(F.linear(h.to(dt), table.to(dt)), tokens)
+        return (loss, *torch.autograd.grad(loss, (h, table)))
+
+    def fused():
+        h = hidden.detach().requires_grad_()
+        loss = lm_loss_fused(h, table, tokens, n_chunks=FUSED_CHUNKS,
+                             compute_dtype=dt)
+        return (loss, *torch.autograd.grad(loss, (h, table)))
+
+    flush = torch.empty(24 * 2**20, dtype=torch.float32, device="cuda")
+    (lu, hu, tu), peak_u, ms_u = _fwd_bwd_measure(torch, unfused, flush)
+    (lf, hf, tf), peak_f, ms_f = _fwd_bwd_measure(torch, fused, flush)
+    lf, lu = float(lf.detach()), float(lu.detach())
+    loss_rel = abs(lf - lu) / abs(lu)
+    errs = {name: ((a.float() - b.float()).abs().max()
+                   / b.float().abs().max()).item()
+            for name, a, b in (("hidden", hf, hu), ("table", tf, tu))}
+    row = {"loss_fused": lf, "loss_unfused": lu,
+           "loss_rel_diff": loss_rel, "grad_err_over_max": errs,
+           "ms": {"fused": ms_f, "unfused": ms_u},
+           "peak_bytes": {"fused": peak_f, "unfused": peak_u},
+           "chunks": FUSED_CHUNKS,
+           "limits": {"loss_rel": FUSED_LOSS_REL_TOL,
+                      "grad": FUSED_GRAD_TOL}}
+    _profile_window(torch, fused, "fused loss profile",
+                    ("gemm", "logsumexp", "elementwise", "reduce", "copy"))
+    print("fused loss", json.dumps(row), flush=True)
+    print(f"lm_loss_fused ({FUSED_CHUNKS} chunks) vs lm_loss on the same "
+          f"hidden states, B 8 x T 2048, vocab {model.vocab_size}: loss "
+          f"{lf:.6f} vs {lu:.6f} (rel {loss_rel:.3e}, limit "
+          f"{FUSED_LOSS_REL_TOL}), max grad err / max |grad| {errs} (limit "
+          f"{FUSED_GRAD_TOL}); forward+backward {ms_f:.3f} ms vs "
+          f"{ms_u:.3f} ms, peak above live memory {peak_f / 2**30:.3f} GiB "
+          f"vs {peak_u / 2**30:.3f} GiB; card {smi}", flush=True)
+    if not (math.isfinite(lf) and loss_rel <= FUSED_LOSS_REL_TOL
+            and all(e <= FUSED_GRAD_TOL for e in errs.values())):
+        raise AssertionError(f"lm_loss_fused disagrees with lm_loss: {row}")
+    return row
+
+
+def phase_remat_dropout(torch, np, smi, batches):
+    """(c) 5 encoder steps with ``remat=True`` ('dots') against 5
+    without, and one step with ``dropout_rate=0.1``."""
+    from chainermn_tpu_torch.models import mlm_loss
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    runs = {}
+    for tag, kw in (("plain", {}),
+                    ("remat_dots", {"remat": True, "remat_policy": "dots"})):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, model, state, step = _trainer(torch, _mlm_loss, causal=False,
+                                         **kw)
+        _reset_launches(fa)
+        state, losses, ms = _run_steps(step, state, batches[:REMAT_STEPS])
+        runs[tag] = {"losses": losses, "step_ms_p50": _p50_p99(ms[1:])[0],
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "launches": dict(fa.LAUNCHES)}
+        del model, state, step
+    a, b = runs["plain"]["losses"], runs["remat_dots"]["losses"]
+    rel = abs(a[-1] - b[-1]) / abs(a[-1])
+    gen = torch.Generator(device="cuda").manual_seed(123)
+
+    def dropout_loss(model, batch):
+        x, targets, sel = batch
+        return mlm_loss(model(x, dropout_generator=gen), targets, sel)
+
+    _, model, state, step = _trainer(torch, dropout_loss, causal=False,
+                                     dropout_rate=0.1)
+    _, drop, _ = _run_steps(step, state, batches[:1])
+    del model, state, step
+    summary = {**runs, "step5_rel_diff": rel, "bit_identical": a == b,
+               "dropout_step1_loss": drop[0], "plain_step1_loss": a[0]}
+    print("remat summary", json.dumps(summary), flush=True)
+    print(f"remat 'dots' vs plain, {REMAT_STEPS} encoder steps: peak memory "
+          f"{runs['remat_dots']['peak_memory_bytes'] / 2**30:.3f} vs "
+          f"{runs['plain']['peak_memory_bytes'] / 2**30:.3f} GiB, step p50 "
+          f"{runs['remat_dots']['step_ms_p50']:.3f} vs "
+          f"{runs['plain']['step_ms_p50']:.3f} ms, step-5 loss {b[-1]!r} vs "
+          f"{a[-1]!r} (rel {rel:.3e}, limit {REMAT_LOSS_REL_TOL}; bit-"
+          f"identical over the 5 steps: {a == b}), launches "
+          f"{runs['remat_dots']['launches']} vs {runs['plain']['launches']}"
+          f"; dropout 0.1, step 1 loss {drop[0]:.6f} vs {a[0]:.6f} without;"
+          f" card {smi}", flush=True)
+    if rel > REMAT_LOSS_REL_TOL:
+        raise AssertionError(f"remat moved the step-5 loss by {rel}")
+    if not math.isfinite(drop[0]) or drop[0] == a[0]:
+        raise AssertionError(f"the dropout step's loss {drop[0]} is not "
+                             f"finite or equals the plain step's {a[0]}")
+    return summary
+
+
+# ---------------------------------------------------------------- phase 12
+
+RESUME_STEPS = 20
+RESUME_AT = 10
+DRILL_STEPS = 20
+DRILL_SIGNAL_AT = 7
+DRILL_EVERY = 5
+DRILL_TIMEOUT_S = 180
+
+
+def _resume_batches(torch, np, n):
+    """Phase 7's packed documents, batch i seeded by its step index."""
+    from chainermn_tpu_torch.examples.transformer.train_transformer_lm \
+        import pack_documents
+
+    return [tuple(torch.from_numpy(x).cuda() for x in
+                  pack_documents(np.random.default_rng(1000 + i), 8, 2048))
+            for i in range(n)]
+
+
+def _dir_bytes(path):
+    path = Path(path)
+    if path.is_file():
+        return path.stat().st_size
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def phase_resume(torch, np, smi, tmp):
+    """(a) Phase 7's training with double buffering: 20 steps without a
+    stop, against 10 steps, a snapshot, a freshly built model and
+    optimizer, ``maybe_load`` and 10 more steps — through the npz
+    checkpointer (async native writer) and the dcp adapter. Steps 11-20
+    must give the same losses bit for bit."""
+    from chainermn_tpu_torch.extensions import (
+        create_dcp_checkpointer,
+        create_multi_node_checkpointer,
+    )
+
+    batches = _resume_batches(torch, np, RESUME_STEPS)
+    _, _, state, step = _trainer(torch, _packed_loss, double_buffering=True)
+    _, ref, _ = _run_steps(step, state, batches)
+    del state, step
+    rows = {}
+    for backend, make in (("npz", create_multi_node_checkpointer),
+                          ("dcp", create_dcp_checkpointer)):
+        torch.cuda.empty_cache()
+        comm, _, state, step = _trainer(torch, _packed_loss,
+                                        double_buffering=True)
+        state, first, _ = _run_steps(step, state, batches[:RESUME_AT])
+        ckpt = make(f"resume_{backend}", comm, path=str(tmp))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        where = ckpt.save(state, RESUME_AT, block=True)
+        block_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ckpt.save(state, RESUME_AT, block=False)
+        submit_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ckpt.wait_async()
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        size = _dir_bytes(where)
+        del state, step
+        torch.cuda.empty_cache()
+        _, _, fresh, step = _trainer(torch, _packed_loss,
+                                     double_buffering=True)
+        t0 = time.perf_counter()
+        fresh, it = ckpt.maybe_load(fresh)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        _, rest, _ = _run_steps(step, fresh, batches[RESUME_AT:])
+        ckpt.close()
+        del fresh, step
+        same = first + rest == ref
+        rows[backend] = {"snapshot_mb": size / 1e6, "block_save_ms": block_ms,
+                         "async_submit_ms": submit_ms,
+                         "async_drain_ms": drain_ms, "load_ms": load_ms,
+                         "resumed_at": it, "bit_identical": same,
+                         "losses_11_20": rest, "uninterrupted_11_20":
+                         ref[RESUME_AT:]}
+        print(f"resume {backend}: snapshot {size / 1e6:.1f} MB, blocking "
+              f"save {block_ms:.1f} ms, async submit {submit_ms:.1f} ms + "
+              f"drain {drain_ms:.1f} ms, maybe_load {load_ms:.1f} ms "
+              f"(iteration {it}); steps 11-20 bit-identical to the run "
+              f"without a stop: {same}; card {smi}", flush=True)
+        if it != RESUME_AT or not same:
+            raise AssertionError(
+                f"resume through {backend} at iteration {it}: losses of "
+                f"steps 1-20 {first + rest} != {ref} without a stop")
+    print("resume summary", json.dumps(rows), flush=True)
+    return rows
+
+
+def _drill_batch(torch, np, it, device):
+    rng = np.random.default_rng(it)
+    x = torch.from_numpy(rng.standard_normal((256, 784), np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 256))
+    return x.to(device), y.to(device)
+
+
+def _drill(ckpt_dir, mode):
+    """The MNIST MLP trained DRILL_STEPS steps on seeded batches (SGD,
+    momentum 0.9). ``'preempt'``: under the preemption guard, waiting at
+    step DRILL_SIGNAL_AT for a SIGTERM, checkpointing when the guard
+    says so (every DRILL_EVERY steps) and exiting 0 there; ``'resume'``:
+    from the snapshot to the end; ``'straight'``: no stop. Returns the
+    final parameters."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+    from chainermn_tpu_torch.models import MLP
+    from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
+    from chainermn_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+    from chainermn_tpu_torch.utils.preemption import install_preemption_guard
+
+    comm = create_communicator("pure_nccl")
+    model = MLP(seed=0)
+    opt = create_multi_node_optimizer(
+        torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9), comm)
+    state = create_train_state(model, opt, comm)
+    step = make_train_step(
+        lambda m, b: F.cross_entropy(m(b[0]).float(), b[1]), opt, comm)
+    start = 0
+    guard = ckpt = None
+    if mode != "straight":
+        ckpt = create_multi_node_checkpointer("drill", comm, path=ckpt_dir,
+                                              keep=2)
+    if mode == "resume":
+        state, start = ckpt.maybe_load(state)
+        print(f"drill: resumed from iteration {start}", flush=True)
+    if mode == "preempt":
+        guard = install_preemption_guard()
+    for it in range(start + 1, DRILL_STEPS + 1):
+        state, _ = step(state, _drill_batch(torch, np, it, comm.device))
+        if guard is None:
+            continue
+        if it == DRILL_SIGNAL_AT:
+            print(f"drill: step {it} done, waiting for SIGTERM", flush=True)
+            deadline = time.monotonic() + 60
+            while not guard.triggered and time.monotonic() < deadline:
+                time.sleep(0.01)
+        if guard.should_checkpoint(comm, every=DRILL_EVERY, iteration=it):
+            ckpt.save(state, it)
+            print(f"drill: preempted, saved iteration {it}", flush=True)
+            guard.exit_if_preempted(comm)
+    if mode == "preempt":
+        raise AssertionError("the preemption guard never triggered")
+    return {k: v.detach().cpu().numpy()
+            for k, v in state.model.state_dict().items()}
+
+
+def _drill_child(ckpt_dir, mode):
+    import numpy as np
+
+    params = _drill(ckpt_dir, mode)
+    np.savez(Path(ckpt_dir) / f"final_{mode}.npz", **params)
+    print("drill: finished", flush=True)
+
+
+def phase_preemption(torch, np, smi, tmp):
+    """(b) The preemption drill in child processes on the card: SIGTERM
+    at a known step, a snapshot at the next multiple of DRILL_EVERY, exit
+    0, one snapshot; a second child resumes and finishes; its parameters
+    must equal those of a run without a stop."""
+    ckpt_dir = tmp / "drill"
+    ckpt_dir.mkdir()
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--drill-child",
+           str(ckpt_dir)]
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd + ["preempt"], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+    lines = []
+    try:
+        for line in child.stdout:
+            lines.append(line.rstrip())
+            if "waiting for SIGTERM" in line:
+                child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=DRILL_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    preempt_s = time.perf_counter() - t0
+    saved = sorted(f.name for f in ckpt_dir.iterdir()
+                   if f.name.startswith("snapshot_"))
+    expected_it = -(-DRILL_SIGNAL_AT // DRILL_EVERY) * DRILL_EVERY
+    print(f"preemption drill: SIGTERM after step {DRILL_SIGNAL_AT}; child "
+          f"exit {rc} in {preempt_s:.1f} s; snapshots {saved}; its last "
+          f"lines {lines[-3:]}", flush=True)
+    if rc != 0 or saved != [f"snapshot_drill_0_{expected_it}.npz"]:
+        raise AssertionError(f"the preempted child exited {rc} leaving "
+                             f"{saved} (expected exit 0 and one snapshot at "
+                             f"iteration {expected_it}):\n" + "\n".join(lines))
+    done = subprocess.run(cmd + ["resume"], capture_output=True, text=True,
+                          cwd=ROOT, timeout=DRILL_TIMEOUT_S)
+    if done.returncode != 0:
+        raise AssertionError(f"the resuming child failed:\n{done.stdout}\n"
+                             f"{done.stderr}")
+    resumed = dict(np.load(ckpt_dir / "final_resume.npz"))
+    straight = _drill(None, "straight")
+    same = (set(resumed) == set(straight)
+            and all(np.array_equal(resumed[k], straight[k])
+                    for k in straight))
+    print(f"preemption drill: the resumed child ("
+          f"{done.stdout.strip().splitlines()[0]}) ends with parameters "
+          f"equal bit for bit to a run without a stop: {same}; card {smi}",
+          flush=True)
+    if not same:
+        raise AssertionError("the resumed run's parameters differ from the "
+                             "run without a stop")
+    return {"exit": rc, "snapshots": saved, "bit_identical": same}
+
+
+def phase_mnist_resume(torch, smi, tmp):
+    """(c) The MNIST twin with --checkpoint: 100 iterations, then again to
+    200, which must resume from iteration 100."""
+    import contextlib
+    import io
+
+    from chainermn_tpu_torch.examples.mnist import train_mnist
+
+    ckpt_dir = tmp / "mnist"
+    flags = ["--checkpoint", str(ckpt_dir), "--checkpoint-interval", "50"]
+    outs, finals = [], []
+    for n in (100, 200):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            finals.append(train_mnist.main(flags + ["--iterations", str(n)]))
+        outs.append(buf.getvalue())
+    saved = sorted(f.name for f in ckpt_dir.iterdir())
+    resumed = "resumed from iteration 100" in outs[1]
+    print(f"mnist --checkpoint: 100 iterations (final {finals[0]}), then "
+          f"--iterations 200: 'resumed from iteration 100' printed: "
+          f"{resumed}; final val accuracy {finals[1]['val_acc']}; "
+          f"snapshots {saved}; card {smi}", flush=True)
+    if not resumed or not finals[1]["val_acc"] >= MNIST_MIN_ACC:
+        raise AssertionError(f"the MNIST twin did not resume from 100 or "
+                             f"did not learn:\n{outs[1]}")
+    return finals[1]
+
+
 # ---------------------------------------------------------------- main
 
 #: the bf16 kernels whose tensor-core instructions are counted
@@ -1308,6 +1887,14 @@ def main() -> int:
     phase_grad_equivalence(torch, np)
     phase_resnet(torch, np, smi)
     phase_mnist(torch, smi)
+    batches, encoder = phase_encoder(torch, np, smi)
+    phase_fused_loss(torch, np, smi)
+    phase_remat_dropout(torch, np, smi, batches)
+    del batches
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        phase_resume(torch, np, smi, Path(tmp))
+        phase_preemption(torch, np, smi, Path(tmp))
+        phase_mnist_resume(torch, smi, Path(tmp))
     import torch.distributed as dist
 
     dist.destroy_process_group()  # the training phases' one-rank group
@@ -1355,6 +1942,9 @@ def main() -> int:
             "source": f"chainermn_tpu_torch/csrc/{src}",
             "replaces": f"chainermn_tpu/ops/flash_attention.py:{line}",
             "launches": flash_launches[key],
+            "launches_by_path": {
+                "lm_training_phase7": flash_launches[key],
+                "mlm_encoder_phase11": encoder["launches"][key]},
             "max_abs_err": max(packed["max_abs_err"][e] for e in errs),
             "tolerance": packed["tolerance"],
             "ms": packed["ms"][key],
@@ -1384,4 +1974,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--drill-child"]:  # phase 12's child processes
+        sys.path.insert(0, str(ROOT))
+        _drill_child(sys.argv[2], sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

@@ -49,7 +49,11 @@ def test_every_port_module_imports_with_jax_blocked():
                  "models.resnet", "training.trainer", "training.prefetch",
                  "extensions.evaluator", "extensions.allreduce_persistent",
                  "examples.mnist.train_mnist",
-                 "examples.imagenet.train_imagenet"):
+                 "examples.imagenet.train_imagenet",
+                 "extensions.checkpoint", "extensions.dcp_adapter",
+                 "extensions.observation_aggregator", "native",
+                 "native.ckpt_writer", "global_except_hook", "utils",
+                 "utils.preemption"):
         assert "chainermn_tpu_torch." + name in PORT_MODULES
     out = subprocess.run(
         [sys.executable, "-c", _BLOCK_AND_IMPORT, str(SMOKE), *PORT_MODULES],

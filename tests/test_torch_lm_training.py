@@ -231,10 +231,6 @@ def test_left_out_options_raise():
     for kw in (dict(error_feedback=True), dict(reduction_schedule="flat")):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 3.3"):
             create_multi_node_optimizer(adamw, comm, **kw)
-    for kw in (dict(dropout_rate=0.1), dict(remat=True),
-               dict(causal=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TransformerLM(**CFG, device="cpu", **kw)
     with pytest.raises(ValueError, match="exactly the model's parameters"):
         create_train_state(tm, torch.optim.AdamW(tm.blocks.parameters()),
                            comm)

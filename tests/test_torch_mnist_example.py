@@ -4,7 +4,11 @@ world size 1 in this process and at 2 gloo ranks through the launcher.
 
 The MNIST twin trains 60 iterations (per-rank batch 64, a quarter of
 the example's, to keep the CPU suite short) on the example's synthetic
-blobs; its final validation accuracy must pass 0.9.
+blobs; its final validation accuracy must pass 0.9. With ``--checkpoint``
+it stops at 20 iterations and a second run to 40 resumes from the
+snapshot of iteration 20, through each backend (``npz``, and ``orbax``,
+the JAX example's name, which stores through
+``torch.distributed.checkpoint``).
 The ImageNet twin trains ResNet18 at image 32, batch 2, for 3
 iterations to a finite loss. The options the twins leave out exit naming
 their ROADMAP item.
@@ -74,8 +78,7 @@ def test_both_twins_at_two_ranks():
 
 @pytest.mark.parametrize("flag", [
     ["--local-sgd", "4"], ["--outer-momentum", "0.5"], ["--error-feedback"],
-    ["--reduction-schedule", "flat"], ["--checkpoint", "ckpt"],
-    ["--checkpoint-interval", "10"], ["--checkpoint-backend", "npz"]])
+    ["--reduction-schedule", "flat"]])
 def test_mnist_left_out_flags_exit_naming_their_roadmap_item(flag, capsys):
     with pytest.raises(SystemExit):
         train_mnist.main(MNIST + flag)
@@ -96,3 +99,22 @@ def test_imagenet_left_out_flags_exit_naming_their_roadmap_item(flag,
 def test_imagenet_space_to_depth_stem_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3.6"):
         train_imagenet.main(IMAGENET_TINY + ["--stem", "space_to_depth"])
+
+
+@pytest.mark.parametrize("backend", ["npz", "orbax"])
+def test_mnist_twin_saves_and_resumes(backend, tmp_path, capsys):
+    flags = MNIST + ["--checkpoint", str(tmp_path), "--checkpoint-interval",
+                     "10", "--checkpoint-backend", backend]
+    train_mnist.main(flags + ["--iterations", "20"])
+    assert "resumed from" not in capsys.readouterr().out
+    final = train_mnist.main(flags + ["--iterations", "40"])
+    out = capsys.readouterr().out
+    assert "resumed from iteration 20" in out
+    assert "iter 20/20" in out  # the 20 iterations left, counted from 0
+    assert final["val_acc"] > 0.9, final
+    if backend == "npz":
+        assert sorted(p.name for p in tmp_path.iterdir()) == [
+            "snapshot_mnist_0_30.npz", "snapshot_mnist_0_40.npz"]
+    else:
+        assert sorted(p.name for p in (tmp_path / "mnist_dcp_rank0")
+                      .iterdir()) == ["30", "40"]

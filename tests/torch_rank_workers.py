@@ -285,3 +285,100 @@ def hanging_worker(inputs: dict) -> dict:
     if torch.distributed.get_rank() == 1:
         time.sleep(3600)
     return {"x": inputs["x"] * 2}
+
+
+# ------------------------------------------------- checkpoint agreement
+
+
+def checkpoint_worker(inputs: dict) -> dict:
+    """Every rank in one shared directory: (1) different iteration sets,
+    resumed at the newest common one; (2) no common iteration; (3) rank
+    1's async write fails, every rank raises at ``maybe_load``; (4) at 2
+    ranks a replicated state is saved at iteration 7, at 4 ranks it is
+    restored with ``allow_world_resize=True``."""
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+
+    comm = create_communicator("naive")
+    rank, size = comm.rank, comm.size
+    root = str(inputs["dir"])
+    out = {}
+    ckpt = create_multi_node_checkpointer("agree", comm, path=root, keep=10)
+    state = {"w": torch.full((2,), float(rank))}
+    for it in (10, 20, 30, 40):
+        if (it == 40 and rank == size - 1) or (it == 30 and rank == 0):
+            continue
+        ckpt.save(state, it)
+    _, out["agree"] = ckpt.maybe_load(state)
+    ckpt = create_multi_node_checkpointer("disjoint", comm, path=root)
+    ckpt.save(state, 100 + rank)
+    restored, it = ckpt.maybe_load(state)
+    out["disjoint_none"] = np.array(it is None and restored is state)
+    ckpt = create_multi_node_checkpointer("drain", comm, path=root, keep=0)
+    if rank == 1:
+        ckpt.path = f"{root}/missing/deeper"
+    ckpt.save(state, 1, block=False)
+    try:
+        ckpt.maybe_load(state)
+        out["drain_raised"] = np.array("")
+    except RuntimeError as e:
+        out["drain_raised"] = np.array(str(e))
+    resize = create_multi_node_checkpointer("resize", comm,
+                                            path=str(inputs["resize_dir"]))
+    full = {"w": torch.arange(12.0).reshape(3, 4), "step": 3,
+            "opt": {"lr": 0.5, "betas": (0.9, 0.999)}}
+    if size == 2:
+        resize.save(full, 7)
+    else:
+        template = {"w": torch.zeros(3, 4), "step": 0,
+                    "opt": {"lr": 0.0, "betas": (0.0, 0.0)}}
+        got, it = resize.maybe_load(template, allow_world_resize=True)
+        out["resize_it"] = np.array(it)
+        out["resize_w"] = got["w"].numpy()
+        out["resize_ok"] = np.array(got["step"] == 3 and got["opt"] == {
+            "lr": 0.5, "betas": (0.9, 0.999)})
+    return out
+
+
+# ------------------------------------- observation aggregator, dcp adapter
+
+
+def aggregator_dcp_worker(inputs: dict) -> dict:
+    """(1) This rank's observations through ``ObservationAggregator`` at
+    interval 1 and windowed, then a final partial-window flush; (2) the
+    dcp adapter over the ranks: a round trip of a replicated state,
+    retention of the newest ``keep`` steps, a resave that overwrites,
+    and divergent state refused."""
+    import json
+
+    from chainermn_tpu_torch.extensions import (
+        ObservationAggregator,
+        create_dcp_checkpointer,
+    )
+
+    comm = create_communicator("naive")
+    rank = comm.rank
+    out = {}
+    per_rank = json.loads(str(inputs["observations"]))[rank]
+    for interval in (1, 3):
+        agg = ObservationAggregator(comm, interval=interval)
+        got = [agg(obs) for obs in per_rank] + [agg.flush()]
+        out[f"agg{interval}"] = np.array(json.dumps(got))
+    ckpt = create_dcp_checkpointer("job", comm, path=str(inputs["dir"]),
+                                   keep=2)
+    state = {"w": torch.arange(6.0).reshape(2, 3), "step": 7}
+    for it in (1, 2, 3):
+        ckpt.save({**state, "step": it}, it, block=it != 2)
+    ckpt.wait_async()
+    out["kept"] = np.array(ckpt._local_iterations())
+    ckpt.save({"w": torch.ones(2, 3), "step": 30}, 3)
+    got, it = ckpt.maybe_load({"w": torch.zeros(2, 3), "step": 0})
+    out["it"] = np.array(it)
+    out["w"] = got["w"].numpy()
+    out["step"] = np.array(got["step"])
+    try:
+        ckpt.save({"w": torch.full((2, 3), float(rank))}, 4)
+        out["divergent_refused"] = np.array(False)
+    except ValueError as e:
+        out["divergent_refused"] = np.array("contract violated" in str(e))
+    ckpt.close()
+    return out
