@@ -46,7 +46,6 @@ from chainermn_tpu_torch.ops.paged_decode import paged_flash_decode
 from chainermn_tpu_torch.ops.paged_kv import paged_lookup, paged_update
 
 DECODE_ATTEND_IMPLS = ("xla", "fused")
-REMAT_POLICIES = ("dots", "nothing")
 
 
 def apply_rope(x, positions, base: float = 10000.0):
