@@ -182,13 +182,15 @@ def _npz_bytes(state) -> bytes:
 
 def _prime_optimizer(optimizer) -> bool:
     """Give an optimizer without per-parameter state its state: one step
-    on zero gradients of its trainable parameters at learning rate 0
-    (gradients and rates restored after). Returns whether it did."""
+    on zero gradients at learning rate 0 (gradients and rates restored
+    after). Every parameter gets a gradient, as in the port's train step
+    (``allreduce_grad`` gives a parameter without one zeros, the JAX
+    step's gradient of every leaf), so every parameter gets its state.
+    Returns whether it did."""
     inner = getattr(optimizer, "actual_optimizer", optimizer)
     if inner.state:
         return False
-    params = [p for g in inner.param_groups for p in g["params"]
-              if p.requires_grad]
+    params = [p for g in inner.param_groups for p in g["params"]]
     grads = [p.grad for p in params]
     lrs = [g.get("lr") for g in inner.param_groups]
     try:

@@ -15,7 +15,8 @@ and its native async writer against the JAX package's.
   steps give the losses and parameters of a run that never stopped, bit
   for bit; the optimizer state (AdamW's per-parameter ``step`` tensors,
   the ``param_groups``, the bank) comes back exactly. Without the bank
-  the resumed steps differ.
+  the resumed steps differ. A model with a frozen parameter resumes the
+  same way through the train step.
 - At 2 and 4 gloo ranks in one directory: the agreement when the ranks
   hold different iterations, none in common, and a raise on every rank
   when one rank's async write failed; a replicated state saved by 2
@@ -454,3 +455,36 @@ def test_world_resize_restores_two_ranks_snapshot_on_four(rank_runs):
         assert int(out["resize_it"]) == 7 and bool(out["resize_ok"])
         np.testing.assert_array_equal(out["resize_w"],
                                       np.arange(12.0).reshape(3, 4))
+
+
+def test_a_frozen_parameter_restores_through_the_train_step(tmp_path, comm):
+    """The train step gives every parameter a gradient (zeros for a
+    frozen one), so the optimizer holds state for each; the primed
+    template must expect the same set."""
+    from chainermn_tpu_torch.models import MLP
+
+    def build():
+        model = MLP(n_units=16, seed=0, device="cpu")
+        next(model.parameters()).requires_grad_(False)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-2)
+
+        def loss(m, b):
+            return torch.nn.functional.cross_entropy(m(b[0]), b[1])
+
+        return (create_train_state(model, opt, comm),
+                make_train_step(loss, opt, comm))
+
+    g = torch.Generator().manual_seed(0)
+    batches = [(torch.randn(4, 784, generator=g),
+                torch.randint(0, 10, (4,), generator=g)) for _ in range(4)]
+    state, step = build()
+    _, ref = _run(step, state, batches)
+    state, step = build()
+    state, first = _run(step, state, batches[:2])
+    ckpt = create_multi_node_checkpointer("frozen", comm, path=str(tmp_path))
+    ckpt.save(state, 2)
+    fresh, step = build()
+    fresh, it = ckpt.maybe_load(fresh)
+    assert it == 2
+    _, rest = _run(step, fresh, batches[2:])
+    assert first + rest == ref
