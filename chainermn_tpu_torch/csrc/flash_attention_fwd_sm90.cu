@@ -78,44 +78,6 @@ constexpr float kLn2 = 0.6931471805599453f;
 // this device.
 __device__ unsigned long long g_fwd_tile_counts[2];
 
-// One key tile's step of the online softmax. s holds the tile's scores in
-// base-2 units (masked entries NEG_INF; with kMasked, bit 4 nt + e of ok
-// is clear where s[nt][e] is masked). The rows' running max m moves on,
-// this thread's part of each row sum l and the accumulators o are
-// rescaled, and s becomes p = mask ? 2^(s - m) : 0.
-template <int D, bool kMasked>
-__device__ __forceinline__ void softmax_step(float (&s)[8][4], uint32_t ok,
-                                             float (&m)[2], float (&l)[2],
-                                             float (&o)[D / 8][4]) {
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-  float corr[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    // the four lanes that hold a row
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-    corr[r] = ex2(m[r] - mx[r]);  // 1 while the row has seen no key
-    m[r] = mx[r];
-    l[r] *= corr[r];
-  }
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = ex2(s[nt][e] - mx[e >> 1]);
-      s[nt][e] = !kMasked || ((ok >> (4 * nt + e)) & 1u) ? x : 0.f;
-      l[e >> 1] += s[nt][e];
-    }
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
-}
-
 // Shared memory: the tiles from a 1024-byte boundary (q, then K, V per
 // stage), the stages' segment ids, the tile list and ranges.
 template <int D>

@@ -1,11 +1,13 @@
-// What the bf16 flash-attention kernels on Hopper's tensor cores share
+// What the bf16 attention kernels on Hopper's tensor cores share
 // (flash_attention_fwd_sm90.cu: K1; flash_attention_bwd_sm90.cu: K2 and
-// K3): the swizzled tile layout and wgmma's matrix descriptors, the wgmma
-// and cp.async wrappers, the tile loads, and the segment-aware tile skip
-// with its band rules. Each source that includes it keeps its own
-// counters of the skip on the card (the library builds one object per
-// source, without relocatable device code, so a __device__ variable
-// cannot be shared between them) and hands plan_tiles the row to add to.
+// K3; paged_prefill_sm90.cu: K4's prefill): the swizzled tile layout and
+// wgmma's matrix descriptors, the wgmma and cp.async wrappers, the tile
+// loads, the online-softmax step, and the segment-aware tile skip with
+// its band rules. Each source that includes it keeps its own counters of
+// the skip on the card (each library builds one object per source,
+// without relocatable device code, so a __device__ variable cannot be
+// shared between them) and hands plan_tiles or count_tiles the row to
+// add to.
 
 #pragma once
 
@@ -250,6 +252,44 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One key tile's step of the online softmax (K1, K4's prefill). s holds
+// the tile's scores in base-2 units (masked entries NEG_INF; with
+// kMasked, bit 4 nt + e of ok is clear where s[nt][e] is masked). The rows' running max m moves on,
+// this thread's part of each row sum l and the accumulators o are
+// rescaled, and s becomes p = mask ? 2^(s - m) : 0.
+template <int D, bool kMasked>
+__device__ __forceinline__ void softmax_step(float (&s)[8][4], uint32_t ok,
+                                             float (&m)[2], float (&l)[2],
+                                             float (&o)[D / 8][4]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+  float corr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // the four lanes that hold a row
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    corr[r] = ex2(m[r] - mx[r]);  // 1 while the row has seen no key
+    m[r] = mx[r];
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = ex2(s[nt][e] - mx[e >> 1]);
+      s[nt][e] = !kMasked || ((ok >> (4 * nt + e)) & 1u) ? x : 0.f;
+      l[e >> 1] += s[nt][e];
+    }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
 }
 
 // Rows [r0, r0 + 64) of one (batch, head) slice of a BTHD bf16 tensor into

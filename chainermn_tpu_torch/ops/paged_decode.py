@@ -8,7 +8,7 @@ Two versions of one function:
   a hand-written Hopper kernel (the ``paged_decode`` library, built by
   ``nvcc`` from :data:`SOURCES` at first use) or raises; on CPU tensors,
   and only there, it computes the plain version below. The CUDA call
-  takes one of two routes, chosen by dtype and shape alone
+  takes one of three routes, chosen by dtype and shape alone
   (:func:`_route`):
 
   - ``"split"`` — bf16 with ``R = T * (Hq / Hkv) <= 16`` query rows per
@@ -17,8 +17,13 @@ Two versions of one function:
     cp.async ring of bf16 tiles) and ``paged_decode_merge_kernel`` (the
     splits merged in a fixed order), ``csrc/paged_decode_sm90.cu``; the
     splits come from :func:`_split_plan`;
-  - ``"rows"`` — everything else (prefill, fp32):
-    ``paged_decode_kernel``, ``csrc/paged_decode.cu``.
+  - ``"mma"`` — bf16 with ``R > 16``, every prefill of serving:
+    ``paged_prefill_mma_kernel``, ``csrc/paged_prefill_sm90.cu`` (64-row
+    q tiles on the tensor cores, K/V tiles gathered through the block
+    table); it counts the key tiles it visits on the card
+    (:func:`paged_prefill_tile_counts`, the rule
+    :func:`_prefill_live_tiles`);
+  - ``"rows"`` — fp32: ``paged_decode_kernel``, ``csrc/paged_decode.cu``.
 
   :data:`LAUNCHES` counts the wrapper's calls on CUDA (one per call,
   whatever the route) and :data:`ROUTE_LAUNCHES` the calls of each
@@ -48,12 +53,13 @@ from chainermn_tpu_torch.ops.attention import NEG_INF
 #: it with :data:`ROUTE_LAUNCHES` before a counted run).
 LAUNCHES = 0
 #: the same calls by route (:func:`_route`)
-ROUTE_LAUNCHES = {"split": 0, "rows": 0}
+ROUTE_LAUNCHES = {"split": 0, "mma": 0, "rows": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 #: the library's sources under ``csrc/``, compiled together
-SOURCES = ("paged_decode.cu", "paged_decode_sm90.cu")
+SOURCES = ("paged_decode.cu", "paged_decode_sm90.cu",
+           "paged_prefill_sm90.cu")
 #: query rows per (slot, kv head) up to which bf16 calls take the split
 #: route (the split kernel's q tile: 1, 2, 4, 8 or 16 rows)
 SPLIT_MAX_ROWS = 16
@@ -61,6 +67,8 @@ SPLIT_MAX_ROWS = 16
 #: per SM of an H100), with no split under this many keys
 SPLIT_TARGET_CTAS = 1024
 SPLIT_MIN_KEYS = 128
+#: rows of the prefill kernel's q tile and keys of its K/V tile
+PREFILL_TILE = 64
 _lib = None
 
 
@@ -73,10 +81,11 @@ def reset_launches():
 
 
 def load_kernel():
-    """The library's two C entry points (``paged_flash_decode_launch``,
-    the rows route; ``paged_flash_decode_split_launch``, the split
-    route), built by ``nvcc`` and bound on first use (raises when the
-    library cannot be built)."""
+    """The library's C entry points (``paged_flash_decode_launch``, the
+    rows route; ``paged_flash_decode_split_launch``, the split route;
+    ``paged_flash_prefill_launch``, the mma route, and its counters'
+    reader ``paged_prefill_tile_counts``), built by ``nvcc`` and bound
+    on first use (raises when the library cannot be built)."""
     global _lib
     if _lib is None:
         from chainermn_tpu_torch.ops._build import load_library
@@ -94,20 +103,28 @@ def load_kernel():
             i, i,                    # P n_splits
             i, f, i,                 # window scale scratch
             p]                       # stream
+        lib.paged_flash_prefill_launch.argtypes = [
+            p, p, p, p, p, p,        # q k v tables pos out
+            i, i, i, i, i, i, i,     # B T Hq Hkv D bs M
+            i, f, i,                 # window scale scratch
+            p]                       # stream
+        lib.paged_prefill_tile_counts.argtypes = [p]
         for fn in (lib.paged_flash_decode_launch,
-                   lib.paged_flash_decode_split_launch):
+                   lib.paged_flash_decode_split_launch,
+                   lib.paged_flash_prefill_launch,
+                   lib.paged_prefill_tile_counts):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def _route(dtype, T, Hq, Hkv, D) -> str:
-    """``"split"`` for bf16 calls of at most :data:`SPLIT_MAX_ROWS`
-    query rows per (slot, kv head) at a head dim the kernels take, else
-    ``"rows"``: dtype and shape decide, never a failure."""
-    if (dtype == torch.bfloat16 and T * (Hq // Hkv) <= SPLIT_MAX_ROWS
-            and D in _HEAD_DIMS):
-        return "split"
+    """For bf16 at a head dim the kernels take, ``"split"`` for calls of
+    at most :data:`SPLIT_MAX_ROWS` query rows per (slot, kv head) and
+    ``"mma"`` for more; else ``"rows"``: dtype and shape decide, never a
+    failure."""
+    if dtype == torch.bfloat16 and D in _HEAD_DIMS:
+        return "split" if T * (Hq // Hkv) <= SPLIT_MAX_ROWS else "mma"
     return "rows"
 
 
@@ -122,6 +139,43 @@ def _split_plan(B: int, Hkv: int, M: int, bs: int):
     P = max(-(-SPLIT_MIN_KEYS // bs), -(-M // want))
     P = max(1, min(P, M))
     return P, -(-M // P)
+
+
+def _prefill_live_tiles(T, Hq, Hkv, bs, M, positions, window=None):
+    """``(visited, skipped)``: the (q tile, key tile, kv head) triples
+    that ``paged_prefill_mma_kernel`` visits on these inputs, and the
+    rest of the table's ``ceil(M * bs / 64)`` key tiles. The CTA of q
+    tile ``[r0, r0 + 64)`` visits the 64-key tiles that meet ``[kmin,
+    kmax]``: kmax the position of its last row below ``R`` (row ``r``
+    at ``positions[b] + r // group``), clamped to ``M * bs - 1``; kmin
+    its first row's position ``- window + 1``, or 0."""
+    group = Hq // Hkv
+    R = T * group
+    n_keys = M * bs
+    table_tiles = -(-n_keys // PREFILL_TILE)
+    visited = total = 0
+    for pos0 in (int(x) for x in positions):
+        for r0 in range(0, R, PREFILL_TILE):
+            last = min(r0 + PREFILL_TILE, R) - 1
+            kmax = min(pos0 + last // group, n_keys - 1)
+            kmin = max(0, pos0 + r0 // group - window + 1) if window else 0
+            if kmax >= kmin:
+                visited += kmax // PREFILL_TILE - kmin // PREFILL_TILE + 1
+            total += table_tiles
+    return Hkv * visited, Hkv * (total - visited)
+
+
+def paged_prefill_tile_counts():
+    """``(visited, skipped)``: the (q tile, key tile, kv head) triples
+    that the mma route's kernel visited and skipped since the last call,
+    as it counted them on the current card (:func:`_prefill_live_tiles`
+    is the rule); resets them. Waits for the card."""
+    out = (ctypes.c_ulonglong * 2)()
+    err = load_kernel().paged_prefill_tile_counts(out)
+    if err != 0:
+        raise RuntimeError(f"reading the prefill tile counts failed: CUDA "
+                           f"error {err}")
+    return out[0], out[1]
 
 
 def _check_shapes(q, k_pool, v_pool, block_tables, positions, window):
@@ -173,7 +227,7 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, positions, *,
     Returns ``[B, T, Hq, D]`` in q's dtype; fp32 accumulation inside.
     On CPU tensors this is :func:`paged_flash_decode_reference`; on CUDA
     tensors the route's kernels run (bf16 or fp32, ``D`` in 32/64/128)
-    or the call raises — there is no fallback.
+    or the call raises — there is no fallback to another route.
     """
     _check_shapes(q, k_pool, v_pool, block_tables, positions, window)
     if q.device.type == "cpu":
@@ -215,9 +269,9 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, positions, *,
     out = torch.empty_like(q)
     route = _route(q.dtype, T, Hq, Hkv, D)
     lib = load_kernel()
+    if route != "rows" and q.data_ptr() % 16:
+        q = q.clone()  # the bf16 kernels read q in 16-byte vectors
     if route == "split":
-        if q.data_ptr() % 16:  # the split kernel reads q in 16-byte vectors
-            q = q.clone()
         P, n_splits = _split_plan(B, Hkv, M, bs)
         R = T * (Hq // Hkv)
         part = torch.empty(B * Hkv * n_splits * R * (D + 2),
@@ -227,6 +281,11 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, positions, *,
             block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
             part.data_ptr(), B, T, Hq, Hkv, D, bs, M, P, n_splits, window,
             scale, scratch, stream)
+    elif route == "mma":
+        err = lib.paged_flash_prefill_launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            B, T, Hq, Hkv, D, bs, M, window, scale, scratch, stream)
     else:
         err = lib.paged_flash_decode_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),

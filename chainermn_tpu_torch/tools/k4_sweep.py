@@ -3,11 +3,12 @@
 K4 by the same clock.
 
     python3 chainermn_tpu_torch/tools/k4_sweep.py \\
-        [--root DIR] [--plans 1024:128,2048:64] [--profile]
+        [--root DIR] [--plans 1024:128,2048:64] [--cases A,B] [--profile]
 
 For each bf16 row of ``chip_smoke.py``'s phase 2 (``_k4_cases``: the
 16-slot decode tick, GQA, a 256 window, head dims 32 and 128, MQA, a
-4-token span at group 4, the serving path's short contexts, prefill),
+4-token span at group 4, the serving path's short contexts, the
+prefills), or only those that ``--cases`` names,
 the wrapper ``paged_flash_decode`` is timed with ``chip_smoke._time_ms``
 (median of 20 launches after a 96 MB rewrite of L2, CUDA events, a spin
 kernel ahead), beside the row's ``bound_ms``:
@@ -62,6 +63,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--plans", default="")
+    ap.add_argument("--cases", default="",
+                    help="comma-separated case names (default: every "
+                    "bf16 row)")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -91,8 +95,9 @@ def main() -> int:
     tiny = torch.zeros(1, device="cuda")
     print("K4 sweep floor", json.dumps({"root": str(root), "ms": cs._time_ms(
         torch, lambda: tiny.add_(1), flush)}), flush=True)
+    wanted = {c for c in args.cases.split(",") if c}
     for name, kw, window, dtypes in cs._k4_cases(np):
-        if "bfloat16" not in dtypes:
+        if "bfloat16" not in dtypes or (wanted and name not in wanted):
             continue
         inputs = cs._k4_case(torch, gen, dtype=torch.bfloat16, **kw)
         for r in kw.get("scratch_rows", ()):

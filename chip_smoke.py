@@ -11,9 +11,9 @@ script exits non-zero without its final ``ok`` line:
    ``chainermn_tpu_torch/csrc`` — ``paged_decode`` and ``flash_attention``,
    one ``nvcc`` per source, started together (timed); then a count of
    the tensor-core instructions (``HMMA``/``HGMMA``) in the bf16 K1, K2
-   and K3 kernels from ``cuobjdump -sass`` of the built library, and
-   their registers and stack bytes from ``cuobjdump -res-usage``, and
-   those of K4's three kernels.
+   and K3 kernels and K4's prefill kernel from ``cuobjdump -sass`` of
+   the built libraries, and their registers and stack bytes from
+   ``cuobjdump -res-usage``, and those of K4's four kernels.
 2. Kernel vs plain version on the card: the paged flash-decoding kernels
    (K4) against ``paged_flash_decode_reference`` at the serving path's
    shapes — decode (16 slots, positions over [0, 2047], all-scratch
@@ -21,11 +21,17 @@ script exits non-zero without its final ``ok`` line:
    sliding window in fp32 and bf16; then bf16 at head dims 32 and 128,
    MQA (16 q heads over 1 kv head: 16 rows), a 4-token span at group 4
    (16 rows), the serving path's short contexts (positions U[16, 464])
-   and block sizes 16, 8 and 48. Each row prints the route that served
-   it (``split``: bf16 with at most 16 rows per kv head; ``rows``: the
-   rest), which must be the rule's; a split row must give the same bits
-   on a second launch. Each bf16 row times the kernel, the plain version
-   and one library call (``scaled_dot_product_attention`` over the
+   and block sizes 16, 8 and 48; then bf16 prefill rows at the serving
+   buckets' lengths (T 32 and 2048 beside 128 and 512), GQA, MQA, a
+   decode tick of 32 rows per kv head, a 256 window, a prefill tail at
+   positions [1000, 37], ragged T 200, head dims 32 and 128, block sizes
+   16 and 48 and a released all-scratch row. Each row prints the route
+   that served it (``split``: bf16 with at most 16 rows per kv head;
+   ``mma``: bf16 with more; ``rows``: fp32), which must be the rule's; a
+   split or mma row must give the same bits on a second launch, and an
+   mma row's key tiles, counted on the card, must equal
+   ``_prefill_live_tiles``'s. Each bf16 row times the kernel, the plain
+   version and one library call (``scaled_dot_product_attention`` over the
    gathered dense view, a yardstick the port never calls) with CUDA
    events, beside the shape's least possible time (``bound_ms``).
 3. Serving at full width: the Transformer-base LM (6 layers, d_model 512,
@@ -34,15 +40,15 @@ script exits non-zero without its final ``ok`` line:
    decode_attend_impl='fused')`` under ``Scheduler('prefill_priority')``
    serves 24 requests. K4's launch count over this run must equal
    ``num_layers * (prefills + decode steps)``, the split route's
-   ``num_layers * decode steps`` and the rows route's ``num_layers *
-   prefills``.
+   ``num_layers * decode steps``, the mma route's ``num_layers *
+   prefills`` and the rows route's 0.
 4. Stream equivalence: 8 requests through two fp32 engines, ``'fused'``
    and ``'xla'``; greedy streams must be identical, except at a true
    near-tie (top-2 logit gap < 1e-4).
 5. Where the time goes: a ``torch.profiler`` window over 16 more
    requests on the bf16 engine — wall vs device-busy time, the device
-   time of the busiest kernels, and K4's three kernels' share and time
-   per launch.
+   time of the busiest kernels, and K4's kernels' share and time per
+   launch.
 6. K1–K3 (flash attention forward, dq, dk/dv) against their plain
    versions on the card, fp32 and bf16: the training path's shape
    (B 8, T 2048, 8 heads, head dim 64, causal), packed segments as the
@@ -225,11 +231,10 @@ def _k4_work(np, q, k_pool, tables, positions, window, scratch=0):
     """Bytes K4 must move and operations it must do on THESE inputs: the
     K/V of every key some row can see, in a block that is not scratch,
     read once; q read and the output written once; tables and positions;
-    4 * D operations per (row, visible key)."""
+    4 * D operations per (query row of a q head, visible key)."""
     B, T, Hq, D = q.shape
     bs, Hkv = k_pool.shape[1], k_pool.shape[2]
     M = tables.shape[1]
-    group = Hq // Hkv
     tabs = tables.cpu().numpy()
     pos = positions.cpu().numpy().astype(np.int64)
     kv_tokens = ops = 0
@@ -243,7 +248,7 @@ def _k4_work(np, q, k_pool, tables, positions, window, scratch=0):
         vis = live[None] & (keys[None] <= qpos)
         if window:
             vis &= keys[None] > qpos - window
-        ops += 4 * D * group * int(vis.sum())
+        ops += 4 * D * Hq * int(vis.sum())  # every q head of each row
     esz = q.element_size()
     nbytes = (2 * kv_tokens * Hkv * D * esz + 2 * q.numel() * esz
               + tables.numel() * 4 + positions.numel() * 4)
@@ -303,17 +308,16 @@ def _k4_cases(np):
     """(name, shape, window, dtypes) of each K4 row: the ten rows of
     decode, prefill, GQA and a window in fp32 and bf16, then bf16 rows at
     the split route's edges, the serving path's short contexts and other
-    block sizes."""
+    block sizes, then the mma route's bf16 rows."""
     f32_bf16 = ("float32", "bfloat16")
     spread = [int(x) for x in np.linspace(0, 2047, 16)]
     short = [int(x) for x in np.random.RandomState(7).randint(16, 465, 16)]
     decode = dict(B=16, T=1, Hq=8, Hkv=8, positions=spread)
+    prefill = dict(B=1, Hq=8, Hkv=8, positions=[0])
     return [
         ("decode", dict(decode, scratch_rows=(3, 11)), None, f32_bf16),
-        ("prefill_T128", dict(B=1, T=128, Hq=8, Hkv=8, positions=[0]), None,
-         f32_bf16),
-        ("prefill_T512", dict(B=1, T=512, Hq=8, Hkv=8, positions=[0]), None,
-         f32_bf16),
+        ("prefill_T128", dict(prefill, T=128), None, f32_bf16),
+        ("prefill_T512", dict(prefill, T=512), None, f32_bf16),
         ("decode_gqa", dict(decode, Hkv=2, scratch_rows=(5,)), None,
          f32_bf16),
         ("decode_window256", dict(decode, scratch_rows=(7,)), 256, f32_bf16),
@@ -341,6 +345,38 @@ def _k4_cases(np):
         ("decode_bs48", dict(B=4, T=1, Hq=4, Hkv=4, bs=48, M=10,
                              positions=[0, 47, 300, 479]), None,
          ("bfloat16",)),
+        # the mma route (bf16, more than 16 rows per kv head): prompts at
+        # the serving buckets' lengths (bucketing.py: 16-512, then
+        # max_len 2048), GQA, MQA, a decode tick whose group alone is 32
+        # rows, a window, a prefill tail past position 0, a ragged T, the
+        # other head dims and block sizes, a released all-scratch row
+        ("prefill_T32", dict(prefill, T=32), None, ("bfloat16",)),
+        ("prefill_T2048", dict(prefill, T=2048), None, ("bfloat16",)),
+        ("prefill_gqa_T512", dict(prefill, T=512, Hkv=2), None,
+         ("bfloat16",)),
+        ("prefill_mqa_T128", dict(prefill, T=128, Hkv=1), None,
+         ("bfloat16",)),
+        ("decode_group32_R32", dict(decode, Hq=32, Hkv=1,
+                                    scratch_rows=(4,)), None,
+         ("bfloat16",)),
+        ("prefill_window256_T512", dict(prefill, T=512), 256,
+         ("bfloat16",)),
+        ("prefill_tail_T64", dict(prefill, B=2, T=64,
+                                  positions=[1000, 37]), None,
+         ("bfloat16",)),
+        ("prefill_ragged_T200", dict(prefill, T=200), None, ("bfloat16",)),
+        ("prefill_d32_T512", dict(prefill, T=512, D=32), None,
+         ("bfloat16",)),
+        ("prefill_d128_T512", dict(prefill, T=512, D=128), None,
+         ("bfloat16",)),
+        ("prefill_bs16_T512", dict(prefill, T=512, bs=16, M=128), None,
+         ("bfloat16",)),
+        ("prefill_bs48_T512", dict(prefill, T=512, bs=48, M=43), None,
+         ("bfloat16",)),
+        ("prefill_released_row", dict(B=3, T=128, Hq=8, Hkv=2,
+                                      positions=[0, 0, 300],
+                                      scratch_rows=(1,)), None,
+         ("bfloat16",)),
     ]
 
 
@@ -361,12 +397,21 @@ def phase_kernels(torch, np, F):
             for r in kw.get("scratch_rows", ()):
                 args[4][r] = 0  # a released slot: all-scratch row at 0
             before = dict(pd.ROUTE_LAUNCHES)
+            pd.paged_prefill_tile_counts()  # zero the mma route's counts
             got = pd.paged_flash_decode(*args, window=window)
             torch.cuda.synchronize()
             route = next(r for r, n in pd.ROUTE_LAUNCHES.items()
                          if n != before[r])
-            # the split route merges its splits in a fixed order, with no
-            # atomics: a second launch gives the same bits
+            tiles = pd.paged_prefill_tile_counts()
+            B, T, Hq, D = args[0].shape
+            _, bs, Hkv, _ = args[1].shape
+            predicted = pd._prefill_live_tiles(
+                T, Hq, Hkv, bs, args[3].shape[1], args[4].tolist(), window)
+            if route != "mma":
+                predicted = (0, 0)
+            # the split route merges its splits in a fixed order and the
+            # mma route writes each row once, with no atomics: a second
+            # launch gives the same bits
             again = pd.paged_flash_decode(*args, window=window)
             same_bits = bool(torch.equal(got, again))
             want = pd.paged_flash_decode_reference(*args, window=window)
@@ -378,7 +423,8 @@ def phase_kernels(torch, np, F):
                                        kw.get("D", 64))
             ok = (err <= tol and bool(torch.isfinite(got).all())
                   and zero_rows and route == expected_route
-                  and (same_bits or route != "split"))
+                  and (same_bits or route == "rows")
+                  and tuple(tiles) == tuple(predicted))
             row = {"case": name, "dtype": str(dtype).split(".")[-1],
                    "route": route,
                    "shape": {"D": 64, "bs": 64, "M": 32, **{
@@ -386,6 +432,9 @@ def phase_kernels(torch, np, F):
                            "B", "T", "Hq", "Hkv", "D", "bs", "M")}},
                    "window": window, "max_abs_err": err, "tolerance": tol,
                    "two_launches_equal": same_bits}
+            if route == "mma":  # counted on the card, and the rule's
+                row.update(tiles_visited=tiles[0], tiles_skipped=tiles[1],
+                           predicted_tiles=list(predicted))
             if route == "split":
                 row["split_plan"] = pd._split_plan(
                     kw["B"], kw["Hkv"], args[3].shape[1], args[1].shape[1])
@@ -410,7 +459,8 @@ def phase_kernels(torch, np, F):
                     f"{tol}, finite={bool(torch.isfinite(got).all())}, "
                     f"all-scratch rows zero={zero_rows}, route {route} "
                     f"(expected {expected_route}), two launches equal bit "
-                    f"for bit={same_bits}")
+                    f"for bit={same_bits}, tiles visited/skipped {tiles} "
+                    f"(predicted {predicted})")
             rows.append(row)
     return rows
 
@@ -455,10 +505,12 @@ def phase_serving(torch, np):
     expected = model.num_layers * (summary["prefills"]
                                    + summary["decode_steps"])
     # every decode tick (T 1) takes the split route and every prefill the
-    # rows route: no prompt here is as short as 16 tokens, the one bucket
-    # whose prefill would have few enough rows for the split route
+    # mma route: no prompt here is as short as 16 tokens, the one bucket
+    # whose prefill would have few enough rows for the split route; the
+    # rows route serves fp32 alone
     expected_routes = {"split": model.num_layers * summary["decode_steps"],
-                       "rows": model.num_layers * summary["prefills"]}
+                       "mma": model.num_layers * summary["prefills"],
+                       "rows": 0}
     print("serving summary", json.dumps(summary), flush=True)
     print(f"serving: {len(reqs)} requests in {wall:.3f} s wall, decode step "
           f"p50 {summary['token_ms_p50']} ms p99 {summary['token_ms_p99']} "
@@ -472,7 +524,7 @@ def phase_serving(torch, np):
     if routes != expected_routes:
         raise AssertionError(f"K4 launches by route {routes} != "
                              f"{expected_routes} (split: num_layers x decode "
-                             "steps; rows: num_layers x prefills)")
+                             "steps; mma: num_layers x prefills; rows: 0)")
     for (prompt, n_new), gen in zip(reqs, streams):
         if len(gen) != n_new or not all(0 <= t < model.vocab_size
                                         for t in gen):
@@ -523,9 +575,10 @@ def phase_equivalence(torch, np):
           f"{n_tokens} generated tokens (TF32 off)", flush=True)
 
 
-#: K4's kernels: the rows route, then the split route's two launches
+#: K4's kernels: the rows route, the split route's two launches, the
+#: mma route
 K4_KERNELS = ("paged_decode_kernel", "paged_decode_split_kernel",
-              "paged_decode_merge_kernel")
+              "paged_decode_merge_kernel", "paged_prefill_mma_kernel")
 
 
 def phase_profile(torch, np, engine):
@@ -547,7 +600,7 @@ def phase_profile(torch, np, engine):
     share = k4_ms / busy
     print(f"profile: {s['prefills']} prefills + {s['decode_steps']} decode "
           f"steps, {launched} device ops ({launched / forwards:.1f} per "
-          f"forward); K4 (its three kernels) {k4_ms:.3f} ms ({share:.4f} of "
+          f"forward); K4 (its kernels) {k4_ms:.3f} ms ({share:.4f} of "
           f"busy) over {sum(k[1] for k in k4)} launches: " + ", ".join(
               f"{name.split('(')[0][:60]} {ms:.3f} ms {n}x "
               f"({1e3 * ms / n:.2f} us each)" for ms, n, name in k4),
@@ -1760,9 +1813,11 @@ def phase_mnist_resume(torch, smi, tmp):
 
 # ---------------------------------------------------------------- main
 
-#: the bf16 kernels whose tensor-core instructions are counted
+#: the bf16 kernels whose tensor-core instructions are counted: K1-K3
+#: in the flash_attention library, K4's prefill in paged_decode
 MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
                "flash_dkv_mma_kernel")
+K4_MMA_KERNELS = ("paged_prefill_mma_kernel",)
 
 
 def _cuobjdump(flag, lib):
@@ -1783,25 +1838,39 @@ def _res_usage(lib):
         _cuobjdump("-res-usage", lib))]
 
 
-def _sass_line(lib=None):
+def _sass_line(lib=None, k4_lib=None):
     """Count the tensor-core instructions (HMMA, HGMMA) of the bf16 K1,
-    K2 and K3 kernels in the built library (or ``lib``) with ``cuobjdump
-    -sass`` (beside nvcc): the proof that their products run on tensor
-    cores. A ``registers:`` line gives each instance's registers and
-    stack bytes (spills land there) from ``cuobjdump -res-usage``."""
+    K2 and K3 kernels in the built flash_attention library (or ``lib``)
+    and of K4's prefill kernel in the built paged_decode library (or
+    ``k4_lib``; ``lib`` alone skips it) with ``cuobjdump -sass`` (beside
+    nvcc): the proof that their products run on tensor cores (HGMMA, for
+    K4's prefill). A ``registers:`` line gives each K1-K3 instance's
+    registers and stack bytes (spills land there) from ``cuobjdump
+    -res-usage``."""
     from chainermn_tpu_torch.ops._build import BUILD_LOG
 
-    lib = lib or BUILD_LOG["flash_attention"]["path"]
-    counts = dict.fromkeys(MMA_KERNELS, 0)
-    cur = None
-    for line in _cuobjdump("-sass", lib).splitlines():
-        if "Function :" in line:
-            cur = next((k for k in MMA_KERNELS if k in line), None)
-        elif cur is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[cur] += 1
+    if lib is None:
+        lib = BUILD_LOG["flash_attention"]["path"]
+        k4_lib = k4_lib or BUILD_LOG["paged_decode"]["path"]
+    counts, hgmma = {}, {}
+    for path, kernels in ((lib, MMA_KERNELS), (k4_lib, K4_MMA_KERNELS)):
+        if path is None:
+            continue
+        counts.update(dict.fromkeys(kernels, 0))
+        hgmma.update(dict.fromkeys(kernels, 0))
+        cur = None
+        for line in _cuobjdump("-sass", path).splitlines():
+            if "Function :" in line:
+                cur = next((k for k in kernels if k in line), None)
+            elif cur is not None and ("HMMA" in line or "HGMMA" in line):
+                counts[cur] += 1
+                hgmma[cur] += "HGMMA" in line
     print(f"sass: tensor-core instructions (HMMA/HGMMA) in the bf16 "
-          f"kernels {json.dumps(counts)} (cuobjdump -sass {lib})",
-          flush=True)
+          f"kernels {json.dumps(counts)}, of them HGMMA "
+          f"{json.dumps(hgmma)} (cuobjdump -sass {lib}"
+          f"{' ' + k4_lib if k4_lib else ''})", flush=True)
+    if k4_lib is not None and not all(hgmma[k] for k in K4_MMA_KERNELS):
+        raise AssertionError(f"K4's prefill kernel has no HGMMA: {hgmma}")
     usage = {}
     for fn, reg, stack in _res_usage(lib):
         kernel = next((k for k in MMA_KERNELS if k in fn), None)
@@ -1820,7 +1889,7 @@ def _sass_line(lib=None):
 
 
 def _k4_registers_line(lib):
-    """A ``registers K4:`` line: each instance of K4's three kernels in
+    """A ``registers K4:`` line: each instance of K4's four kernels in
     ``lib`` (template arguments: dtype of the rows kernel, head dim, rows
     of its q tile) with its registers and stack bytes."""
     usage = {}
@@ -1907,10 +1976,14 @@ def main() -> int:
         "impl": {"split": "bf16, R <= 16: split-K over the block table, "
                           "a cp.async bf16 ring per warp, fixed-order "
                           "merge launched as a programmatic dependent",
-                 "rows": "prefill and fp32: one CTA per row tile, CUDA "
-                         "cores"},
+                 "mma": "bf16, R > 16 (every prefill): 64-row q tiles "
+                        "on wgmma, 64-key K/V tiles gathered through the "
+                        "block table by cp.async into a two-stage ring, "
+                        "the causal/window tile skip counted on the card",
+                 "rows": "fp32: one CTA per row tile, CUDA cores"},
         "source": "chainermn_tpu_torch/csrc/paged_decode_sm90.cu",
         "sources": ["chainermn_tpu_torch/csrc/paged_decode_sm90.cu",
+                    "chainermn_tpu_torch/csrc/paged_prefill_sm90.cu",
                     "chainermn_tpu_torch/csrc/paged_decode.cu"],
         "replaces": "chainermn_tpu/ops/paged_decode.py:167",
         "launches": launches,
@@ -1925,6 +1998,23 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "cases": rows,
     }]}
+    # K4's prefill kernel (the mma route) on its own, at the serving
+    # path's largest prompt bucket below max_len: T 512, bf16
+    prefill_row = next(r for r in rows if r["case"] == "prefill_T512"
+                       and r["dtype"] == "bfloat16")
+    kernels["kernels"].append({
+        "name": "paged_flash_decode_prefill",
+        "route": "cuda",
+        "impl": "mma",
+        "source": "chainermn_tpu_torch/csrc/paged_prefill_sm90.cu",
+        "replaces": "chainermn_tpu/ops/paged_decode.py:167",
+        "launches": routes["mma"],
+        **{k: prefill_row[k] for k in (
+            "max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "tiles_visited", "tiles_skipped")},
+        "kernel_ms": prefill_row["ms"],
+        "cases": [r for r in rows if r["route"] == "mma"],
+    })
     # K1-K3 at the main path's inputs: the packed training rows, bf16
     packed = next(r for r in flash_rows
                   if r["case"] == "packed" and r["dtype"] == "bfloat16")

@@ -21,6 +21,7 @@ from chainermn_tpu_torch.models import MLP, ResNet50, TransformerLM
 from chainermn_tpu_torch.ops import flash_attention as fa
 from chainermn_tpu_torch.serving import ServingEngine
 from chainermn_tpu_torch.training import Trainer, prefetch_to_device
+from torch_rank_workers import restore_excepthook  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "chainermn_tpu_torch"

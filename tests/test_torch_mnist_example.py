@@ -15,15 +15,22 @@ their ROADMAP item.
 """
 
 import math
+import sys
 
 import numpy as np
 import pytest
 from conftest import load_example
 
+from chainermn_tpu_torch import global_except_hook
 from chainermn_tpu_torch.examples.imagenet import train_imagenet
 from chainermn_tpu_torch.examples.mnist import train_mnist
 from chainermn_tpu_torch.testing import run_distributed
-from torch_rank_workers import examples_worker, few_threads  # noqa: F401
+from torch_rank_workers import (  # noqa: F401
+    examples_worker,
+    few_threads,
+    kept_excepthook,
+    restore_excepthook,
+)
 
 MNIST_ITERATIONS = 60
 MNIST_BATCH = 64
@@ -43,6 +50,15 @@ def test_mnist_twin_learns_the_blobs(flags, capsys):
     out = capsys.readouterr().out
     assert f"iter {MNIST_ITERATIONS}/{MNIST_ITERATIONS}" in out
     assert "final:" in out
+
+
+def test_the_twins_except_hook_is_put_back(capsys):
+    before = sys.excepthook
+    with kept_excepthook():
+        train_mnist.main(MNIST + ["--iterations", "2"])
+        # the twin installs the port's hook for the rest of the process
+        assert sys.excepthook is global_except_hook._global_except_hook
+    assert sys.excepthook is before
 
 
 def test_imagenet_twin_trains_resnet18_to_a_finite_loss(capsys):

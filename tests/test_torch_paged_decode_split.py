@@ -88,13 +88,32 @@ def test_bf16_rows_up_to_16_take_the_split_route(T, Hq, Hkv):
     (torch.float32, 4, 8, 2), (torch.float32, 512, 8, 8),
 ])
 def test_prefill_and_fp32_take_the_rows_route(dtype, T, Hq, Hkv):
+    # named when bf16 prefill took the rows route too: bf16 with more
+    # than 16 rows per kv head now takes the mma route, fp32 any shape
+    # the rows route
+    want = "mma" if dtype == torch.bfloat16 else "rows"
     for D in (32, 64, 128):
-        assert pd._route(dtype, T, Hq, Hkv, D) == "rows"
+        assert pd._route(dtype, T, Hq, Hkv, D) == want
+
+
+@pytest.mark.parametrize("T,Hq,Hkv", [(17, 1, 1), (9, 2, 1), (5, 8, 2),
+                                      (2048, 8, 8)])
+def test_bf16_prefill_takes_the_mma_route(T, Hq, Hkv):
+    assert T * (Hq // Hkv) > pd.SPLIT_MAX_ROWS
+    for D in (32, 64, 128):
+        assert pd._route(torch.bfloat16, T, Hq, Hkv, D) == "mma"
+    # a head dim outside 32/64/128 names no bf16 route (on the card the
+    # wrapper raises on it before any launch)
+    assert pd._route(torch.bfloat16, T, Hq, Hkv, 96) == "rows"
 
 
 def test_the_library_builds_both_sources_with_no_atomics():
+    # named when the library had two sources: it has three, the mma
+    # route's among them
     csrc = Path(pd.__file__).resolve().parent.parent / "csrc"
-    assert pd.SOURCES == ("paged_decode.cu", "paged_decode_sm90.cu")
+    assert pd.SOURCES == ("paged_decode.cu", "paged_decode_sm90.cu",
+                          "paged_prefill_sm90.cu")
+    atomic = re.compile(r"\batomic\w*\s*\(|\b(atom|red)\.")
     text = (csrc / "paged_decode_sm90.cu").read_text()
     for name in ("paged_decode_split_kernel", "paged_decode_merge_kernel",
                  "cp.async.cg.shared.global", "cp.async.wait_group",
@@ -102,7 +121,19 @@ def test_the_library_builds_both_sources_with_no_atomics():
                  f"kKeys = {TILE_KEYS};", f"kThreads = {32 * WARPS};"):
         assert name in text
     # no atomic call or instruction: the merge order is fixed
-    assert re.search(r"\batomic\w*\s*\(|\b(atom|red)\.", text) is None
+    assert atomic.search(text) is None
+    text = (csrc / "paged_prefill_sm90.cu").read_text()
+    for name in ("paged_prefill_mma_kernel", "paged_flash_prefill_launch",
+                 "paged_prefill_tile_counts", "wg_abt<D>", "wg_xb<D>",
+                 "cp_async16", "softmax_step<D, false>",
+                 "softmax_step<D, true>", "ex2"):
+        assert name in text
+    # its one atomic is the tile counter's (count_tiles, shared with K1's
+    # header); the output is written once per row
+    assert atomic.search(text) is None
+    assert text.count("count_tiles(") == 1
+    assert "count_tiles(g_prefill_tile_counts" in text
+    assert (csrc / "paged_decode.cu").is_file()
 
 
 def test_cpu_calls_launch_nothing_and_reset_zeroes_every_count():
@@ -116,7 +147,8 @@ def test_cpu_calls_launch_nothing_and_reset_zeroes_every_count():
     assert torch.equal(got, pd.paged_flash_decode_reference(*args))
     assert (pd.LAUNCHES, pd.ROUTE_LAUNCHES) == before
     pd.reset_launches()
-    assert pd.LAUNCHES == 0 and pd.ROUTE_LAUNCHES == {"split": 0, "rows": 0}
+    assert pd.LAUNCHES == 0 and pd.ROUTE_LAUNCHES == {"split": 0, "mma": 0,
+                                                      "rows": 0}
 
 
 # ------------------------------------------------------------ the algorithm

@@ -8,7 +8,9 @@ test file in one launch and returns flat ``{name: ndarray}`` results.
 
 from __future__ import annotations
 
+import contextlib
 import io
+import sys
 import time
 
 import numpy as np
@@ -16,6 +18,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from chainermn_tpu_torch import global_except_hook
 from chainermn_tpu_torch.communicators import create_communicator
 from chainermn_tpu_torch.datasets import scatter_dataset
 from chainermn_tpu_torch.extensions import (
@@ -50,6 +53,29 @@ def few_threads():
     torch.set_num_threads(min(TEST_THREADS, before))
     yield
     torch.set_num_threads(before)
+
+
+@contextlib.contextmanager
+def kept_excepthook():
+    """Put ``sys.excepthook`` and the port's installed-hook flag back as
+    they were when the block ends. The example twins install the port's
+    hook for the life of the process, as the JAX examples install
+    theirs; a later test in the same process (the JAX package's own hook
+    test among them) must find the hook it had."""
+    hook, installed = sys.excepthook, global_except_hook._hook_installed
+    try:
+        yield
+    finally:
+        sys.excepthook = hook
+        global_except_hook._hook_installed = installed
+
+
+@pytest.fixture(autouse=True)
+def restore_excepthook():
+    """Run each test of a module that imports this fixture inside
+    :func:`kept_excepthook`."""
+    with kept_excepthook():
+        yield
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
