@@ -32,11 +32,19 @@
 // - K and V are gathered through the table, never through a dense view:
 //   key kpos lives in physical block tables[b, kpos / bs] at offset kpos %
 //   bs, its head slice strided by Hkv * D. Each 64-key tile is copied row
-//   by row with cp.async, so any block size works (a tile may span several
-//   blocks or part of one), into a two-stage ring: the next tile's copy
-//   overlaps this tile's products. A key outside the CTA's [kmin, kmax],
-//   or in the scratch block, is zero-filled (src-size 0), never read, and
-//   masked;
+//   by row with 16-byte cp.async, so any block size works (a tile may span
+//   several blocks or part of one), into a two-stage ring: the next tile's
+//   copy is issued while this tile's S is computed. A key outside the
+//   CTA's [kmin, kmax], or in the scratch block, is zero-filled (src-size
+//   0), never read, and masked;
+// - with one warpgroup on an SM nothing hides a long instruction stream,
+//   so the copy's address arithmetic is done once per key, not once per
+//   16-byte chunk: 64 threads plan a tile's key rows (block lookup,
+//   division, pool offset, copied flag) into a three-slot ring in shared
+//   memory two tiles ahead, while the tile before runs its P V product,
+//   and the copy reads one offset per row (a first version that computed
+//   every chunk's address in the copy took longer at every prefill shape,
+//   PERF.md);
 // - the causal/window tile skip: kmax is the qpos of the tile's last row
 //   below R (clamped to the table, M * bs - 1), kmin the first row's qpos
 //   - window + 1 (or 0), and only the key tiles meeting [kmin, kmax] are
@@ -92,8 +100,9 @@ struct PrefillParams {
 // [64][D] tile: row r is token r / group, q head h * group + r % group.
 // Rows at or past R are zero-filled.
 template <int D>
-__device__ __forceinline__ void load_q_rows(uint32_t dst, const PrefillParams& p,
-                                            int b, int h, int r0) {
+__device__ __forceinline__ void load_q_rows(uint32_t dst,
+                                            const PrefillParams& p, int b,
+                                            int h, int r0) {
   constexpr int kChunks = D / 8;
 #pragma unroll
   for (int it = 0; it < kTile * kChunks / kThreads; ++it) {
@@ -108,37 +117,59 @@ __device__ __forceinline__ void load_q_rows(uint32_t dst, const PrefillParams& p
   }
 }
 
-// Keys [k0, k0 + 64) of one slot's table for kv head h, gathered from a
-// pool into a swizzled [64][D] tile. A key outside [kmin, kmax] or in the
-// scratch block is zero-filled and never read; where live is not null,
-// live[r] is 1 for a key that was copied and 0 for one that was not.
+// Slots of the ring of key-row plans (offsets and flags): a tile's plan
+// is made two tiles ahead of its products, read by its copy one tile
+// ahead and by its mask with the tile.
+constexpr int kPlanSlots = 3;
+
+// The plan of keys [k0, k0 + 64) of one slot's table for kv head h, one
+// key a thread (threads 0-63): off[r] is the element offset of key k0 + r
+// in the pools, or -1 where the key lies outside [kmin, kmax] or in the
+// scratch block (zero-filled, never read, masked); live[r] is 1 for a key
+// that is copied. Each key's block lookup and division happen here once,
+// not once per 16-byte chunk: with one warpgroup on an SM, the copy's
+// address arithmetic is a serial instruction stream on the tile's path.
 template <int D>
-__device__ __forceinline__ void load_paged_tile(
-    uint32_t dst, const bf16* pool, const int* table, const PrefillParams& p,
-    int h, int k0, int kmin, int kmax, unsigned char* live) {
+__device__ __forceinline__ void plan_keys(int64_t* off, unsigned char* live,
+                                          const int* table,
+                                          const PrefillParams& p, int h,
+                                          int k0, int kmin, int kmax) {
+  if (threadIdx.x >= kTile) return;
+  const int kpos = k0 + threadIdx.x;
+  bool ok = kpos >= kmin && kpos <= kmax;
+  int64_t o = -1;
+  if (ok) {
+    const int j = kpos / p.bs;
+    const int blk = table[j];
+    ok = blk != p.scratch;
+    o = (((int64_t)blk * p.bs + kpos - j * p.bs) * p.Hkv + h) * D;
+  }
+  off[threadIdx.x] = ok ? o : -1;
+  live[threadIdx.x] = ok;
+}
+
+// One tile's K or V rows, gathered from a pool by a plan's offsets into a
+// swizzled [64][D] tile (a row at offset -1 is zero-filled).
+template <int D>
+__device__ __forceinline__ void load_keys(uint32_t dst, const bf16* pool,
+                                          const int64_t* off) {
   constexpr int kChunks = D / 8;
 #pragma unroll
   for (int it = 0; it < kTile * kChunks / kThreads; ++it) {
     const int i = threadIdx.x + it * kThreads;
-    const int r = i / kChunks, c = i % kChunks, kpos = k0 + r;
-    bool ok = kpos >= kmin && kpos <= kmax;
-    const bf16* g = pool;
-    if (ok) {
-      const int blk = table[kpos / p.bs];
-      ok = blk != p.scratch;
-      g += (((int64_t)blk * p.bs + kpos % p.bs) * p.Hkv + h) * D + c * 8;
-    }
-    cp_async16(dst + tile_off<D>(r, c), ok ? g : pool, ok);
-    if (live != nullptr && c == 0) live[r] = ok;
+    const int r = i / kChunks, c = i % kChunks;
+    const int64_t o = off[r];
+    cp_async16(dst + tile_off<D>(r, c), o >= 0 ? pool + o + c * 8 : pool,
+               o >= 0);
   }
 }
 
 // Shared memory: the tiles from a 1024-byte boundary (q, then K, V per
-// stage), then each stage's 64 key-copied flags.
+// stage), then the key-row plans' offsets and flags.
 template <int D>
 constexpr size_t prefill_smem() {
   return 1024 + (size_t)(1 + 2 * kStages) * kTile * D * 2 +
-         (size_t)kStages * kTile;
+         (size_t)kPlanSlots * kTile * (sizeof(int64_t) + 1);
 }
 
 template <int D>
@@ -151,7 +182,10 @@ paged_prefill_mma_kernel(const PrefillParams p) {
   unsigned char* base;
   const uint32_t s_q = aligned_smem(smem, &base);
   const uint32_t s_stage = s_q + kTileBytes;
-  unsigned char* live_s = base + (1 + 2 * kStages) * kTileBytes;
+  int64_t* off_s =
+      reinterpret_cast<int64_t*>(base + (1 + 2 * kStages) * kTileBytes);
+  unsigned char* live_s =
+      reinterpret_cast<unsigned char*>(off_s + kPlanSlots * kTile);
 
   // the q tiles at the causal end (the longest loops) start first
   const int r0 = (nq - 1 - (int)blockIdx.x) * kTile;
@@ -183,13 +217,16 @@ paged_prefill_mma_kernel(const PrefillParams p) {
     qpos[i] = pos0 + qi[i] / p.group;
   }
 
-  auto issue = [&](int i) {
-    const int k0 = (t0 + i) * kTile, st = i % kStages;
-    const uint32_t s_k = s_stage + st * kStageBytes;
-    load_paged_tile<D>(s_k, p.k, table, p, h, k0, kmin, kmax,
-                       live_s + st * kTile);
-    load_paged_tile<D>(s_k + kTileBytes, p.v, table, p, h, k0, kmin, kmax,
-                       nullptr);
+  auto plan = [&](int i) {  // tile i's key rows into plan slot i % 3
+    plan_keys<D>(off_s + (i % kPlanSlots) * kTile,
+                 live_s + (i % kPlanSlots) * kTile, table, p, h,
+                 (t0 + i) * kTile, kmin, kmax);
+  };
+  auto issue = [&](int i) {  // tile i's copy into ring stage i % 2
+    const uint32_t s_k = s_stage + (i % kStages) * kStageBytes;
+    const int64_t* off = off_s + (i % kPlanSlots) * kTile;
+    load_keys<D>(s_k, p.k, off);
+    load_keys<D>(s_k + kTileBytes, p.v, off);
     cp_commit();
   };
 
@@ -201,25 +238,26 @@ paged_prefill_mma_kernel(const PrefillParams p) {
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const float scale2 = p.scale * kLog2e;
 
+  if (n > 0) plan(0);
+  if (n > 1) plan(1);
+  __syncthreads();
   if (n > 0) issue(0);
   for (int i = 0; i < n; ++i) {
-    if (i + 1 < n) {
-      issue(i + 1);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
+    cp_wait<0>();  // tile i (issued during tile i - 1's products)
     fence_async_smem();
     __syncthreads();
     const int k0 = (t0 + i) * kTile;
     const uint32_t s_k = s_stage + (i % kStages) * kStageBytes;
     const uint32_t s_v = s_k + kTileBytes;
-    const unsigned char* live = live_s + (i % kStages) * kTile;
+    const unsigned char* live = live_s + (i % kPlanSlots) * kTile;
 
     float s[8][4] = {};
     wg_fence();
     wg_abt<D>(s, s_q, s_k);
     wg_commit();
+    // tile i + 1's copy, while S is computed: its stage was last read by
+    // tile i - 1's products, before the barrier that ended tile i - 1
+    if (i + 1 < n) issue(i + 1);
     wg_wait<0>();
     keep(s);
 
@@ -264,6 +302,9 @@ paged_prefill_mma_kernel(const PrefillParams p) {
     wg_fence();
     wg_xb<D>(o, a, s_v);  // O += P V
     wg_commit();
+    // tile i + 2's plan, while the product runs: its slot was last read
+    // by tile i - 1's mask, before the barrier that ended tile i - 1
+    if (i + 2 < n) plan(i + 2);
     wg_wait<0>();
     keep(o);
     keep(a);
