@@ -1,7 +1,9 @@
-// Paged flash decoding for Hopper (sm_90a).
+// Paged flash decoding for Hopper (sm_90a), fp32: K4's rows route.
 //
 // Replaces the Pallas TPU kernel chainermn_tpu/ops/paged_decode.py::
-// paged_flash_decode (body _decode_body): attention of T >= 1 fresh query
+// paged_flash_decode (body _decode_body) for fp32 calls (the bf16 calls
+// take paged_decode_sm90.cu's split route or paged_prefill_sm90.cu's mma
+// route): attention of T >= 1 fresh query
 // rows per slot against a paged KV pool [num_blocks, bs, Hkv, D] addressed
 // through a per-slot block table, with causal, sliding-window and
 // scratch-block masks, GQA rows r = t * group + g, fp32 accumulation.
@@ -28,14 +30,13 @@
 //   global memory in the kernel (the TPU kernel's scalar prefetch).
 //
 // Numerics follow _decode_body: scores = (q . k in fp32) * scale, masked
-// scores = NEG_INF (-1e30, not -inf), p = mask ? exp(s - m_new) : 0, P
-// rounded to V's dtype before the PV product, fp32 accumulators, and
-// rows whose sum l is 0 emit an exact 0.
+// scores = NEG_INF (-1e30, not -inf), p = mask ? exp(s - m_new) : 0 (P in
+// V's dtype, fp32, for the PV product), fp32 accumulators, and rows whose
+// sum l is 0 emit an exact 0.
 //
 // The host entry launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,38 +47,10 @@ constexpr int kWarps = 4;
 constexpr int kChunk = 32;  // keys per warp step: one per lane
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// P is rounded to V's dtype before the PV product (_decode_body's
-// p.astype(v.dtype)); for fp32 this is the identity.
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// One 16-byte vector of a K/V row, widened to fp32.
+// One 16-byte vector of a K/V row.
 __device__ __forceinline__ void load_vec(const float* src, float* dst) {
   const float4 f = *reinterpret_cast<const float4*>(src);
   dst[0] = f.x; dst[1] = f.y; dst[2] = f.z; dst[3] = f.w;
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* src,
-                                         float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -103,17 +76,18 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return sizeof(float) * (ROWS * D + kWarps * warp_floats<D, ROWS>());
 }
 
-template <typename T, int D, int ROWS>
+template <int D, int ROWS>
 __global__ void __launch_bounds__(kWarps * 32)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool,
+paged_decode_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k_pool,
+                    const float* __restrict__ v_pool,
                     const int* __restrict__ tables,
-                    const int* __restrict__ positions, T* __restrict__ out,
+                    const int* __restrict__ positions, float* __restrict__ out,
                     int n_tok, int Hq, int Hkv, int group, int bs, int M,
                     int window, float scale, int scratch) {
   static_assert(D % 32 == 0, "head_dim must be a multiple of 32");
   constexpr int DL = D / 32;               // head dims per lane in PV
-  constexpr int VEC = 16 / sizeof(T);      // elements per 16-byte load
+  constexpr int VEC = 4;                   // floats per 16-byte load
   constexpr int VPR = D / VEC;             // vectors per key row
   constexpr int WF = warp_floats<D, ROWS>();
 
@@ -136,7 +110,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     float x = 0.f;
     if (rg < R) {
       const int t = rg / group, g = rg % group;
-      x = to_float(q[((size_t)(b * n_tok + t) * Hq + h * group + g) * D + d]);
+      x = q[((size_t)(b * n_tok + t) * Hq + h * group + g) * D + d];
     }
     qs[i] = x;
   }
@@ -213,7 +187,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       const float corr = expf(m[r] - m_new);
       l[r] = l[r] * corr + warp_sum(p);
       m[r] = m_new;
-      ps[r * kChunk + lane] = round_as(p, v_pool);
+      ps[r * kChunk + lane] = p;
 #pragma unroll
       for (int i = 0; i < DL; ++i) acc[r][i] *= corr;
     }
@@ -265,17 +239,17 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     // Fully masked rows (padding, released slots) emit exact 0.
     const float o = lsum > 0.f ? a / fmaxf(lsum, 1e-37f) : 0.f;
     const int t = rg / group, g = rg % group;
-    store(out + ((size_t)(b * n_tok + t) * Hq + h * group + g) * D + d, o);
+    out[((size_t)(b * n_tok + t) * Hq + h * group + g) * D + d] = o;
   }
 }
 
-template <typename T, int D, int ROWS>
+template <int D, int ROWS>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const void* tables, const void* positions, void* out,
                    int B, int n_tok, int Hq, int Hkv, int bs, int M,
                    int window, float scale, int scratch,
                    cudaStream_t stream) {
-  auto kernel = paged_decode_kernel<T, D, ROWS>;
+  auto kernel = paged_decode_kernel<D, ROWS>;
   constexpr size_t smem = smem_bytes<D, ROWS>();
   // Above 48 KB a block may only use dynamic shared memory after this
   // opt-in (per device, so it is repeated on every launch).
@@ -286,14 +260,14 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   const int R = n_tok * group;
   const dim3 grid((R + ROWS - 1) / ROWS, Hkv, B);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(tables),
-      static_cast<const int*>(positions), static_cast<T*>(out), n_tok, Hq,
+      static_cast<const float*>(q), static_cast<const float*>(k_pool),
+      static_cast<const float*>(v_pool), static_cast<const int*>(tables),
+      static_cast<const int*>(positions), static_cast<float*>(out), n_tok, Hq,
       Hkv, group, bs, M, window, scale, scratch);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_rows(const void* q, const void* k_pool,
                         const void* v_pool, const void* tables,
                         const void* positions, void* out, int B, int n_tok,
@@ -303,64 +277,46 @@ cudaError_t launch_rows(const void* q, const void* k_pool,
   // fits, else 16-row tiles (prefill spreads over more CTAs).
   const int R = n_tok * (Hq / Hkv);
   if (R <= 1)
-    return launch<T, D, 1>(q, k_pool, v_pool, tables, positions, out, B,
-                           n_tok, Hq, Hkv, bs, M, window, scale, scratch,
-                           stream);
+    return launch<D, 1>(q, k_pool, v_pool, tables, positions, out, B, n_tok,
+                        Hq, Hkv, bs, M, window, scale, scratch, stream);
   if (R <= 4)
-    return launch<T, D, 4>(q, k_pool, v_pool, tables, positions, out, B,
-                           n_tok, Hq, Hkv, bs, M, window, scale, scratch,
-                           stream);
-  return launch<T, D, 16>(q, k_pool, v_pool, tables, positions, out, B,
-                          n_tok, Hq, Hkv, bs, M, window, scale, scratch,
-                          stream);
-}
-
-template <typename T>
-cudaError_t launch_dtype(const void* q, const void* k_pool,
-                         const void* v_pool, const void* tables,
-                         const void* positions, void* out, int B, int n_tok,
-                         int Hq, int Hkv, int D, int bs, int M, int window,
-                         float scale, int scratch, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch_rows<T, 32>(q, k_pool, v_pool, tables, positions, out,
-                                B, n_tok, Hq, Hkv, bs, M, window, scale,
-                                scratch, stream);
-    case 64:
-      return launch_rows<T, 64>(q, k_pool, v_pool, tables, positions, out,
-                                B, n_tok, Hq, Hkv, bs, M, window, scale,
-                                scratch, stream);
-    case 128:
-      return launch_rows<T, 128>(q, k_pool, v_pool, tables, positions, out,
-                                 B, n_tok, Hq, Hkv, bs, M, window, scale,
-                                 scratch, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+    return launch<D, 4>(q, k_pool, v_pool, tables, positions, out, B, n_tok,
+                        Hq, Hkv, bs, M, window, scale, scratch, stream);
+  return launch<D, 16>(q, k_pool, v_pool, tables, positions, out, B, n_tok,
+                       Hq, Hkv, bs, M, window, scale, scratch, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window;
-// scratch_block < 0 disables the scratch mask. Tensors are contiguous:
-// q/out [B, n_tok, Hq, D], pools [num_blocks, bs, Hkv, D], tables [B, M]
-// int32, positions [B] int32.
+// fp32 only (bf16 calls take the split or mma route). window <= 0 means
+// no window; scratch_block < 0 disables the scratch mask. Tensors are
+// contiguous: q/out [B, n_tok, Hq, D], pools [num_blocks, bs, Hkv, D],
+// tables [B, M] int32, positions [B] int32.
 extern "C" int paged_flash_decode_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* tables, const void* positions, void* out, int B, int n_tok,
     int Hq, int Hkv, int D, int bs, int M, int window, float scale,
-    int scratch_block, int dtype, void* stream) {
+    int scratch_block, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
-    err = launch_dtype<float>(q, k_pool, v_pool, tables, positions, out, B,
-                              n_tok, Hq, Hkv, D, bs, M, window, scale,
-                              scratch_block, s);
-  else if (dtype == 1)
-    err = launch_dtype<__nv_bfloat16>(q, k_pool, v_pool, tables, positions,
-                                      out, B, n_tok, Hq, Hkv, D, bs, M,
-                                      window, scale, scratch_block, s);
-  else
-    err = cudaErrorInvalidValue;
+  switch (D) {
+    case 32:
+      err = launch_rows<32>(q, k_pool, v_pool, tables, positions, out, B,
+                            n_tok, Hq, Hkv, bs, M, window, scale,
+                            scratch_block, s);
+      break;
+    case 64:
+      err = launch_rows<64>(q, k_pool, v_pool, tables, positions, out, B,
+                            n_tok, Hq, Hkv, bs, M, window, scale,
+                            scratch_block, s);
+      break;
+    case 128:
+      err = launch_rows<128>(q, k_pool, v_pool, tables, positions, out, B,
+                             n_tok, Hq, Hkv, bs, M, window, scale,
+                             scratch_block, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

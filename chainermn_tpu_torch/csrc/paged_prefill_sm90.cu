@@ -85,6 +85,22 @@ namespace {
 // paged_prefill_tile_counts on this device.
 __device__ unsigned long long g_prefill_tile_counts[2];
 
+// Clock64 probes of thread 0, by phase of the key-tile loop, for
+// chainermn_tpu_torch/tools/k4_prefill_clocks.py: only a build with
+// -DK4_PREFILL_CLOCKS (a library of its own) has them. Per CTA: cycles in
+// the whole CTA, in its prologue, in the five phases summed over its
+// tiles (the wait for a tile's copy, S, the issue of the next copy, the
+// softmax, P V), and its key tiles.
+#ifdef K4_PREFILL_CLOCKS
+constexpr int kClockCtas = 4096;  // the first CTAs' clocks are kept
+__device__ long long g_prefill_clocks[kClockCtas][8];
+#define K4_CLOCK(t) const long long t = clock64()
+#define K4_CLOCKED(...) __VA_ARGS__
+#else
+#define K4_CLOCK(t)
+#define K4_CLOCKED(...)
+#endif
+
 struct PrefillParams {
   const bf16* q;         // [B, T, Hq, D]
   const bf16* k;         // [num_blocks, bs, Hkv, D]
@@ -187,6 +203,8 @@ paged_prefill_mma_kernel(const PrefillParams p) {
   unsigned char* live_s =
       reinterpret_cast<unsigned char*>(off_s + kPlanSlots * kTile);
 
+  K4_CLOCK(c_entry);
+  K4_CLOCKED(long long phase[5] = {});
   // the q tiles at the causal end (the longest loops) start first
   const int r0 = (nq - 1 - (int)blockIdx.x) * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -242,10 +260,13 @@ paged_prefill_mma_kernel(const PrefillParams p) {
   if (n > 1) plan(1);
   __syncthreads();
   if (n > 0) issue(0);
+  K4_CLOCK(c_loop);
   for (int i = 0; i < n; ++i) {
+    K4_CLOCK(c0);
     cp_wait<0>();  // tile i (issued during tile i - 1's products)
     fence_async_smem();
     __syncthreads();
+    K4_CLOCK(c1);
     const int k0 = (t0 + i) * kTile;
     const uint32_t s_k = s_stage + (i % kStages) * kStageBytes;
     const uint32_t s_v = s_k + kTileBytes;
@@ -257,9 +278,12 @@ paged_prefill_mma_kernel(const PrefillParams p) {
     wg_commit();
     // tile i + 1's copy, while S is computed: its stage was last read by
     // tile i - 1's products, before the barrier that ended tile i - 1
+    K4_CLOCK(c2);
     if (i + 1 < n) issue(i + 1);
+    K4_CLOCK(c3);
     wg_wait<0>();
     keep(s);
+    K4_CLOCK(c4);
 
     // Which of this thread's 16 keys were copied, at the bits of its
     // scores (4 nt + e: both rows of a column).
@@ -297,6 +321,7 @@ paged_prefill_mma_kernel(const PrefillParams p) {
         }
       softmax_step<D, true>(s, ok, m, l, o);
     }
+    K4_CLOCK(c5);
     uint32_t a[4][4];
     to_a(a, s);
     wg_fence();
@@ -309,6 +334,14 @@ paged_prefill_mma_kernel(const PrefillParams p) {
     keep(o);
     keep(a);
     __syncthreads();  // this stage is refilled two tiles on
+    K4_CLOCKED({
+      const long long c6 = clock64();
+      phase[0] += c1 - c0;
+      phase[1] += c4 - c1 - (c3 - c2);
+      phase[2] += c3 - c2;
+      phase[3] += c5 - c4;
+      phase[4] += c6 - c5;
+    });
   }
   cp_wait<0>();
 
@@ -332,6 +365,17 @@ paged_prefill_mma_kernel(const PrefillParams p) {
                                       o[j][2 * r + 1] / lt[r])
               : __floats2bfloat162_rn(0.f, 0.f);
   }
+  K4_CLOCKED({
+    const int cta = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+                    blockIdx.x;
+    if (threadIdx.x == 0 && cta < kClockCtas) {
+      long long* c = g_prefill_clocks[cta];
+      c[0] = clock64() - c_entry;
+      c[1] = c_loop - c_entry;
+      for (int k = 0; k < 5; ++k) c[2 + k] = phase[k];
+      c[7] = n;
+    }
+  });
 }
 
 template <int D>
@@ -389,6 +433,15 @@ extern "C" int paged_flash_prefill_launch(
       return (int)cudaErrorInvalidValue;
   }
 }
+
+#ifdef K4_PREFILL_CLOCKS
+// The probes of the last launch, into out[kClockCtas][8] (see
+// g_prefill_clocks). Synchronous, on the current device.
+extern "C" int paged_prefill_clocks(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_prefill_clocks,
+                                   sizeof(g_prefill_clocks));
+}
+#endif
 
 // The prefill kernel's tile counts since the last call, into out[2]:
 // visited, skipped ((q tile, key tile, kv head) triples of the table);

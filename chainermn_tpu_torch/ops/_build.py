@@ -68,7 +68,8 @@ def _run(name: str, cmd: Sequence[str]) -> None:
         )
 
 
-def compile_library(name: str, paths: Sequence[Path], out: Path) -> None:
+def compile_library(name: str, paths: Sequence[Path], out: Path,
+                    flags: Sequence[str] = NVCC_FLAGS) -> None:
     """Build the shared library ``out`` from ``paths``: one ``nvcc -c``
     per source, all started together, then a link. The objects live in a
     temporary directory beside ``out`` that goes whether or not nvcc
@@ -77,22 +78,25 @@ def compile_library(name: str, paths: Sequence[Path], out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs = [os.path.join(tmp, f"{p.stem}.o") for p in paths]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+        cmds = [[nvcc, *flags, "-c", "-o", o, str(p)]
                 for p, o in zip(paths, objs)]
         with ThreadPoolExecutor(len(cmds)) as pool:
             list(pool.map(lambda c: _run(name, c), cmds))
         lib = os.path.join(tmp, out.name)
-        _run(name, [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs])
+        _run(name, [nvcc, *flags, "-shared", "-o", lib, *objs])
         os.replace(lib, out)
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
+def load_library(name: str, sources: Sequence[str],
+                 defines: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (if needed) and load ``lib<name>`` from ``sources`` (file
-    names under ``csrc/``). Cached per process."""
+    names under ``csrc/``), with ``-D`` for each of ``defines``. Cached
+    per process."""
     if name in _LOADED:
         return _LOADED[name]
     paths = [CSRC_DIR / s for s in sources]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    digest = hashlib.sha256(" ".join(flags).encode())
     for p in paths + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
@@ -100,7 +104,7 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     t0 = time.perf_counter()
     built = False
     if not out.exists():
-        compile_library(name, paths, out)
+        compile_library(name, paths, out, flags)
         built = True
     lib = ctypes.CDLL(str(out))
     BUILD_LOG[name] = {"path": str(out),

@@ -55,7 +55,7 @@ LAUNCHES = 0
 #: the same calls by route (:func:`_route`)
 ROUTE_LAUNCHES = {"split": 0, "mma": 0, "rows": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (32, 64, 128)
 #: the library's sources under ``csrc/``, compiled together
 SOURCES = ("paged_decode.cu", "paged_decode_sm90.cu",
@@ -82,50 +82,54 @@ def reset_launches():
 
 def load_kernel():
     """The library's C entry points (``paged_flash_decode_launch``, the
-    rows route; ``paged_flash_decode_split_launch``, the split route;
-    ``paged_flash_prefill_launch``, the mma route, and its counters'
-    reader ``paged_prefill_tile_counts``), built by ``nvcc`` and bound
-    on first use (raises when the library cannot be built)."""
+    rows route, fp32 only; ``paged_flash_decode_split_launch``, the split
+    route; ``paged_flash_prefill_launch``, the mma route, and its
+    counters' reader ``paged_prefill_tile_counts``), built by ``nvcc``
+    and bound on first use (raises when the library cannot be built)."""
     global _lib
     if _lib is None:
         from chainermn_tpu_torch.ops._build import load_library
 
-        lib = load_library("paged_decode", SOURCES)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.paged_flash_decode_launch.argtypes = [
-            p, p, p, p, p, p,        # q k v tables pos out
-            i, i, i, i, i, i, i,     # B T Hq Hkv D bs M
-            i, f, i, i,              # window scale scratch dtype
-            p]                       # stream
-        lib.paged_flash_decode_split_launch.argtypes = [
-            p, p, p, p, p, p, p,     # q k v tables pos out partials
-            i, i, i, i, i, i, i,     # B T Hq Hkv D bs M
-            i, i,                    # P n_splits
-            i, f, i,                 # window scale scratch
-            p]                       # stream
-        lib.paged_flash_prefill_launch.argtypes = [
-            p, p, p, p, p, p,        # q k v tables pos out
-            i, i, i, i, i, i, i,     # B T Hq Hkv D bs M
-            i, f, i,                 # window scale scratch
-            p]                       # stream
-        lib.paged_prefill_tile_counts.argtypes = [p]
-        for fn in (lib.paged_flash_decode_launch,
-                   lib.paged_flash_decode_split_launch,
-                   lib.paged_flash_prefill_launch,
-                   lib.paged_prefill_tile_counts):
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = _bind(load_library("paged_decode", SOURCES))
     return _lib
 
 
-def _route(dtype, T, Hq, Hkv, D) -> str:
-    """For bf16 at a head dim the kernels take, ``"split"`` for calls of
-    at most :data:`SPLIT_MAX_ROWS` query rows per (slot, kv head) and
-    ``"mma"`` for more; else ``"rows"``: dtype and shape decide, never a
-    failure."""
-    if dtype == torch.bfloat16 and D in _HEAD_DIMS:
-        return "split" if T * (Hq // Hkv) <= SPLIT_MAX_ROWS else "mma"
-    return "rows"
+def _bind(lib):
+    """``lib`` with the C entry points' signatures set: the port's library,
+    or a build of the same sources with other defines."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.paged_flash_decode_launch.argtypes = [
+        p, p, p, p, p, p,        # q k v tables pos out
+        i, i, i, i, i, i, i,     # B T Hq Hkv D bs M
+        i, f, i,                 # window scale scratch
+        p]                       # stream
+    lib.paged_flash_decode_split_launch.argtypes = [
+        p, p, p, p, p, p, p,     # q k v tables pos out partials
+        i, i, i, i, i, i, i,     # B T Hq Hkv D bs M
+        i, i,                    # P n_splits
+        i, f, i,                 # window scale scratch
+        p]                       # stream
+    lib.paged_flash_prefill_launch.argtypes = [
+        p, p, p, p, p, p,        # q k v tables pos out
+        i, i, i, i, i, i, i,     # B T Hq Hkv D bs M
+        i, f, i,                 # window scale scratch
+        p]                       # stream
+    lib.paged_prefill_tile_counts.argtypes = [p]
+    for fn in (lib.paged_flash_decode_launch,
+               lib.paged_flash_decode_split_launch,
+               lib.paged_flash_prefill_launch,
+               lib.paged_prefill_tile_counts):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _route(dtype, T, Hq, Hkv) -> str:
+    """``"rows"`` for fp32; for bf16, ``"split"`` for calls of at most
+    :data:`SPLIT_MAX_ROWS` query rows per (slot, kv head) and ``"mma"``
+    for more: dtype and shape decide, never a failure."""
+    if dtype != torch.bfloat16:
+        return "rows"
+    return "split" if T * (Hq // Hkv) <= SPLIT_MAX_ROWS else "mma"
 
 
 def _split_plan(B: int, Hkv: int, M: int, bs: int):
@@ -244,7 +248,7 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, positions, *,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in _DTYPES:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
@@ -267,7 +271,7 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, positions, *,
     M = block_tables.shape[1]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
-    route = _route(q.dtype, T, Hq, Hkv, D)
+    route = _route(q.dtype, T, Hq, Hkv)
     lib = load_kernel()
     if route != "rows" and q.data_ptr() % 16:
         q = q.clone()  # the bf16 kernels read q in 16-byte vectors
@@ -290,8 +294,7 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, positions, *,
         err = lib.paged_flash_decode_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            B, T, Hq, Hkv, D, bs, M, window, scale, scratch,
-            _DTYPE_CODES[q.dtype], stream)
+            B, T, Hq, Hkv, D, bs, M, window, scale, scratch, stream)
     if err != 0:
         raise RuntimeError(f"paged_flash_decode {route} launch failed: "
                            f"CUDA error {err}")

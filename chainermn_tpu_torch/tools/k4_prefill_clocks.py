@@ -3,13 +3,14 @@
 
     python3 chainermn_tpu_torch/tools/k4_prefill_clocks.py [--cases A,B]
 
-Copies ``csrc/paged_prefill_sm90.cu`` with clock64 probes added at the
-points :data:`PROBES` names (it raises if the kernel no longer has one of
-them), builds the copy alone into ``chainermn_tpu_torch/build/`` (the
-library that the port loads has no probes) and launches it once on each
-named row of ``chip_smoke.py``'s phase 2 (``_k4_cases``; by default the
+Builds the ``paged_decode`` sources with ``-DK4_PREFILL_CLOCKS``, which
+turns on the clock64 probes of ``csrc/paged_prefill_sm90.cu``, into a
+library of their own in ``chainermn_tpu_torch/build/`` (the library that
+the port loads has no probes), makes it the one that the wrapper
+``paged_flash_decode`` launches, and calls the wrapper once on each named
+row of ``chip_smoke.py``'s phase 2 (``_k4_cases``; by default the
 prefills at T 32, 512 and 2048 and the decode tick of 32 rows per kv
-head), after three warm-up launches and a 96 MB rewrite of L2. One JSON
+head), after three warm-up calls and a 96 MB rewrite of L2. One JSON
 line per row: the launch's time by CUDA events, its error against the
 plain version, and for the CTAs that walk the most key tiles the mean
 clock64 cycles of thread 0 in the whole CTA and in its prologue (q copy,
@@ -32,88 +33,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[2]
 PHASES = ("wait", "S", "issue", "softmax", "PV")
 DEFAULT_CASES = "prefill_T32,prefill_T512,prefill_T2048,decode_group32_R32"
-CLOCK_CTAS = 4096  # the first CTAs whose clocks are kept
-
-#: (text of the kernel source, the probed copy's text in its place)
-PROBES = [
-    ("struct PrefillParams {", f"""\
-__device__ long long g_clocks[{CLOCK_CTAS}][8];
-#define CLOCK(t) const long long t = clock64()
-
-struct PrefillParams {{"""),
-    ("  const int r0 = (nq - 1 - (int)blockIdx.x) * kTile;", """\
-  CLOCK(c_entry);
-  long long phase[5] = {};
-  const int r0 = (nq - 1 - (int)blockIdx.x) * kTile;"""),
-    ("  if (n > 0) issue(0);\n",
-     "  if (n > 0) issue(0);\n  CLOCK(c_loop);\n"),
-    ("    cp_wait<0>();  // tile i",
-     "    CLOCK(c0);\n    cp_wait<0>();  // tile i"),
-    ("    const int k0 = (t0 + i) * kTile;\n",
-     "    CLOCK(c1);\n    const int k0 = (t0 + i) * kTile;\n"),
-    ("    if (i + 1 < n) issue(i + 1);\n",
-     "    CLOCK(c2);\n    if (i + 1 < n) issue(i + 1);\n    CLOCK(c3);\n"),
-    ("    keep(s);\n", "    keep(s);\n    CLOCK(c4);\n"),
-    ("    uint32_t a[4][4];\n", "    CLOCK(c5);\n    uint32_t a[4][4];\n"),
-    ("    __syncthreads();  // this stage is refilled two tiles on\n", """\
-    __syncthreads();  // this stage is refilled two tiles on
-    CLOCK(c6);
-    phase[0] += c1 - c0;
-    phase[1] += c4 - c1 - (c3 - c2);
-    phase[2] += c3 - c2;
-    phase[3] += c5 - c4;
-    phase[4] += c6 - c5;
-"""),
-    ("              : __floats2bfloat162_rn(0.f, 0.f);\n  }\n}", f"""\
-              : __floats2bfloat162_rn(0.f, 0.f);
-  }}
-  const int cta = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
-                  blockIdx.x;
-  if (threadIdx.x == 0 && cta < {CLOCK_CTAS}) {{
-    long long* c = g_clocks[cta];
-    c[0] = clock64() - c_entry;
-    c[1] = c_loop - c_entry;
-    for (int k = 0; k < 5; ++k) c[2 + k] = phase[k];
-    c[7] = n;
-  }}
-}}"""),
-    ("// The prefill kernel's tile counts since the last call", """\
-extern "C" int paged_prefill_clocks(long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_clocks, sizeof(g_clocks));
-}
-
-// The prefill kernel's tile counts since the last call"""),
-]
-
-
-def _build():
-    from chainermn_tpu_torch.ops._build import (
-        BUILD_DIR,
-        CSRC_DIR,
-        NVCC_FLAGS,
-        _run,
-        find_nvcc,
-    )
-
-    text = (CSRC_DIR / "paged_prefill_sm90.cu").read_text()
-    for old, new in PROBES:
-        if text.count(old) != 1:
-            raise RuntimeError(f"the kernel source no longer has one {old!r}:"
-                               " update PROBES")
-        text = text.replace(old, new)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = BUILD_DIR / "paged_prefill_clocks.cu"
-    src.write_text(text)
-    out = BUILD_DIR / "libpaged_prefill_clocks.so"
-    _run("paged_prefill_clocks",
-         [find_nvcc(), *NVCC_FLAGS, "-shared", "-I", str(CSRC_DIR), "-o",
-          str(out), str(src)])
-    lib = ctypes.CDLL(str(out))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.paged_flash_prefill_launch.argtypes = (
-        [p] * 6 + [i] * 7 + [i, f, i, p])  # as ops/paged_decode.py binds it
-    lib.paged_prefill_clocks.argtypes = [p]
-    return lib
+CLOCK_CTAS = 4096  # kClockCtas of the kernel source
 
 
 def main() -> int:
@@ -134,9 +54,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from chainermn_tpu_torch.ops import paged_decode as pd
+    from chainermn_tpu_torch.ops._build import load_library
 
     print(cs._nvidia_smi(), flush=True)
-    lib = _build()
+    lib = pd._bind(load_library("paged_decode_clocks", pd.SOURCES,
+                                defines=("K4_PREFILL_CLOCKS",)))
+    lib.paged_prefill_clocks.argtypes = [ctypes.c_void_p]
+    pd._lib = lib  # the wrapper launches the probed build
     gen = torch.Generator().manual_seed(0)
     flush = torch.empty(24 * 2**20, dtype=torch.float32, device="cuda")
     clocks = (ctypes.c_longlong * (CLOCK_CTAS * 8))()
@@ -148,17 +72,13 @@ def main() -> int:
         for r in kw.get("scratch_rows", ()):
             pos[r] = 0
         B, T, Hq, D = q.shape
-        _, bs, Hkv, _ = kp.shape
-        out = torch.empty_like(q)
+        Hkv = kp.shape[2]
+        if pd._route(q.dtype, T, Hq, Hkv) != "mma":
+            raise ValueError(f"{name} does not take the mma route")
 
         def launch():
-            err = lib.paged_flash_prefill_launch(
-                q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, T, Hq,
-                Hkv, D, bs, tables.shape[1], window or -1, D ** -0.5, 0,
-                torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"launch failed: CUDA error {err}")
+            return pd.paged_flash_decode(q, kp, vp, tables, pos,
+                                         window=window)
 
         for _ in range(3):
             launch()
@@ -167,7 +87,7 @@ def main() -> int:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        launch()
+        out = launch()
         end.record()
         end.synchronize()
         want = pd.paged_flash_decode_reference(q, kp, vp, tables, pos,

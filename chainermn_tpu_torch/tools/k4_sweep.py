@@ -110,16 +110,17 @@ def main() -> int:
                 pd.SPLIT_TARGET_CTAS, pd.SPLIT_MIN_KEYS = plan
             row = {"root": str(root), "case": name, "plan": plan,
                    "bound_ms": bound_ms, "bound_by": bound_by}
-            if has_split:
-                row["route"] = pd._route(torch.bfloat16, kw["T"], kw["Hq"],
-                                         kw["Hkv"], kw.get("D", 64))
-                row["split_plan"] = pd._split_plan(
-                    kw["B"], kw["Hkv"], inputs[3].shape[1],
-                    inputs[1].shape[1])
-
             def call():
                 return pd.paged_flash_decode(*inputs, window=window)
 
+            if has_split:  # the route whose count a call moves
+                before = dict(pd.ROUTE_LAUNCHES)
+                call()
+                row["route"] = next(r for r, n in pd.ROUTE_LAUNCHES.items()
+                                    if n != before[r])
+                row["split_plan"] = pd._split_plan(
+                    kw["B"], kw["Hkv"], inputs[3].shape[1],
+                    inputs[1].shape[1])
             row["ms"] = cs._time_ms(torch, call, flush)
             if args.profile:
                 row["kernel_us"] = _per_kernel_us(torch, cs, call, flush)

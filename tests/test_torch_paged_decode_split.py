@@ -77,34 +77,22 @@ def test_split_plan_takes_shapes_only():
                                       (1, 16, 1), (4, 8, 2), (16, 8, 8)])
 def test_bf16_rows_up_to_16_take_the_split_route(T, Hq, Hkv):
     assert T * (Hq // Hkv) <= 16
-    for D in (32, 64, 128):
-        assert pd._route(torch.bfloat16, T, Hq, Hkv, D) == "split"
+    assert pd._route(torch.bfloat16, T, Hq, Hkv) == "split"
 
 
-@pytest.mark.parametrize("dtype,T,Hq,Hkv", [
-    (torch.bfloat16, 17, 8, 8), (torch.bfloat16, 3, 12, 2),
-    (torch.bfloat16, 128, 8, 8), (torch.bfloat16, 1, 32, 1),
-    (torch.float32, 1, 8, 8), (torch.float32, 1, 16, 1),
-    (torch.float32, 4, 8, 2), (torch.float32, 512, 8, 8),
+@pytest.mark.parametrize("T,Hq,Hkv", [
+    (17, 8, 8), (3, 12, 2), (128, 8, 8), (1, 32, 1),
+    (17, 1, 1), (9, 2, 1), (5, 8, 2), (2048, 8, 8),
 ])
-def test_prefill_and_fp32_take_the_rows_route(dtype, T, Hq, Hkv):
-    # named when bf16 prefill took the rows route too: bf16 with more
-    # than 16 rows per kv head now takes the mma route, fp32 any shape
-    # the rows route
-    want = "mma" if dtype == torch.bfloat16 else "rows"
-    for D in (32, 64, 128):
-        assert pd._route(dtype, T, Hq, Hkv, D) == want
-
-
-@pytest.mark.parametrize("T,Hq,Hkv", [(17, 1, 1), (9, 2, 1), (5, 8, 2),
-                                      (2048, 8, 8)])
 def test_bf16_prefill_takes_the_mma_route(T, Hq, Hkv):
     assert T * (Hq // Hkv) > pd.SPLIT_MAX_ROWS
-    for D in (32, 64, 128):
-        assert pd._route(torch.bfloat16, T, Hq, Hkv, D) == "mma"
-    # a head dim outside 32/64/128 names no bf16 route (on the card the
-    # wrapper raises on it before any launch)
-    assert pd._route(torch.bfloat16, T, Hq, Hkv, 96) == "rows"
+    assert pd._route(torch.bfloat16, T, Hq, Hkv) == "mma"
+
+
+@pytest.mark.parametrize("T,Hq,Hkv", [(1, 8, 8), (1, 16, 1), (4, 8, 2),
+                                      (512, 8, 8)])
+def test_fp32_takes_the_rows_route(T, Hq, Hkv):
+    assert pd._route(torch.float32, T, Hq, Hkv) == "rows"
 
 
 def test_the_library_builds_both_sources_with_no_atomics():
@@ -133,7 +121,12 @@ def test_the_library_builds_both_sources_with_no_atomics():
     assert atomic.search(text) is None
     assert text.count("count_tiles(") == 1
     assert "count_tiles(g_prefill_tile_counts" in text
-    assert (csrc / "paged_decode.cu").is_file()
+    # the clock probes build only where a tool defines K4_PREFILL_CLOCKS
+    assert text.count("#ifdef K4_PREFILL_CLOCKS") == 2
+    # the rows route is fp32 only: no bf16 type and no dtype argument
+    text = (csrc / "paged_decode.cu").read_text()
+    assert "paged_flash_decode_launch" in text and "bfloat16" not in text
+    assert "int dtype" not in text
 
 
 def test_cpu_calls_launch_nothing_and_reset_zeroes_every_count():
@@ -338,7 +331,7 @@ def test_gqa_group_4(dtype, T, Hq, Hkv):
 def test_mqa_group_16_the_last_split_row_count(dtype):
     rs = np.random.RandomState(14)
     case = _case(rs, B=3, T=1, Hq=16, Hkv=1, M=5)
-    assert pd._route(torch.bfloat16, 1, 16, 1, 64) == "split"
+    assert pd._route(torch.bfloat16, 1, 16, 1) == "split"
     for P in (1, 2, 5):
         _check(case, dtype, P=P)
 

@@ -181,8 +181,7 @@ CASES = [
 def test_prefill_tiled_matches_plain_and_jax(dtype, name, kw, window, tile):
     rs = np.random.RandomState(sum(map(ord, name)))
     case = _case(rs, **kw)
-    assert pd._route(torch.bfloat16, kw["T"], kw["Hq"], kw["Hkv"],
-                     64) == "mma"
+    assert pd._route(torch.bfloat16, kw["T"], kw["Hq"], kw["Hkv"]) == "mma"
     _check(case, dtype, tile=tile, window=window)
 
 
