@@ -110,6 +110,7 @@ def main() -> int:
                 pd.SPLIT_TARGET_CTAS, pd.SPLIT_MIN_KEYS = plan
             row = {"root": str(root), "case": name, "plan": plan,
                    "bound_ms": bound_ms, "bound_by": bound_by}
+
             def call():
                 return pd.paged_flash_decode(*inputs, window=window)
 
