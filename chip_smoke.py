@@ -607,14 +607,15 @@ def phase_profile(torch, np, engine):
     s = out["sched"].summary()
     forwards = s["prefills"] + s["decode_steps"]
     launched = sum(k[1] for k in kernels)
-    k4 = [k for k in kernels if any(m in k[2] for m in K4_KERNELS)]
+    k4 = [(ms, n, m) for ms, n, name in kernels for m in K4_KERNELS
+          if m in name]
     k4_ms = sum(k[0] for k in k4)
     share = k4_ms / busy
     print(f"profile: {s['prefills']} prefills + {s['decode_steps']} decode "
           f"steps, {launched} device ops ({launched / forwards:.1f} per "
           f"forward); K4 (its kernels) {k4_ms:.3f} ms ({share:.4f} of "
           f"busy) over {sum(k[1] for k in k4)} launches: " + ", ".join(
-              f"{name.split('(')[0][:60]} {ms:.3f} ms {n}x "
+              f"{name} {ms:.3f} ms {n}x "
               f"({1e3 * ms / n:.2f} us each)" for ms, n, name in k4),
           flush=True)
 
