@@ -19,10 +19,15 @@ it, and each iteration's corruption is drawn from a generator seeded
 with the iteration; like the JAX example it attends through the model's
 default (blockwise) attention.
 
+After training in the plain data-parallel mode, ``--generate N`` decodes
+N tokens greedily on rank 0 from a two-row synthetic prompt with
+:func:`~chainermn_tpu_torch.models.generate` (and, with ``--beam K``,
+first runs :func:`~chainermn_tpu_torch.models.beam_search` with K beams),
+as the JAX example does; ``--mlm`` refuses both.
+
 Left for later, each refused with an error naming its ROADMAP item:
 ``--sequence-parallel`` (queue 6.5), ``--local-sgd`` and
-``--error-feedback`` (queue 3.3), ``--generate`` and ``--beam`` (queue 1,
-item 1).
+``--error-feedback`` (queue 3.3).
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from chainermn_tpu_torch._device import resolve_device
 from chainermn_tpu_torch.communicators import create_communicator
 from chainermn_tpu_torch.models import (
     TransformerLM,
+    beam_search,
+    generate,
     lm_loss,
     mlm_corrupt,
     mlm_loss,
@@ -53,8 +60,6 @@ _LATER = {
     "sequence_parallel": "ROADMAP queue 6.5 (ring/Ulysses/local attention)",
     "local_sgd": "ROADMAP queue 3.3 (LocalSGDOptimizer)",
     "error_feedback": "ROADMAP queue 3.3 (error feedback on the int8 wire)",
-    "generate": "ROADMAP queue 1, item 1 (the dense decode ring, generate)",
-    "beam": "ROADMAP queue 1, item 1 (beam_search)",
 }
 
 
@@ -146,6 +151,9 @@ def main(argv=None):
     for flag, item in _LATER.items():
         if getattr(args, flag):
             p.error(f"--{flag.replace('_', '-')} is not ported yet ({item})")
+    if args.mlm and (args.generate or args.beam):
+        p.error("--mlm is an encoder: no autoregressive decode "
+                "(--generate/--beam)")
     device = resolve_device(args.device)
     comm = create_communicator(
         args.communicator or ("pure_nccl" if device.type == "cuda"
@@ -222,9 +230,29 @@ def main(argv=None):
                    / (time.perf_counter() - t0))
             print(f"iter {it + 1}/{args.iterations} loss={loss:.4f} "
                   f"({tps:,.0f} tok/s, {mode})")
+    if args.generate and mode == "data-parallel" and comm.rank == 0:
+        _decode_demo(args, model, rng, device)
     if comm.rank == 0:
         print(f"done ({mode})")
     return metrics
+
+
+def _decode_demo(args, model, rng, device):
+    """The JAX example's inference demo on the just-trained weights:
+    beam search (with ``--beam``), then greedy ``generate``, from a
+    two-row synthetic prompt (pad id -1: synthetic tokens include 0)."""
+    prompt = torch.from_numpy(
+        synthetic_tokens(rng, 2, min(8, args.seq_len))).to(device)
+    P = prompt.shape[1]
+    n = min(args.seq_len, P + args.generate)
+    if args.beam:
+        beams, bscores = beam_search(model, prompt, n, args.beam, pad_id=-1)
+        print(f"beam_search (K={args.beam}): best scores "
+              f"{np.round(bscores[:, 0].cpu().numpy(), 2).tolist()}; top "
+              f"continuations {beams[:, 0, P:].cpu().tolist()}")
+    out = generate(model, prompt, n, pad_id=-1)
+    print(f"generate: prompt {tuple(prompt.shape)} -> {tuple(out.shape)}; "
+          f"continuations {out[:, P:].cpu().tolist()}")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Models of the port (counterpart of :mod:`chainermn_tpu.models`): the
 Transformer-base LM (causal, or the bidirectional MLM encoder) with its
-losses, the MNIST MLP and the ResNet family."""
+losses and its decoders (``generate``, ``beam_search``), the MNIST MLP and
+the ResNet family."""
 
 from chainermn_tpu_torch.models.mlp import MLP
 from chainermn_tpu_torch.models.resnet import (
@@ -18,6 +19,9 @@ from chainermn_tpu_torch.models.transformer import (
     TransformerBlock,
     TransformerLM,
     apply_rope,
+    beam_search,
+    generate,
+    init_cache,
     lm_loss,
     lm_loss_fused,
     mlm_corrupt,
@@ -27,6 +31,6 @@ from chainermn_tpu_torch.models.transformer import (
 
 __all__ = ["BasicBlock", "BottleneckBlock", "LayerNorm", "MLP", "ResNet",
            "ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152",
-           "TransformerBlock", "TransformerLM", "apply_rope", "lm_loss",
-           "lm_loss_fused", "mlm_corrupt", "mlm_corrupt_from_draws",
-           "mlm_loss"]
+           "TransformerBlock", "TransformerLM", "apply_rope", "beam_search",
+           "generate", "init_cache", "lm_loss", "lm_loss_fused",
+           "mlm_corrupt", "mlm_corrupt_from_draws", "mlm_loss"]

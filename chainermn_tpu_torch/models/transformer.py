@@ -11,18 +11,28 @@ flash_attention.flash_attention` for packed ``segment_ids`` or a
 :func:`mlm_loss`, :func:`mlm_corrupt`), residual dropout drawn from an
 explicit ``torch.Generator``, per-block rematerialisation (``remat``,
 ``remat_policy`` ``'dots'`` or ``'nothing'``), ``return_hidden`` with
-:func:`lm_loss` and the chunked :func:`lm_loss_fused`, and the serving
-engine's paged slot-decode path with both attend impls —
-``'fused'`` (the paged flash-decoding CUDA kernel,
-:mod:`chainermn_tpu_torch.ops.paged_decode`) and ``'xla'`` (gather the
-dense view, then masked softmax in torch ops). The numerics follow the
-flax module: LayerNorm with epsilon 1e-6 and fp32 statistics, the tanh
-GELU, parameters cast to the compute dtype for each product, and the
-tied head computed in the compute dtype.
+:func:`lm_loss` and the chunked :func:`lm_loss_fused`, and decoding:
 
-Left for later: the dense ``_decode_attend`` ring and ``generate`` /
-``beam_search``, MoE, tensor parallelism, LoRA adapters, ``sow_kv`` —
-each raises ``NotImplementedError`` naming its ROADMAP item.
+- the serving engine's slot-decode path over either cache layout
+  (``kv_layout``): ``'paged'`` (the shared block pool and per-slot block
+  tables) or ``'dense'`` (``[n_slots, decode_cache_len, kvh, dh]`` per
+  block, ``decode_slots`` mapping a prefill's row onto its cache row),
+  each with both attend impls — ``'fused'`` (K4's CUDA kernels,
+  :func:`~chainermn_tpu_torch.ops.paged_decode.paged_flash_decode` and
+  :func:`~chainermn_tpu_torch.ops.paged_decode.dense_flash_decode`) and
+  ``'xla'`` (the dense view, then a masked softmax in torch ops);
+- the legacy dense ring of :func:`generate` and :func:`beam_search`
+  (:func:`init_cache`: one ``[B, max_len, kvh, dh]`` ring per block with a
+  shared write index), with counter-keyed sampling
+  (:func:`stream_sample_keys`, :mod:`chainermn_tpu_torch.utils.prng`).
+
+The numerics follow the flax module: LayerNorm with epsilon 1e-6 and fp32
+statistics, the tanh GELU, parameters cast to the compute dtype for each
+product, and the tied head computed in the compute dtype. Caches are
+explicit lists of per-block dicts that the caller passes and the model
+writes in place; no state hides in the module.
+
+Left for later: MoE, tensor parallelism, LoRA adapters, ``sow_kv``.
 """
 
 from __future__ import annotations
@@ -42,10 +52,16 @@ from torch.utils.checkpoint import (
 
 from chainermn_tpu_torch._device import resolve_device
 from chainermn_tpu_torch.ops.attention import blockwise_attention
-from chainermn_tpu_torch.ops.paged_decode import paged_flash_decode
+from chainermn_tpu_torch.models._decode_common import rank_beams
+from chainermn_tpu_torch.ops.paged_decode import (
+    dense_flash_decode,
+    paged_flash_decode,
+)
 from chainermn_tpu_torch.ops.paged_kv import paged_lookup, paged_update
+from chainermn_tpu_torch.utils import prng
 
 DECODE_ATTEND_IMPLS = ("xla", "fused")
+KV_LAYOUTS = ("paged", "dense")
 
 
 def apply_rope(x, positions, base: float = 10000.0):
@@ -97,6 +113,19 @@ def _dense(layer: nn.Linear, x, dtype):
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
+def _dense_write(cache_t, rows, cols, new):
+    """``cache_t[rows[b], cols[b, t]] = new[b, t]`` for ``cols < L``, in
+    place; a column at or past ``L`` is dropped, as JAX's ``.at[].set``
+    drops an out-of-bounds write. Without a host sync: a dropped column
+    is aimed at ``cols % L`` and writes back what is there (for spans of
+    at most ``L`` tokens that cell is none of the row's kept columns)."""
+    L = cache_t.shape[1]
+    rows = rows[:, None].expand_as(cols)
+    at = cols % L
+    keep = (cols < L)[:, :, None, None]
+    cache_t[rows, at] = torch.where(keep, new, cache_t[rows, at])
+
+
 class TransformerBlock(nn.Module):
     """Pre-LN block: ``x + proj(attn(LN(x)))`` then ``x + FFN(LN(x))``."""
 
@@ -106,12 +135,16 @@ class TransformerBlock(nn.Module):
                  num_kv_heads: Optional[int] = None,
                  window: Optional[int] = None,
                  decode_attend_impl: str = "xla", causal: bool = True,
-                 dropout_rate: float = 0.0, device=None) -> None:
+                 dropout_rate: float = 0.0, kv_layout: str = "paged",
+                 device=None) -> None:
         super().__init__()
         if decode_attend_impl not in DECODE_ATTEND_IMPLS:
             raise ValueError(
                 f"decode_attend_impl must be 'xla' or 'fused', got "
                 f"{decode_attend_impl!r}")
+        if kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"kv_layout must be 'paged' or 'dense', got "
+                             f"{kv_layout!r}")
         self.num_heads = num_heads
         self.d_ff = d_ff
         self.compute_dtype = compute_dtype
@@ -129,6 +162,8 @@ class TransformerBlock(nn.Module):
         self.num_kv_heads = num_kv_heads
         self.window = window
         self.decode_attend_impl = decode_attend_impl
+        #: the slot-decode cache layout (:meth:`_slot_decode_attend`)
+        self.kv_layout = kv_layout
         self.head_dim = d_model // num_heads
         kv_heads = num_kv_heads or num_heads
         dt = dict(dtype=compute_dtype, device=device)
@@ -141,38 +176,95 @@ class TransformerBlock(nn.Module):
         self.ff_up = nn.Linear(d_model, d_ff, device=device)
         self.ff_down = nn.Linear(d_ff, d_model, device=device)
 
-    def _slot_decode_attend(self, qh, kh_new, vh_new, positions,
-                            block_tables, cache):
-        """Slot-array cached attention over the paged pool (the serving
-        engine's path). Every batch row carries its OWN position: its
-        ``T >= 1`` new tokens are written at ``positions[b] + t`` and
-        query ``t`` attends to ``pos <= positions[b] + t``. ``T == 1`` is
-        the decode step, ``T == bucket`` the prefill (pad writes land
-        beyond the row's true length, or in scratch, and are re-written
-        before any mask admits them).
-
-        The K/V write is the same for both impls; only the read differs:
-        ``'fused'`` is one pass of the CUDA kernel over the live blocks,
-        ``'xla'`` gathers the dense view and attends with torch ops.
-        """
-        if cache is None or block_tables is None:
-            raise ValueError("the paged slot-decode path needs cache= and "
-                             "block_tables=")
+    def _decode_attend(self, qh, kh_new, vh_new, cache):
+        """One-token attention against the legacy dense ring of
+        :func:`generate`: ``cache`` holds ``cached_key``/``cached_value``
+        ``[B, L, kvh, dh]`` and the 0-d write index ``cache_index``
+        (advanced here by one). Every row writes at the shared index and
+        attends to ``pos <= index`` (and ``pos > index - window``), with
+        fp32 scores over the whole ring; masked positions cost reads, not
+        correctness."""
+        if cache is None:
+            raise ValueError("decode=True without decode_positions needs "
+                             "cache= (init_cache)")
         B, T = qh.shape[:2]
+        if T != 1:
+            raise ValueError(
+                f"decode=True expects one token per step, got T={T}")
         kv_heads = kh_new.shape[2]
         dt = self.compute_dtype
-        pk, pv = cache["pool_key"], cache["pool_value"]
-        paged_update(pk, block_tables, positions, kh_new.to(dt))
-        paged_update(pv, block_tables, positions, vh_new.to(dt))
+        ck, cv = cache["cached_key"], cache["cached_value"]
+        i = cache["cache_index"]
+        at = i.reshape(1).long()
+        ck.index_copy_(1, at, kh_new.to(dt))
+        cv.index_copy_(1, at, vh_new.to(dt))
+        cache["cache_index"] = i + 1
+        pos = torch.arange(ck.shape[1], device=qh.device)
+        mask = pos <= i
+        if self.window is not None:
+            mask &= pos > i - self.window
+        group = self.num_heads // kv_heads
+        q = qh[:, 0].reshape(B, kv_heads, group, self.head_dim)
+        scores = torch.einsum("bngd,blnd->bngl", q.float(),
+                              ck.float()) * self.head_dim ** -0.5
+        scores = scores.masked_fill(~mask, float("-inf"))
+        w = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bngl,blnd->bngd", w, cv.float())
+        return o.reshape(B, 1, self.num_heads, self.head_dim).to(dt)
+
+    def _slot_decode_attend(self, qh, kh_new, vh_new, positions,
+                            block_tables, cache, slots=None):
+        """Slot-array cached attention (the serving engine's path). Every
+        batch row carries its OWN position: its ``T >= 1`` new tokens are
+        written at ``positions[b] + t`` and query ``t`` attends to ``pos <=
+        positions[b] + t``. ``T == 1`` is the decode step, ``T == bucket``
+        the prefill (pad writes land beyond the row's true length, or in
+        scratch, and are re-written before any mask admits them).
+
+        Two cache layouts behind one arithmetic (``kv_layout``):
+        ``'paged'`` writes into the shared block pool through
+        ``block_tables``; ``'dense'`` writes ``cached_key``/``cached_value``
+        ``[n_slots, L, kvh, dh]`` at cache row ``slots[b]`` (a prefill of
+        one slot) or ``b`` (``slots`` None: the decode tick over every
+        slot). A dense write past the ring's end (a span overhanging
+        ``L``) is dropped, as JAX's ``.at[].set`` drops it. The write is
+        the same for both impls; only the read differs: ``'fused'`` is
+        one pass of K4's CUDA kernels over the live blocks, ``'xla'``
+        reads the dense view and attends with torch ops.
+        """
+        if cache is None:
+            raise ValueError("the slot-decode path needs cache=")
+        B, T = qh.shape[:2]
+        dt = self.compute_dtype
         scale = self.head_dim ** -0.5
-        if self.decode_attend_impl == "fused":
-            # Scratch block 0 is masked in-kernel: a released slot's
-            # garbage and beyond-horizon writes never reach a live row.
-            return paged_flash_decode(
-                qh.to(dt).contiguous(), pk, pv, block_tables, positions,
-                window=self.window, scale=scale, scratch_block=0)
-        keys = paged_lookup(pk, block_tables)
-        vals = paged_lookup(pv, block_tables)
+        if self.kv_layout == "paged":
+            if block_tables is None:
+                raise ValueError("kv_layout='paged' needs block_tables=")
+            pk, pv = cache["pool_key"], cache["pool_value"]
+            paged_update(pk, block_tables, positions, kh_new.to(dt))
+            paged_update(pv, block_tables, positions, vh_new.to(dt))
+            if self.decode_attend_impl == "fused":
+                # Scratch block 0 is masked in-kernel: a released slot's
+                # garbage and beyond-horizon writes never reach a live row.
+                return paged_flash_decode(
+                    qh.to(dt).contiguous(), pk, pv, block_tables, positions,
+                    window=self.window, scale=scale, scratch_block=0)
+            keys = paged_lookup(pk, block_tables)
+            vals = paged_lookup(pv, block_tables)
+        else:
+            ck, cv = cache["cached_key"], cache["cached_value"]
+            rows = (torch.arange(B, device=qh.device) if slots is None
+                    else slots.long())
+            cols = (positions.long()[:, None]
+                    + torch.arange(T, device=qh.device)[None])
+            _dense_write(ck, rows, cols, kh_new.to(dt))
+            _dense_write(cv, rows, cols, vh_new.to(dt))
+            if self.decode_attend_impl == "fused":
+                return dense_flash_decode(
+                    qh.to(dt).contiguous(), ck, cv, positions, slots=slots,
+                    window=self.window, scale=scale)
+            keys = ck if slots is None else ck[rows]
+            vals = cv if slots is None else cv[rows]
         L = keys.shape[1]
         pos_l = torch.arange(L, device=qh.device)
         qpos = (positions.long()[:, None]
@@ -180,6 +272,7 @@ class TransformerBlock(nn.Module):
         mask = pos_l[None, None, :] <= qpos[:, :, None]  # [B, T, L]
         if self.window is not None:
             mask &= pos_l[None, None, :] > qpos[:, :, None] - self.window
+        kv_heads = keys.shape[2]
         group = self.num_heads // kv_heads
         q = qh.reshape(B, T, kv_heads, group, self.head_dim)
         scores = torch.einsum("btngd,blnd->btngl", q.float(),
@@ -200,7 +293,8 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x, segment_ids=None, rope_positions=None,
                 decode: bool = False, decode_positions=None,
-                block_tables=None, cache=None, dropout_masks=None):
+                block_tables=None, cache=None, dropout_masks=None,
+                decode_slots=None):
         """``dropout_masks``: ``(attention branch, FFN branch)`` bool keep
         masks of ``x``'s shape, or None (no dropout). They are drawn by
         :class:`TransformerLM` outside any rematerialised region, so a
@@ -221,8 +315,12 @@ class TransformerBlock(nn.Module):
         if decode:
             if not self.causal:
                 raise ValueError("decode=True requires a causal block")
-            o = self._slot_decode_attend(qh, kh, vh, decode_positions,
-                                         block_tables, cache)
+            if decode_positions is None:
+                o = self._decode_attend(qh, kh, vh, cache)
+            else:
+                o = self._slot_decode_attend(qh, kh, vh, decode_positions,
+                                             block_tables, cache,
+                                             decode_slots)
         else:
             if self.window is not None and self.attention_fn is None:
                 raise ValueError(
@@ -317,6 +415,8 @@ class TransformerLM(nn.Module):
                  decode_attend_impl: str = "xla", *, seed: int = 0,
                  dropout_rate: float = 0.0, remat: bool = False,
                  remat_policy: str = "dots", causal: bool = True,
+                 kv_layout: str = "paged",
+                 decode_cache_len: Optional[int] = None,
                  device=None) -> None:
         super().__init__()
         if not 0.0 <= dropout_rate < 1.0:
@@ -346,6 +446,10 @@ class TransformerLM(nn.Module):
         self.remat = remat
         self.remat_policy = remat_policy
         self.causal = causal
+        self.kv_layout = kv_layout
+        #: rows of a dense decode cache (the slot layout's and
+        #: :func:`init_cache`'s ring); None means ``max_len``
+        self.decode_cache_len = decode_cache_len
         self.head_dim = d_model // num_heads
         self.kv_heads = num_kv_heads or num_heads
         self.tok_emb = nn.Embedding(vocab_size, d_model, device=device)
@@ -361,7 +465,7 @@ class TransformerLM(nn.Module):
                              num_kv_heads=num_kv_heads, window=window,
                              decode_attend_impl=decode_attend_impl,
                              causal=causal, dropout_rate=dropout_rate,
-                             device=device)
+                             kv_layout=kv_layout, device=device)
             for _ in range(num_layers)
         ])
         self.ln_f = LayerNorm(d_model, dtype=compute_dtype, device=device)
@@ -391,48 +495,58 @@ class TransformerLM(nn.Module):
     def clone(self, **overrides) -> "TransformerLM":
         """A view of this model with decode fields changed and the SAME
         parameter tensors (flax ``Module.clone``'s role: the serving
-        engine serves through a clone carrying its resolved
-        ``decode_attend_impl``, leaving the caller's model untouched)."""
-        unknown = set(overrides) - {"decode_attend_impl"}
+        engine serves through a clone carrying its ``decode_attend_impl``,
+        ``kv_layout`` and ``decode_cache_len``, leaving the caller's model
+        untouched)."""
+        unknown = set(overrides) - {"decode_attend_impl", "kv_layout",
+                                    "decode_cache_len"}
         if unknown:
-            raise ValueError(f"clone() takes decode_attend_impl only, got "
+            raise ValueError(f"clone() takes decode_attend_impl, kv_layout "
+                             f"and decode_cache_len only, got "
                              f"{sorted(unknown)}")
         impl = overrides.get("decode_attend_impl", self.decode_attend_impl)
         if impl not in DECODE_ATTEND_IMPLS:
             raise ValueError(f"decode_attend_impl must be 'xla' or 'fused', "
                              f"got {impl!r}")
+        layout = overrides.get("kv_layout", self.kv_layout)
+        if layout not in KV_LAYOUTS:
+            raise ValueError(f"kv_layout must be 'paged' or 'dense', got "
+                             f"{layout!r}")
         new = copy.copy(self)
         new._modules = dict(self._modules)
         new.blocks = nn.ModuleList([copy.copy(b) for b in self.blocks])
         new.decode_attend_impl = impl
+        new.kv_layout = layout
+        new.decode_cache_len = overrides.get("decode_cache_len",
+                                             self.decode_cache_len)
         for b in new.blocks:
             b.decode_attend_impl = impl
+            b.kv_layout = layout
         return new
 
     def forward(self, tokens, *, segment_ids=None, positions=None,
                 decode: bool = False, decode_positions=None,
-                block_tables=None, cache=None, dropout_generator=None):
+                block_tables=None, cache=None, dropout_generator=None,
+                decode_slots=None):
         """``segment_ids`` (optional ``[B, T]``) confines attention to
         packed documents and needs a segment-capable ``attention_fn``
         (:func:`~chainermn_tpu_torch.ops.flash_attention.flash_attention`).
         ``positions`` (optional ``[T]`` or ``[B, T]``) overrides
         ``arange(T)``. ``decode=True`` with ``decode_positions`` (``[B]``
-        int32 first-new-token positions), ``block_tables`` (``[B, M]``
-        int32) and ``cache`` (:func:`~chainermn_tpu_torch.serving.
-        kv_blocks.init_serving_cache`, written in place) is the serving
-        engine's slot path: row ``b``'s tokens sit at
-        ``decode_positions[b] + [0, T)``. ``dropout_generator`` (a
-        ``torch.Generator`` on the tokens' device) draws the dropout
-        masks; it is needed when ``dropout_rate > 0`` in training mode."""
+        int32 first-new-token positions) and ``cache``
+        (:func:`~chainermn_tpu_torch.serving.kv_blocks.init_serving_cache`,
+        written in place) is the serving engine's slot path: row ``b``'s
+        tokens sit at ``decode_positions[b] + [0, T)``; the paged layout
+        also takes ``block_tables`` (``[B, M]`` int32), the dense one
+        ``decode_slots`` (``[B]`` cache rows; None = row ``b`` is slot
+        ``b``). ``decode=True`` without ``decode_positions`` is one token
+        a row against :func:`init_cache`'s ring (:func:`generate`).
+        ``dropout_generator`` (a ``torch.Generator`` on the tokens'
+        device) draws the dropout masks; it is needed when ``dropout_rate
+        > 0`` in training mode."""
         if decode and not self.causal:
             raise ValueError(
                 "decode=True is autoregressive and requires causal=True")
-        if decode and decode_positions is None:
-            raise NotImplementedError(
-                "decode=True without decode_positions is the dense "
-                "KV-cache ring of generate(), not ported yet (ROADMAP "
-                "queue 1, serving items left out of the first slice: the "
-                "dense slot layout, generate and beam_search)")
         if decode_positions is not None and not decode:
             raise ValueError("decode_positions requires decode=True")
         if segment_ids is not None and self.attention_fn is None:
@@ -484,7 +598,7 @@ class TransformerLM(nn.Module):
                 x = blk(x, segment_ids, rope_positions, decode,
                         decode_positions, block_tables,
                         None if cache is None else cache[i],
-                        dropout_masks=masks)
+                        dropout_masks=masks, decode_slots=decode_slots)
         x = self.ln_f(x)
         if self.return_hidden:
             return x
@@ -643,3 +757,270 @@ def lm_loss_fused(hidden, emb_table, tokens, *, n_chunks: int = 8,
                                    emb_table, w, use_reentrant=False,
                                    preserve_rng_state=False)
     return total / n
+
+
+# ---------------------------------------------------------------------------
+# decoding: the legacy dense ring, sampling, generate and beam_search
+
+
+def init_cache(model: TransformerLM, batch_size: int) -> list:
+    """The fixed-shape KV ring of :func:`generate` on the model's device:
+    per block, ``cached_key``/``cached_value`` ``[batch_size, L, kvh,
+    dh]`` zeros in the compute dtype (``L = decode_cache_len or
+    max_len``) and the 0-d int32 write index ``cache_index``."""
+    device = model.tok_emb.weight.device
+    L = model.decode_cache_len or model.max_len
+    shape = (batch_size, L, model.kv_heads, model.head_dim)
+    return [{"cached_key": torch.zeros(shape, dtype=model.compute_dtype,
+                                       device=device),
+             "cached_value": torch.zeros(shape, dtype=model.compute_dtype,
+                                         device=device),
+             "cache_index": torch.zeros((), dtype=torch.int32,
+                                        device=device)}
+            for _ in range(model.num_layers)]
+
+
+def _decode_setup(model: TransformerLM, prompt, n_steps: int, pad_id: int):
+    """Shared scaffolding of :func:`generate` and :func:`beam_search`:
+    validation, each row's prompt length (the index of its FIRST pad, or
+    ``P``: right padding; tokens after a mid-row pad are ignored), and
+    the prompt padded with ``pad_id`` out to ``n_steps``. Returns ``(B, P,
+    prompt_len, padded)`` on the model's device."""
+    if model.return_hidden:
+        raise ValueError("decoding needs logits; build the model with "
+                         "return_hidden=False")
+    if n_steps > model.max_len:
+        raise ValueError(
+            f"n_steps={n_steps} exceeds the cache capacity "
+            f"max_len={model.max_len}")
+    prompt = torch.as_tensor(prompt, device=model.tok_emb.weight.device)
+    B, P = prompt.shape
+    is_pad = prompt == pad_id
+    prompt_len = torch.where(is_pad.any(dim=1),
+                             is_pad.int().argmax(dim=1),
+                             torch.full_like(prompt[:, 0], P)).int()
+    padded = F.pad(prompt, (0, max(0, n_steps - P)), value=pad_id)
+    return B, P, prompt_len, padded
+
+
+def _filter_logits(logits, top_k, top_p):
+    """Top-k / nucleus filtering of ``[B, V]`` logits: tokens outside the
+    ``top_k`` highest, and outside the smallest set whose probability
+    mass reaches ``top_p``, become -inf. With both, the nucleus is taken
+    among the top-k survivors (renormalised after top-k)."""
+    ninf = torch.full_like(logits, float("-inf"))
+    if top_p is None:
+        if top_k is not None:
+            kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+            logits = torch.where(logits < kth, ninf, logits)
+        return logits
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    if top_k is not None:
+        kth = sorted_logits[:, top_k - 1:top_k]
+        logits = torch.where(logits < kth, ninf, logits)
+        beyond = torch.arange(sorted_logits.shape[-1],
+                              device=logits.device)[None] >= top_k
+        sorted_logits = sorted_logits.masked_fill(beyond, float("-inf"))
+    cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+    # keep tokens while the mass BEFORE them is < top_p (the first
+    # token is always kept); the threshold is the smallest kept logit
+    keep = torch.cat([torch.ones_like(cum[:, :1], dtype=torch.bool),
+                      cum[:, :-1] < top_p], dim=-1)
+    thresh = sorted_logits.masked_fill(~keep, float("inf")).amin(
+        dim=-1, keepdim=True)
+    return torch.where(logits < thresh, ninf, logits)
+
+
+def _tempered_filtered(logits, temperature, top_k, top_p):
+    """Sampling logits: the temperature first, then top-k/top-p (the
+    nucleus is chosen from the tempered distribution)."""
+    return _filter_logits(logits / temperature, top_k, top_p)
+
+
+def stream_sample_keys(base_key, seeds, counters):
+    """Counter-based sampling keys: row ``i`` draws with
+    ``fold_in(fold_in(base_key, seeds[i]), counters[i])`` — a pure
+    function of the base key, the request's seed and the absolute
+    position of the token being sampled, so :func:`generate` and the
+    serving engine derive the same key for the same token whatever
+    program asks. Returns ``[B, 2]`` key words."""
+    return prng.fold_in(prng.fold_in(base_key, seeds), counters)
+
+
+def _validate_filters(vocab_size: int, temperature, top_k, top_p):
+    """The sampling filters' checks, shared with the serving engine."""
+    if (top_k is not None or top_p is not None) and temperature <= 0.0:
+        raise ValueError("top_k/top_p filtering is for sampling — set "
+                         "temperature > 0")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if top_k is not None and not 1 <= top_k <= vocab_size:
+        raise ValueError(
+            f"top_k must be in [1, vocab_size={vocab_size}], got {top_k}")
+
+
+@torch.no_grad()
+def generate(model: TransformerLM, prompt, n_steps: int, *,
+             temperature: float = 0.0, rng=None, seeds=None, pad_id: int = 0,
+             top_k: Optional[int] = None, top_p: Optional[float] = None,
+             adapters=None):
+    """Autoregressive generation over :func:`init_cache`'s ring, one
+    token a step for every row: step ``t`` feeds the prompt token while
+    ``t < prompt_len`` (teacher forcing) and the previous step's pick
+    afterwards, so a ragged batch needs no separate prefill. The tokens
+    stay on the model's device; nothing is read back per step.
+
+    Args:
+      model: a ``TransformerLM`` with ``return_hidden=False``.
+      prompt: ``[B, P]`` integer tokens, right-padded with ``pad_id``.
+      n_steps: the sequence length to produce, the prompt included
+        (``<= model.max_len``).
+      temperature: 0 is greedy (``argmax``, the first index on a tie);
+        above 0 a counter-keyed categorical draw (needs ``rng``).
+      rng: the sampling base key, ``[2]`` uint32 key words
+        (:func:`chainermn_tpu_torch.utils.prng.PRNGKey`, or the data of a
+        JAX key). Step ``t`` samples the token at position ``t + 1`` of
+        row ``i`` with :func:`stream_sample_keys` ``(rng, seeds[i], t +
+        1)``, so a fixed ``(rng, seeds)`` gives the serving engine's
+        streams.
+      seeds: ``[B]`` per-row stream seeds (default zeros); the serving
+        scheduler derives one per request.
+      top_k / top_p: filtering after the temperature; both need
+        ``temperature > 0``.
+      adapters: LoRA adapters are not ported (raises).
+
+    Returns ``[B, n_steps]`` tokens of the prompt's dtype on the model's
+    device (prompt positions pass through).
+    """
+    if adapters is not None:
+        raise NotImplementedError(
+            "adapters= is not ported yet (ROADMAP queue 1, item 7: "
+            "multi-tenant adapters)")
+    B, _, prompt_len, padded = _decode_setup(model, prompt, n_steps, pad_id)
+    if temperature > 0.0 and rng is None:
+        raise ValueError("sampling (temperature > 0) requires rng")
+    _validate_filters(model.vocab_size, temperature, top_k, top_p)
+    dev = padded.device
+    cache = init_cache(model, B)
+    sample = temperature > 0.0
+    if sample:
+        base = prng._as_key(rng, device=dev)
+        seeds = (torch.zeros(B, dtype=torch.int64, device=dev)
+                 if seeds is None else torch.as_tensor(seeds, device=dev))
+    toks = []
+    prev = padded[:, 0]
+    for t in range(n_steps):
+        tok = torch.where(t < prompt_len, padded[:, t], prev)
+        logits = model(tok[:, None],
+                       positions=torch.full((1,), t, device=dev),
+                       decode=True, cache=cache)[:, 0]
+        if sample:
+            keys = stream_sample_keys(base, seeds,
+                                      torch.full((B,), t + 1, device=dev))
+            nxt = prng.categorical(keys, _tempered_filtered(
+                logits, temperature, top_k, top_p))
+        else:
+            nxt = torch.argmax(logits, dim=-1)
+        toks.append(tok)
+        prev = nxt.to(padded.dtype)
+    return torch.stack(toks, dim=1)
+
+
+def _top_k_first(x, k: int):
+    """``torch.topk`` over the last axis with ``lax.top_k``'s tie rule:
+    equal values come lower index first (a stable descending sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+@torch.no_grad()
+def beam_search(model: TransformerLM, prompt, n_steps: int,
+                beam_size: int, *, eos_id: Optional[int] = None,
+                pad_id: int = 0, length_penalty: float = 0.0):
+    """Beam search over :func:`init_cache`'s ring, batched ``B *
+    beam_size`` rows and reordered by backpointers at every step.
+
+    Two per-row phases, offset by one: the token CONSUMED at ``t`` is
+    the prompt's while ``t < prompt_len``, but the expansion chosen at
+    ``t`` is consumed at ``t + 1``, so a row expands from its last prompt
+    step (``t == prompt_len - 1``, where the top-``K`` first tokens spread
+    from the single live beam) and never on the final step. Before that
+    its beams stay the identity with scores pinned at ``[0, -inf, ...]``.
+    Which steps expand is known from the prompt lengths, read once, so a
+    step with no expanding row skips the cache reorder without a per-step
+    sync. Finished beams (``eos_id``) extend only with ``pad_id`` at no
+    cost. The top-``K`` and every ordering break ties toward the lower
+    index, as ``lax.top_k`` and ``jnp.argsort`` do.
+
+    Args:
+      model: ``TransformerLM`` with ``return_hidden=False``.
+      prompt: ``[B, P]`` tokens right-padded with ``pad_id``.
+      n_steps: total length, the prompt included (``<= model.max_len``).
+      beam_size: hypotheses kept per row.
+      eos_id: optional end token.
+      length_penalty: GNMT alpha; hypotheses are RANKED by ``score / ((5
+        + len) / 6) ** alpha`` (len = generated tokens up to and including
+        EOS); 0 ranks by the raw score. The returned scores stay raw.
+
+    Returns ``(tokens [B, beam_size, n_steps], scores [B, beam_size])``,
+    best first, on the model's device.
+    """
+    if beam_size < 1:
+        raise ValueError(f"beam_size must be >= 1, got {beam_size}")
+    B, _, prompt_len, padded = _decode_setup(model, prompt, n_steps, pad_id)
+    K, V = beam_size, model.vocab_size
+    dev = padded.device
+    cache = init_cache(model, B * K)
+    scores = torch.full((B, K), float("-inf"), device=dev)
+    scores[:, 0] = 0.0
+    seqs = torch.full((B, K, n_steps), pad_id, dtype=padded.dtype,
+                      device=dev)
+    finished = torch.zeros(B, K, dtype=torch.bool, device=dev)
+    gen_len = torch.zeros(B, K, dtype=torch.int32, device=dev)
+    steps = torch.arange(n_steps, device=dev)[:, None]
+    # [n_steps, B]: the steps whose expansion each row commits
+    expanding_at = (steps >= prompt_len[None] - 1) & (steps < n_steps - 1)
+    first = min(int(n) for n in prompt_len.tolist())  # the one host read
+    ident = torch.arange(K, device=dev).expand(B, K)
+    bidx = torch.arange(B, device=dev)[:, None]
+    frozen = None
+    if eos_id is not None:
+        frozen = torch.full((V,), float("-inf"), device=dev)
+        frozen[pad_id] = 0.0
+    prev = padded[:, :1].expand(B, K)
+    for t in range(n_steps):
+        expanding = expanding_at[t][:, None]  # [B, 1]
+        tok = torch.where((t < prompt_len)[:, None], padded[:, t:t + 1],
+                          prev)
+        logits = model(tok.reshape(B * K, 1),
+                       positions=torch.full((1,), t, device=dev),
+                       decode=True, cache=cache)
+        logp = torch.log_softmax(logits[:, 0].float(), dim=-1)
+        logp = logp.reshape(B, K, V)
+        if frozen is not None:
+            logp = torch.where(finished[..., None], frozen, logp)
+        total = scores[..., None] + logp
+        top_scores, flat = _top_k_first(total.reshape(B, K * V), K)
+        parents = torch.where(expanding, flat // V, ident)
+        next_tok = (flat % V).to(padded.dtype)
+        scores = torch.where(expanding, top_scores, scores)
+        if first - 1 <= t < n_steps - 1:  # some row expands: reorder
+            for c in cache:
+                for name in ("cached_key", "cached_value"):
+                    leaf = c[name]
+                    c[name] = leaf.reshape(B, K, *leaf.shape[1:])[
+                        bidx, parents].reshape(leaf.shape)
+        seqs = torch.gather(seqs, 1, parents[..., None].expand_as(seqs))
+        seqs[:, :, t] = torch.gather(tok, 1, parents)
+        gen_len = torch.gather(gen_len, 1, parents)
+        if eos_id is not None:
+            finished = torch.gather(finished, 1, parents)
+        gen_len = gen_len + (expanding & ~finished).int()
+        if eos_id is not None:
+            finished = finished | (expanding & (next_tok == eos_id))
+        prev = next_tok
+    if length_penalty != 0.0:
+        return rank_beams(seqs, scores, gen_len, length_penalty)
+    order = torch.argsort(-scores, dim=1, stable=True)
+    return (torch.gather(seqs, 1, order[..., None].expand_as(seqs)),
+            torch.gather(scores, 1, order))

@@ -33,9 +33,12 @@ Two versions of one function:
   gather ``pool[tables]``, the same masks, the same P-to-V-dtype cast and
   the same zero-row rule. The CPU tests hold it against the JAX kernel
   and ``chip_smoke.py`` holds the CUDA kernels against it.
+- :func:`dense_flash_decode` — the dense slot cache ``[Bc, L, Hkv, D]``
+  through the same kernels: a zero-copy view as ``L / bs`` blocks per
+  row (``bs = _pick_block(128, L)``), an identity block table and no
+  scratch block. :data:`DENSE_LAUNCHES` counts its calls on CUDA.
 
-Left for later: ``dense_flash_decode`` (the dense ring through the same
-kernel) and 5-D tensor-parallel stacked pools.
+Left for later: 5-D tensor-parallel stacked pools.
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ from chainermn_tpu_torch.ops.attention import NEG_INF
 LAUNCHES = 0
 #: the same calls by route (:func:`_route`)
 ROUTE_LAUNCHES = {"split": 0, "mma": 0, "rows": 0}
+#: calls of :func:`dense_flash_decode` on CUDA tensors (each is also one
+#: of :data:`LAUNCHES`)
+DENSE_LAUNCHES = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (32, 64, 128)
@@ -73,9 +79,11 @@ _lib = None
 
 
 def reset_launches():
-    """Zero :data:`LAUNCHES` and :data:`ROUTE_LAUNCHES`."""
-    global LAUNCHES
+    """Zero :data:`LAUNCHES`, :data:`ROUTE_LAUNCHES` and
+    :data:`DENSE_LAUNCHES`."""
+    global LAUNCHES, DENSE_LAUNCHES
     LAUNCHES = 0
+    DENSE_LAUNCHES = 0
     for route in ROUTE_LAUNCHES:
         ROUTE_LAUNCHES[route] = 0
 
@@ -353,3 +361,66 @@ def paged_flash_decode_reference(q, k_pool, v_pool, block_tables,
     out = torch.where(l > 0, acc / l.clamp_min(1e-37),
                       torch.zeros_like(acc))
     return out.reshape(B, T, Hq, D).to(q.dtype)
+
+
+def _pick_block(requested: int, T: int) -> int:
+    """Largest block <= ``requested`` that divides ``T``: halve until it
+    fits (T 768 with 512 asked -> 256), else one block of the whole ``T``
+    (the JAX package's ``ops/flash_attention.py::_pick_block``)."""
+    b = min(requested, T)
+    while T % b and b > 8:
+        b //= 2
+    return b if T % b == 0 else T
+
+
+#: identity tables of dense views by (rows, blocks a row, device), built
+#: once: the decode tick then launches K4 alone, and a prefill adds one
+#: row gather (the JAX trace folds the table into a constant)
+_IDENTITY_TABLES: dict = {}
+
+
+def _identity_table(Bc: int, M: int, device):
+    """``[Bc, M]`` int32: row ``r`` of the dense cache is blocks ``r * M +
+    arange(M)`` of its view."""
+    key = (Bc, M, str(device))
+    table = _IDENTITY_TABLES.get(key)
+    if table is None:
+        table = (torch.arange(Bc, dtype=torch.int32, device=device)[:, None]
+                 * M + torch.arange(M, dtype=torch.int32, device=device))
+        _IDENTITY_TABLES[key] = table
+    return table
+
+
+def dense_flash_decode(q, cache_k, cache_v, positions, slots=None, *,
+                       window: Optional[int] = None,
+                       scale: Optional[float] = None):
+    """Attention of ``T >= 1`` fresh query rows per slot against the dense
+    slot cache, through :func:`paged_flash_decode`.
+
+    ``cache_k``/``cache_v`` ``[Bc, L, Hkv, D]`` are viewed, without a
+    copy, as ``Bc * M`` blocks of ``bs = _pick_block(128, L)`` keys (``M =
+    L / bs``), and row ``b`` of ``q`` reads cache row ``rows[b]`` through
+    the identity table ``rows[:, None] * M + arange(M)``: ``rows`` is
+    ``slots`` (``[B]`` cache-row ids, a prefill of one slot) or
+    ``arange(Bc)`` (the decode tick over every slot). There is no scratch
+    block: every block belongs to its slot, and the causal mask alone
+    bounds what a row reads. ``positions`` ``[B]``: row ``b``'s first new
+    token's position.
+
+    On CPU tensors this is the plain version; on CUDA tensors one of the
+    routes' kernels runs with the scratch mask off, or the call raises.
+    """
+    Bc, L, Hkv, D = cache_k.shape
+    bs = _pick_block(128, L)
+    M = L // bs
+    pool_k = cache_k.view(Bc * M, bs, Hkv, D)
+    pool_v = cache_v.view(Bc * M, bs, Hkv, D)
+    tables = _identity_table(Bc, M, q.device)
+    if slots is not None:
+        tables = tables.index_select(0, slots)
+    out = paged_flash_decode(q, pool_k, pool_v, tables, positions,
+                             window=window, scale=scale, scratch_block=None)
+    if q.device.type == "cuda":
+        global DENSE_LAUNCHES
+        DENSE_LAUNCHES += 1
+    return out

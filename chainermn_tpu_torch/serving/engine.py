@@ -1,27 +1,33 @@
 """Continuous-batching serving engine: one decode step over a fixed slot
-array on a paged KV pool (counterpart of
-``chainermn_tpu/serving/engine.py::ServingEngine``).
+array (counterpart of ``chainermn_tpu/serving/engine.py::ServingEngine``).
 
 - **Slot array.** ``num_slots`` requests decode in one forward per tick.
   Join/leave mutate HOST-side metadata only (positions, free list, block
-  tables); the device holds the per-layer K/V pools and the model.
+  tables, sampling seeds); the device holds the per-layer K/V caches and
+  the model.
 - **Prefill/decode split.** A prompt runs through one bucketed prefill
   forward (``datasets/bucketing.py`` ladder) that writes its whole KV
   and samples the first token.
-- **Paged KV cache.** One shared block pool per layer with per-slot
-  tables (:mod:`chainermn_tpu_torch.ops.paged_kv`,
-  :mod:`chainermn_tpu_torch.serving.kv_blocks`); the model writes into
-  the pools in place, so occupancy changes never reallocate.
+- **KV layouts** (``decode_impl``): ``'paged'``, one shared block pool per
+  layer with per-slot tables (:mod:`chainermn_tpu_torch.ops.paged_kv`,
+  :mod:`chainermn_tpu_torch.serving.kv_blocks`), or ``'dense'``, one
+  ``[num_slots, max_len]`` row per slot and no allocator (a prefill
+  writes its slot's row through ``decode_slots``). The model writes into
+  the caches in place, so occupancy changes never reallocate.
 - **Attention.** ``decode_attend_impl='fused'`` (the default here) runs
-  both the prefill's and every decode tick's attention through the paged
-  flash-decoding CUDA kernel (:mod:`chainermn_tpu_torch.ops.
-  paged_decode`); ``'xla'`` gathers the dense view and attends with
-  torch ops.
+  both the prefill's and every decode tick's attention through K4's
+  CUDA kernels (:mod:`chainermn_tpu_torch.ops.paged_decode`:
+  ``paged_flash_decode``, or ``dense_flash_decode`` for the dense
+  layout); ``'xla'`` reads the dense view and attends with torch ops.
+- **Sampling** (``temperature``, ``top_k``, ``top_p``): counter-keyed,
+  as in :func:`~chainermn_tpu_torch.models.transformer.generate` — the
+  token at absolute position ``i`` of a request with seed ``s`` draws
+  with ``fold_in(fold_in(base_key, s), i)``.
 
-Token-stream guarantee, as in the JAX package: at temperature 0 a
-request's stream equals the sequential stream for the same prompt,
-whatever other requests share the slot array (per-row attention never
-mixes rows).
+Token-stream guarantee, as in the JAX package: a request's stream equals
+the sequential :func:`~chainermn_tpu_torch.models.transformer.generate`
+stream for the same prompt (and, sampled, the same seed), whatever other
+requests share the slot array (per-row attention never mixes rows).
 
 Options of the JAX engine that this port does not serve yet raise
 ``NotImplementedError`` naming their ROADMAP item; none is ignored.
@@ -43,12 +49,19 @@ from chainermn_tpu_torch.datasets.bucketing import (
 from chainermn_tpu_torch.models.transformer import (
     DECODE_ATTEND_IMPLS,
     TransformerLM,
+    _tempered_filtered,
+    _validate_filters,
+    stream_sample_keys,
 )
 from chainermn_tpu_torch.serving.kv_blocks import (
     BlockAllocator,
     default_num_blocks,
     init_serving_cache,
 )
+from chainermn_tpu_torch.utils import prng
+
+DECODE_IMPLS = ("dense", "paged")
+PREFIX_CACHE = ("on", "off")
 
 
 def _not_ported(option: str, item: str) -> NotImplementedError:
@@ -67,23 +80,30 @@ class ServingEngine:
       num_slots: concurrent requests per decode step.
       max_len: serving horizon (prompt + generated) per request; defaults
         to ``model.max_len``. Block tables are sized to it.
-      decode_impl: ``'paged'`` only.
+      decode_impl: ``'paged'`` or ``'dense'`` (no allocator: the pool
+        accessors return None).
       decode_attend_impl: ``'fused'`` (CUDA kernel; plain version on the
         CPU) or ``'xla'`` (gather + torch ops).
-      kv_block_size: tokens per pool block (default 64).
+      kv_block_size: tokens per pool block (default 64; paged only).
       num_blocks: pool capacity in blocks including scratch block 0;
         default is the no-oversubscription worst case
         (:func:`~chainermn_tpu_torch.serving.kv_blocks.default_num_blocks`).
       prefill_buckets: prompt-length ladder of the prefill.
-      temperature: 0 (greedy) only.
+      temperature / top_k / top_p: sampling, shared with ``generate``
+        (temperature 0 = greedy argmax).
+      base_seed: the sampling base key is ``PRNGKey(base_seed)``.
+      rng: an explicit base key (``[2]`` uint32 key words) in place of
+        ``base_seed``; passing both is refused.
       pad_id: prompt right-padding token for the bucketed prefill.
-      device: where the pools live; ``None`` means the CUDA card and
+      prefix_cache: ``'off'``; under ``'dense'`` any valid value is
+        forced off (dense rows are slot-private).
+      device: where the caches live; ``None`` means the CUDA card and
         raises without one. Must be the model's device.
 
-    The other JAX options (``mesh``, ``spec_tokens``, ``prefix_cache``,
+    The other JAX options (``mesh``, ``spec_tokens``, the prefix cache,
     ``prefill_chunk``, ``prefill_seq_parallel``, ``adapter_bank``,
-    sampling, ``'auto'`` registry resolution, the dense layout) raise
-    ``NotImplementedError`` when set.
+    ``'auto'`` registry resolution) raise ``NotImplementedError`` when
+    set.
     """
 
     def __init__(self, model, *, num_slots: int,
@@ -96,6 +116,7 @@ class ServingEngine:
                  temperature: float = 0.0,
                  top_k: Optional[int] = None,
                  top_p: Optional[float] = None,
+                 base_seed: int = 0, rng=None,
                  pad_id: int = 0, mesh=None, spec_tokens=0,
                  prefix_cache="off", prefill_chunk=0,
                  prefill_seq_parallel="off", adapter_bank=None,
@@ -103,25 +124,33 @@ class ServingEngine:
         if not isinstance(model, TransformerLM):
             raise TypeError(f"ServingEngine serves TransformerLM, got "
                             f"{type(model).__name__}")
-        if decode_impl != "paged":
-            raise _not_ported(f"decode_impl={decode_impl!r}",
-                              "the dense slot layout and the registry's "
-                              "'auto' resolution")
-        if decode_attend_impl == "auto" or kv_block_size == "auto":
+        if decode_impl == "auto":
+            raise _not_ported("decode_impl='auto'",
+                              "item 8, the tuning registry's 'auto' knobs")
+        if decode_impl not in DECODE_IMPLS:
+            raise ValueError(f"decode_impl must be one of "
+                             f"{DECODE_IMPLS + ('auto',)}, got "
+                             f"{decode_impl!r}")
+        dense = decode_impl == "dense"
+        if decode_attend_impl == "auto" or (
+                kv_block_size == "auto" and not dense):
             raise _not_ported("'auto' decode_attend_impl/kv_block_size",
                               "the tuning registry's 'auto' knobs")
         if decode_attend_impl not in DECODE_ATTEND_IMPLS:
             raise ValueError(f"decode_attend_impl must be one of "
                              f"{DECODE_ATTEND_IMPLS}, got "
                              f"{decode_attend_impl!r}")
-        if temperature != 0.0 or top_k is not None or top_p is not None:
-            raise _not_ported("sampling (temperature > 0, top_k, top_p)",
-                              "sampling with a counter-based key")
         if mesh is not None:
             raise _not_ported("mesh=", "tensor-parallel serving")
         if spec_tokens != 0:
             raise _not_ported(f"spec_tokens={spec_tokens!r}",
                               "speculative decoding")
+        if prefix_cache != "auto" and prefix_cache not in PREFIX_CACHE:
+            raise ValueError(f"prefix_cache must be one of "
+                             f"{PREFIX_CACHE + ('auto',)}, got "
+                             f"{prefix_cache!r}")
+        if dense:
+            prefix_cache = "off"  # dense rows are slot-private
         if prefix_cache != "off":
             raise _not_ported(f"prefix_cache={prefix_cache!r}",
                               "the prefix cache with copy-on-write")
@@ -140,6 +169,11 @@ class ServingEngine:
         if max_len > model.max_len:
             raise ValueError(f"max_len={max_len} exceeds the model context "
                              f"{model.max_len}")
+        if rng is not None and base_seed:
+            raise ValueError(
+                "pass base_seed= (an integer) OR rng= (an explicit base "
+                "key), not both — they name the same randomness source")
+        _validate_filters(model.vocab_size, temperature, top_k, top_p)
         self.device = resolve_device(device)
         model_device = next(model.parameters()).device
         if model_device.type != self.device.type or (
@@ -151,8 +185,21 @@ class ServingEngine:
         self.num_slots = int(num_slots)
         self.max_len = max_len
         self.pad_id = int(pad_id)
+        self.decode_impl = decode_impl
         self.decode_attend_impl = decode_attend_impl
-        self.kv_block_size = int(kv_block_size)
+        self.prefix_cache_enabled = False
+        self.temperature = float(temperature)
+        self.top_k, self.top_p = top_k, top_p
+        # Counter-based sampling: one base key and a per-slot request
+        # seed row; token i of the request in slot s draws with
+        # fold_in(fold_in(_base_key, _seeds[s]), i).
+        self.base_seed = int(base_seed)
+        self._base_key = (prng.PRNGKey(self.base_seed) if rng is None
+                          else prng._as_key(rng)).to(self.device)
+        self._seeds = np.zeros(num_slots, np.int64)
+        self._seeds_dev = None  # device copy of the seeds...
+        self._seeds_ver = 0     # ...valid while the version holds
+        self._seeds_dev_ver = -1
         self._buckets = tuple(
             b for b in sorted(set(prefill_buckets)) if b <= max_len
         ) or (max_len,)
@@ -160,22 +207,31 @@ class ServingEngine:
             # the ladder must be able to carry a full-horizon prompt
             self._buckets = self._buckets + (max_len,)
 
-        num_blocks = num_blocks or default_num_blocks(
-            num_slots, self.kv_block_size, max_len)
-        self._alloc = BlockAllocator(num_blocks, self.kv_block_size,
-                                     num_slots, max_len)
         self._decode_model = model.clone(
-            decode_attend_impl=decode_attend_impl)
-        self._cache = init_serving_cache(
-            model, num_blocks=num_blocks, block_size=self.kv_block_size,
-            device=self.device)
+            decode_attend_impl=decode_attend_impl, kv_layout=decode_impl,
+            decode_cache_len=max_len)
+        if dense:
+            self.kv_block_size = None
+            self._alloc = None
+            self._cache = init_serving_cache(
+                self._decode_model, num_slots=num_slots, device=self.device)
+        else:
+            self.kv_block_size = int(kv_block_size)
+            num_blocks = num_blocks or default_num_blocks(
+                num_slots, self.kv_block_size, max_len)
+            self._alloc = BlockAllocator(num_blocks, self.kv_block_size,
+                                         num_slots, max_len)
+            self._cache = init_serving_cache(
+                self._decode_model, num_blocks=num_blocks,
+                block_size=self.kv_block_size, device=self.device)
         self._positions = np.zeros(num_slots, np.int64)
         self._last_tok = np.zeros(num_slots, np.int64)
         self._active = np.zeros(num_slots, bool)
         self._free = list(range(num_slots - 1, -1, -1))
         self._tables_dev = None  # device copy of the block tables...
         self._tables_ver = -1    # ...valid while allocator.version holds
-        #: most pool blocks slots held at once (scratch excluded).
+        #: most pool blocks slots held at once (scratch excluded; 0 under
+        #: the dense layout).
         self.peak_blocks_in_use = 0
 
     # ------------------------------------------------------------------
@@ -183,7 +239,10 @@ class ServingEngine:
     def _tables_device(self):
         """The block tables as a CACHED device tensor, re-uploaded only
         when the allocator actually mutated a row — the steady-state
-        decode loop pays no table upload per step."""
+        decode loop pays no table upload per step. None under the dense
+        layout."""
+        if self._alloc is None:
+            return None
         if self._tables_dev is None or self._tables_ver != self._alloc.version:
             self._tables_dev = torch.tensor(self._alloc.tables,
                                             dtype=torch.int32,
@@ -199,8 +258,42 @@ class ServingEngine:
             "case or admit fewer concurrent requests")
 
     def _note_pool(self) -> None:
-        self.peak_blocks_in_use = max(self.peak_blocks_in_use,
-                                      self._alloc.blocks_in_use)
+        if self._alloc is not None:
+            self.peak_blocks_in_use = max(self.peak_blocks_in_use,
+                                          self._alloc.blocks_in_use)
+
+    def _seeds_device(self):
+        """The per-slot request seeds as a CACHED device tensor,
+        re-uploaded only when an admission or release changed one."""
+        if self._seeds_dev is None or self._seeds_dev_ver != self._seeds_ver:
+            self._seeds_dev = torch.tensor(self._seeds, device=self.device)
+            self._seeds_dev_ver = self._seeds_ver
+        return self._seeds_dev
+
+    def _set_slot_seed(self, slot: int, seed) -> None:
+        """Commit a slot's request seed (its 32-bit word), bumping the
+        upload version only on an actual change."""
+        seed = 0 if seed is None else int(seed) & 0xFFFFFFFF
+        if self._seeds[slot] != seed:
+            self._seeds[slot] = seed
+            self._seeds_ver += 1
+
+    def _sample(self, logits, fed, slot=None):
+        """The sampling tail of every forward, over ``logits`` ``[B, V]``
+        of the tokens fed at positions ``fed`` (``[B]``, or an int):
+        greedy argmax at temperature 0, else one counter-keyed
+        categorical draw per row, the row of ``slot`` (all slots when
+        None), with counter ``fed + 1``, the position of the token drawn.
+        A token thus depends only on its request's seed, its absolute
+        position and its logits."""
+        if self.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        seeds = self._seeds_device()
+        if slot is not None:
+            seeds = seeds[slot:slot + 1]
+        keys = stream_sample_keys(self._base_key, seeds, fed + 1)
+        return prng.categorical(keys, _tempered_filtered(
+            logits, self.temperature, self.top_k, self.top_p))
 
     # ------------------------------------------------------------------
     # serving surface
@@ -214,25 +307,44 @@ class ServingEngine:
         return len(self._free)
 
     @property
-    def num_blocks(self) -> int:
-        return self._alloc.num_blocks
+    def num_blocks(self) -> Optional[int]:
+        """Pool capacity in blocks, scratch included (None under dense)."""
+        return self._alloc.num_blocks if self._alloc is not None else None
 
     @property
-    def blocks_in_use(self) -> int:
-        return self._alloc.blocks_in_use
+    def blocks_in_use(self) -> Optional[int]:
+        """Pool blocks slots hold now (None under dense)."""
+        return (self._alloc.blocks_in_use if self._alloc is not None
+                else None)
 
     def occupancy(self) -> float:
         return self.n_active / self.num_slots
 
-    def pool_utilization(self) -> float:
-        return self._alloc.utilization()
+    def pool_utilization(self) -> Optional[float]:
+        return self._alloc.utilization() if self._alloc is not None else None
 
-    def _admit_common(self, prompt):
-        """Validate the prompt and reserve a slot plus the pool blocks
-        for the whole prompt and the first decode write. Returns
-        ``(slot, prompt, P_len)`` with the slot POPPED from the free
-        list, or None to defer (host state untouched — the scheduler
-        retries)."""
+    def kv_blocks_free(self) -> Optional[int]:
+        """Free paged-pool blocks (None under dense)."""
+        return self._alloc.free_blocks if self._alloc is not None else None
+
+    def kv_signature(self) -> tuple:
+        """Layout fingerprint two engines must share for KV to be portable
+        between them: decode impl, paged block size, horizon, and every
+        cache tensor's shape without its block (paged) or slot (dense)
+        axis, with its dtype."""
+        axis_sig = tuple(
+            (tuple(t.shape[1:]), str(t.dtype).replace("torch.", ""))
+            for layer in self._cache for _, t in sorted(layer.items()))
+        return (self.decode_impl,
+                self._alloc.block_size if self._alloc is not None else None,
+                self.max_len, axis_sig)
+
+    def _admit_common(self, prompt, seed=None):
+        """Validate the prompt and reserve a slot (paged: plus the pool
+        blocks for the whole prompt and the first decode write), and
+        commit the slot's sampling seed. Returns ``(slot, prompt,
+        P_len)`` with the slot POPPED from the free list, or None to
+        defer (host state untouched — the scheduler retries)."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         P_len = int(prompt.shape[0])
         if P_len < 1:
@@ -244,38 +356,47 @@ class ServingEngine:
         if not self._free:
             return None
         slot = self._free[-1]  # peek; commit only after alloc succeeds
-        # Reserve only the REAL tokens plus the first decode write (not
-        # the padded bucket: pad writes beyond the reservation land in
-        # the scratch block). A deferral restores the exact prior table,
-        # so it restores the version too (no needless table re-upload).
-        v0 = self._alloc.version
-        if not self._alloc.ensure(slot, P_len + 1):
-            self._alloc.release(slot)
-            self._alloc.version = v0
-            return None
+        if self._alloc is not None:
+            # Reserve only the REAL tokens plus the first decode write
+            # (not the padded bucket: pad writes beyond the reservation
+            # land in the scratch block). A deferral restores the exact
+            # prior table, so it restores the version too (no needless
+            # table re-upload).
+            v0 = self._alloc.version
+            if not self._alloc.ensure(slot, P_len + 1):
+                self._alloc.release(slot)
+                self._alloc.version = v0
+                return None
         self._free.pop()
+        self._set_slot_seed(slot, seed)
         return slot, prompt, P_len
 
     @torch.no_grad()
-    def prefill_join(self, prompt):
+    def prefill_join(self, prompt, seed: Optional[int] = None):
         """Admit one request: claim a slot, run the bucketed prefill and
         return ``(slot, first_token, bucket)`` — or None when no slot (or
-        not enough pool blocks) is free right now."""
-        res = self._admit_common(prompt)
+        not enough pool blocks) is free right now. ``seed`` is the
+        request's sampling-stream seed (None = stream 0; ignored at
+        temperature 0); the first token, at position ``P_len``, draws
+        with counter ``P_len``."""
+        res = self._admit_common(prompt, seed)
         if res is None:
             return None
         slot, prompt, P_len = res
         bucket = bucket_length(P_len, self._buckets)
         padded = np.full((1, bucket), self.pad_id, np.int64)
         padded[0, :P_len] = prompt
+        dev = self.device
+        if self._alloc is None:
+            where = dict(decode_slots=torch.tensor([slot], device=dev))
+        else:
+            where = dict(block_tables=self._tables_device()[slot:slot + 1])
         logits = self._decode_model(
-            torch.tensor(padded, device=self.device), decode=True,
-            decode_positions=torch.zeros(1, dtype=torch.int32,
-                                         device=self.device),
-            block_tables=self._tables_device()[slot:slot + 1],
-            cache=self._cache,
-        )
-        tok = int(torch.argmax(logits[0, P_len - 1]))
+            torch.tensor(padded, device=dev), decode=True,
+            decode_positions=torch.zeros(1, dtype=torch.int32, device=dev),
+            cache=self._cache, **where)
+        tok = int(self._sample(logits[0, P_len - 1][None], P_len - 1,
+                               slot)[0])
         self._positions[slot] = P_len
         self._last_tok[slot] = tok
         self._active[slot] = True
@@ -295,30 +416,34 @@ class ServingEngine:
                 raise RuntimeError(
                     f"slot {int(s)} ran past the serving horizon "
                     f"max_len={self.max_len}; bound max_new_tokens")
-            if not self._alloc.ensure(int(s), p + 1):
+            if self._alloc is not None and not self._alloc.ensure(int(s),
+                                                                   p + 1):
                 raise self._pool_exhausted_error()
         self._note_pool()
         t0 = time.perf_counter()
+        positions = torch.tensor(self._positions, dtype=torch.int32,
+                                 device=self.device)
         logits = self._decode_model(
             torch.tensor(self._last_tok[:, None], device=self.device),
-            decode=True,
-            decode_positions=torch.tensor(self._positions,
-                                          dtype=torch.int32,
-                                          device=self.device),
+            decode=True, decode_positions=positions,
             block_tables=self._tables_device(), cache=self._cache,
         )
         # the host read is the device sync: honest per-step latency
-        toks = logits[:, 0].argmax(dim=-1).cpu().numpy()
+        toks = self._sample(logits[:, 0], positions).cpu().numpy()
         dur = time.perf_counter() - t0
         self._last_tok[active] = toks[active]
         self._positions[active] += 1
         return toks, dur
 
     def leave(self, slot: int) -> None:
-        """Release a slot (host metadata + pool blocks only; stale writes
-        land in the slot's own rows or the scratch block)."""
+        """Release a slot (host metadata, its seed and, paged, its pool
+        blocks; stale writes land in the slot's own rows or the scratch
+        block)."""
         if not self._active[slot]:
             raise ValueError(f"slot {slot} is not active")
         self._active[slot] = False
         self._free.append(int(slot))
-        self._alloc.release(int(slot))
+        if self._alloc is not None:
+            self._alloc.release(int(slot))
+        # a reused slot must never sample on a departed request's stream
+        self._set_slot_seed(slot, 0)

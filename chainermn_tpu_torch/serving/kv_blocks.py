@@ -6,9 +6,10 @@
   ``version`` semantics, so the same ensure/release sequence yields the
   same tables. Pure numpy: join/leave/growth never touch the device
   except through the engine's cached table upload.
-- :func:`init_serving_cache` — allocate the per-layer K/V pools
-  ``[num_blocks, block_size, kv_heads, head_dim]`` directly on the
-  device.
+- :func:`init_serving_cache` — allocate the per-layer K/V caches
+  directly on the device: the paged pools ``[num_blocks, block_size,
+  kv_heads, head_dim]``, or the dense rows ``[num_slots, L, kv_heads,
+  head_dim]``.
 
 Layout contract (shared with :mod:`chainermn_tpu_torch.ops.paged_kv`):
 physical block 0 is SCRATCH — never owned by a slot; released or
@@ -294,23 +295,38 @@ def default_num_blocks(num_slots: int, block_size: int, max_len: int) -> int:
     return num_slots * math.ceil(max_len / block_size) + 1
 
 
-def init_serving_cache(model, *, num_blocks: int, block_size: int,
-                       device=None) -> list:
-    """Zero-initialised paged pools for the slot-decode path: one
-    ``{"pool_key", "pool_value"}`` pair of ``[num_blocks, block_size,
-    kv_heads, head_dim]`` tensors per layer, in the model's compute
-    dtype, allocated on ``device`` (default: the model's device). The
-    engine threads this list through every forward; the model writes
+def init_serving_cache(model, *, num_blocks: Optional[int] = None,
+                       block_size: Optional[int] = None,
+                       num_slots: Optional[int] = None, device=None) -> list:
+    """Zero-initialised caches for the slot-decode path, one dict per
+    layer in the model's compute dtype on ``device`` (default: the
+    model's device), by the model's ``kv_layout``:
+
+    - ``'paged'``: ``{"pool_key", "pool_value"}`` of ``[num_blocks,
+      block_size, kv_heads, head_dim]`` (block 0 is scratch);
+    - ``'dense'``: ``{"cached_key", "cached_value"}`` of ``[num_slots,
+      decode_cache_len or max_len, kv_heads, head_dim]``, one row per
+      slot.
+
+    The engine threads this list through every forward; the model writes
     into it in place."""
-    if num_blocks < 2:
-        raise ValueError(
-            f"num_blocks must be >= 2 (block 0 is scratch), got {num_blocks}"
-        )
     if device is None:
         device = next(model.parameters()).device
-    shape = (num_blocks, block_size, model.kv_heads, model.head_dim)
+    if model.kv_layout == "dense":
+        if num_slots is None or num_slots < 1:
+            raise ValueError(f"the dense layout needs num_slots >= 1, got "
+                             f"{num_slots}")
+        shape = (num_slots, model.decode_cache_len or model.max_len,
+                 model.kv_heads, model.head_dim)
+        names = ("cached_key", "cached_value")
+    else:
+        if num_blocks is None or num_blocks < 2:
+            raise ValueError(f"num_blocks must be >= 2 (block 0 is "
+                             f"scratch), got {num_blocks}")
+        shape = (num_blocks, block_size, model.kv_heads, model.head_dim)
+        names = ("pool_key", "pool_value")
     return [
         {name: torch.zeros(shape, dtype=model.compute_dtype, device=device)
-         for name in ("pool_key", "pool_value")}
+         for name in names}
         for _ in range(model.num_layers)
     ]

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import itertools
 import time
+import zlib
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -45,12 +46,18 @@ class Request:
     """One serving request: ``prompt`` tokens in, up to
     ``max_new_tokens`` generated tokens out (generation also stops at
     ``eos_id`` when given — the emitted EOS counts as generated).
+
+    ``seed`` is the request's sampling-stream seed: under a sampled engine
+    token ``i`` draws with ``fold_in(fold_in(base_key, seed), i)``. None
+    means :meth:`Scheduler.submit` derives ``crc32(request_id) &
+    0x7FFFFFFF`` and stores it on the request. Greedy engines ignore it.
     """
 
     prompt: Sequence[int]
     max_new_tokens: int
     request_id: Optional[str] = None
     eos_id: Optional[int] = None
+    seed: Optional[int] = None
     _arrival: float = field(default=0.0, repr=False)
 
     def __post_init__(self) -> None:
@@ -125,6 +132,8 @@ class Scheduler:
         if request.request_id is None:
             request.request_id = f"r{next(self._ids)}"
         rid = request.request_id
+        if request.seed is None:
+            request.seed = zlib.crc32(str(rid).encode()) & 0x7FFFFFFF
         if rid in self.results or any(
                 r.request_id == rid for r in self._queue) or any(
                 fl.request.request_id == rid
@@ -177,7 +186,7 @@ class Scheduler:
             return False
         req = self._queue[0]
         t0 = time.perf_counter()
-        res = self.engine.prefill_join(req.prompt)
+        res = self.engine.prefill_join(req.prompt, seed=req.seed)
         if res is None:
             return False
         self._queue.popleft()

@@ -50,6 +50,32 @@ script exits non-zero without its final ``ok`` line:
    requests on the bf16 engine — wall vs device-busy time, the device
    time of the busiest kernels, and K4's kernels' share and time per
    launch.
+13. (run after phase 5) The dense KV layout: (a) K4's dense entry
+    (``dense_flash_decode``) against its plain version in fp32 and bf16:
+    the decode tick over a [16, 2048, 8, 64] ring (bs 128, positions over
+    [0, 2047], slot 0 reading 101 keys of its first block), prefills of
+    T 512 through ``slots=[5]`` and of T 2048 at slot 0, GQA (2 kv
+    heads), a 256 window, head dim 128, a ring of 400 keys (bs 16) and
+    rings of 2047 keys (one block a row, a decode tick and a T 256
+    prefill). Each row prints its route (the rule's), must count one
+    dense call, give the same bits on a second launch (every route),
+    stay within ``TOLERANCE`` x max(1, max |plain|), and an mma row is
+    held per entry and its card-counted tiles to ``_prefill_live_tiles``;
+    bf16 rows are timed beside ``bound_ms``, the plain version and SDPA
+    over the slots' dense rows. (b) Phase 3's engine and requests with
+    ``decode_impl='dense'``: K4's launches and the dense entry's must
+    equal ``num_layers * (prefills + decode steps)`` (split: decode
+    steps, mma: prefills, rows 0); TTFT, step p50/p99 and wall printed
+    beside phase 3's. (c) fp32 (TF32 off): 8 requests through the dense
+    fused, dense xla and paged fused engines and ``generate``, greedy and
+    at temperature 0.8, top-k 50, top-p 0.95 with the scheduler's seeds;
+    the streams must agree, or part at a true near-tie (top-2 gap <
+    ``NEAR_TIE`` of the logits, or of the tempered, filtered logits plus
+    that token's Gumbel noise). (d) bf16 at full width: ``generate`` (B
+    4, prompts of 16-64 tokens, 256 steps, greedy and sampled) and
+    ``beam_search`` (B 2, beam 4, 128 steps, eos, length penalty 0.6):
+    well-formed outputs, beam 1 equal to greedy, the best raw beam
+    scoring at least greedy's; ms per step.
 6. K1–K3 (flash attention forward, dq, dk/dv) against their plain
    versions on the card, fp32 and bf16: the training path's shape
    (B 8, T 2048, 8 heads, head dim 64, causal), packed segments as the
@@ -132,6 +158,7 @@ script exits non-zero without its final ``ok`` line:
 
 The ``kernels`` JSON and the card's name and power limit come on the two
 lines before the last; the last line is ``{"ok": true, "device": {...}}``.
+``dense_flash_decode``'s ``launches`` are phase 13 (b)'s.
 K1-K3's ``launches`` are phase 7's (the LM training path); their
 ``launches_by_path`` add phase 11's encoder run.
 
@@ -618,6 +645,373 @@ def phase_profile(torch, np, engine):
               f"{name} {ms:.3f} ms {n}x "
               f"({1e3 * ms / n:.2f} us each)" for ms, n, name in k4),
           flush=True)
+
+
+# ---------------------------------------------------------------- phase 13
+
+def _dense_case(torch, gen, *, Bc, L, T, Hq, Hkv, D=64, dtype, positions,
+                slots=None):
+    """The dense slot cache ``[Bc, L, Hkv, D]`` (random keys and values in
+    every row: no scratch block, all of it slot-owned), q for the rows
+    that ``slots`` picks (all when None) and their positions."""
+    ck = torch.randn(Bc, L, Hkv, D, generator=gen)
+    cv = torch.randn(Bc, L, Hkv, D, generator=gen)
+    rows = Bc if slots is None else len(slots)
+    q = torch.randn(rows, T, Hq, D, generator=gen)
+    out = [t.to(dtype).cuda() for t in (q, ck, cv)]
+    out.append(torch.tensor(positions, dtype=torch.int32).cuda())
+    out.append(None if slots is None
+               else torch.tensor(slots, dtype=torch.int32).cuda())
+    return out
+
+
+def _dense_view(torch, pd, ck, slots):
+    """The paged view that ``dense_flash_decode`` hands the kernel: the
+    pool ``[Bc * M, bs, Hkv, D]`` and the identity table."""
+    Bc, L, Hkv, D = ck.shape
+    bs = pd._pick_block(128, L)
+    M = L // bs
+    rows = (torch.arange(Bc, device=ck.device) if slots is None
+            else slots.long())
+    tables = (rows[:, None] * M
+              + torch.arange(M, device=ck.device)[None]).int()
+    return ck.view(Bc * M, bs, Hkv, D), tables
+
+
+def _dense_sdpa(torch, F, q, ck, cv, positions, slots, window):
+    """One library call computing the same attention: SDPA over the
+    slots' dense rows (picked before timing) with a boolean mask."""
+    B, T, Hq, D = q.shape
+    L, Hkv = ck.shape[1], ck.shape[2]
+    k = (ck if slots is None else ck[slots.long()]).transpose(1, 2)
+    v = (cv if slots is None else cv[slots.long()]).transpose(1, 2)
+    k, v = k.contiguous(), v.contiguous()
+    qt = q.transpose(1, 2).contiguous()
+    kpos = torch.arange(L, device=q.device)
+    qpos = positions.long()[:, None] + torch.arange(T, device=q.device)
+    mask = kpos[None, None] <= qpos[:, :, None]
+    if window:
+        mask &= kpos[None, None] > qpos[:, :, None] - window
+    return lambda: F.scaled_dot_product_attention(
+        qt, k, v, attn_mask=mask[:, None], enable_gqa=Hq != Hkv)
+
+
+def _dense_cases(np):
+    """(name, shape, window) of each dense row: the serving decode tick
+    over a [16, 2048, 8, 64] ring (bs 128) with slot 0 reading its first
+    block, prefills of one slot through ``slots``, GQA, a window, head dim
+    128, and rings of 400 (bs 16) and 2047 keys (one block a row)."""
+    spread = [int(x) for x in np.linspace(0, 2047, 16)]
+    spread[0] = 100  # slot 0: 101 live keys in block 0 of the view
+    decode = dict(Bc=16, L=2048, T=1, Hq=8, Hkv=8, positions=spread)
+    prefill = dict(Bc=16, L=2048, Hq=8, Hkv=8, positions=[0])
+    rs = np.random.RandomState(13)
+    return [
+        ("dense_decode", decode, None),
+        ("dense_prefill_T512_slot5", dict(prefill, T=512, slots=[5]), None),
+        ("dense_prefill_T2048_slot0", dict(prefill, T=2048, slots=[0]),
+         None),
+        ("dense_decode_gqa", dict(decode, Hkv=2), None),
+        ("dense_decode_window256", decode, 256),
+        ("dense_decode_d128", dict(decode, D=128), None),
+        ("dense_decode_L400_bs16", dict(decode, L=400, positions=[
+            int(x) for x in rs.randint(0, 400, 16)]), None),
+        ("dense_decode_L2047_one_block", dict(decode, L=2047, positions=[
+            min(p, 2046) for p in spread]), None),
+        ("dense_prefill_T256_L2047_slot3", dict(prefill, L=2047, T=256,
+                                                 slots=[3],
+                                                 positions=[1500]), None),
+    ]
+
+
+def phase_dense_kernels(torch, np, F):
+    """Phase 13 (a): K4's dense entry against its plain version."""
+    from chainermn_tpu_torch.ops import paged_decode as pd
+
+    gen = torch.Generator().manual_seed(13)
+    flush = torch.empty(24 * 2**20, dtype=torch.float32, device="cuda")
+    rows = []
+    for name, kw, window in _dense_cases(np):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, ck, cv, pos, slots = _dense_case(torch, gen, dtype=dtype,
+                                                **kw)
+            pool, tables = _dense_view(torch, pd, ck, slots)
+            bs, M = pool.shape[1], tables.shape[1]
+
+            def run():
+                return pd.dense_flash_decode(q, ck, cv, pos, slots,
+                                             window=window)
+
+            def plain():
+                return pd.paged_flash_decode_reference(
+                    q, pool, cv.view(pool.shape), tables, pos,
+                    window=window, scratch_block=None)
+
+            before = dict(pd.ROUTE_LAUNCHES)
+            dense_before = pd.DENSE_LAUNCHES
+            pd.paged_prefill_tile_counts()  # zero the mma route's counts
+            got = run()
+            torch.cuda.synchronize()
+            route = next(r for r, n in pd.ROUTE_LAUNCHES.items()
+                         if n != before[r])
+            counted = pd.DENSE_LAUNCHES - dense_before
+            tiles = pd.paged_prefill_tile_counts()
+            predicted = (pd._prefill_live_tiles(
+                kw["T"], kw["Hq"], kw["Hkv"], bs, M, pos.tolist(), window)
+                if route == "mma" else (0, 0))
+            same_bits = bool(torch.equal(got, run()))
+            want = plain()
+            err = (got.float() - want.float()).abs().max().item()
+            scale = max(1.0, want.float().abs().max().item())
+            tol = TOLERANCE[str(dtype)]
+            over = (_per_entry_over_limit(got, want) if route == "mma"
+                    else 0.0)
+            expected_route = pd._route(dtype, kw["T"], kw["Hq"], kw["Hkv"])
+            ok = (err <= tol * scale and over <= 1.0 and counted == 1
+                  and bool(torch.isfinite(got).all())
+                  and route == expected_route and same_bits
+                  and tuple(tiles) == tuple(predicted))
+            row = {"case": name, "dtype": str(dtype).split(".")[-1],
+                   "route": route,
+                   "shape": {"Bc": kw["Bc"], "L": kw["L"], "bs": bs, "M": M,
+                             "T": kw["T"], "Hq": kw["Hq"], "Hkv": kw["Hkv"],
+                             "D": kw.get("D", 64),
+                             "slots": kw.get("slots")},
+                   "window": window, "max_abs_err": err,
+                   "tolerance": tol * scale, "two_launches_equal": same_bits}
+            if route == "mma":
+                row.update(per_entry_over_limit=over,
+                           tiles_visited=tiles[0], tiles_skipped=tiles[1],
+                           predicted_tiles=list(predicted))
+            if route == "split":
+                row["split_plan"] = pd._split_plan(q.shape[0], kw["Hkv"], M,
+                                                   bs)
+            if dtype == torch.bfloat16:
+                nbytes, ops = _k4_work(np, q, pool, tables, pos, window,
+                                       scratch=-1)
+                bound_ms, bound_by = _bound(nbytes, ops, dtype)
+                row.update(
+                    ms=_time_ms(torch, run, flush),
+                    # the kernels alone on the prebuilt view and table:
+                    # what the dense entry adds is ms - paged_ms
+                    paged_ms=_time_ms(torch, lambda: pd.paged_flash_decode(
+                        q, pool, cv.view(pool.shape), tables, pos,
+                        window=window, scratch_block=None), flush),
+                    plain_ms=_time_ms(torch, plain, flush),
+                    library_ms=_time_ms(torch, _dense_sdpa(
+                        torch, F, q, ck, cv, pos, slots, window), flush),
+                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                    ops=ops)
+            print("K4 dense", json.dumps(row), flush=True)
+            if not ok:
+                raise AssertionError(
+                    f"K4 dense {name} {dtype}: max abs err {err} vs "
+                    f"{tol * scale}, per entry {over} of its limit, route "
+                    f"{route} (expected {expected_route}), dense count "
+                    f"{counted}, two launches equal={same_bits}, tiles "
+                    f"{tiles} (predicted {predicted})")
+            rows.append(row)
+    return rows
+
+
+def phase_dense_serving(torch, np, paged_summary):
+    """Phase 13 (b): phase 3's configuration on the dense layout."""
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.ops import paged_decode as pd
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    model = TransformerLM(seed=0)
+    engine = ServingEngine(model, num_slots=16, max_len=2048,
+                           decode_impl="dense", decode_attend_impl="fused")
+    reqs = _requests(np, 24, 0, model.vocab_size)
+    _serve(engine, _requests(np, 2, 1, model.vocab_size))  # warm-up
+    torch.cuda.synchronize()
+    pd.reset_launches()
+    streams, sched = _serve(engine, reqs)
+    launches, routes, dense = (pd.LAUNCHES, dict(pd.ROUTE_LAUNCHES),
+                               pd.DENSE_LAUNCHES)
+    s = sched.summary()
+    n = model.num_layers
+    expected = n * (s["prefills"] + s["decode_steps"])
+    expected_routes = {"split": n * s["decode_steps"],
+                       "mma": n * s["prefills"], "rows": 0}
+    print("dense serving summary", json.dumps(s), flush=True)
+    keys = ("wall_s", "ttft_ms_p50", "ttft_ms_p99", "token_ms_p50",
+            "token_ms_p99", "tokens_per_sec")
+    print("dense vs paged serving (phase 3, same call): " + ", ".join(
+        f"{k} {s.get(k)} vs {paged_summary.get(k)}" for k in keys)
+        + f"; K4 launches {launches} (expected {expected}), dense entry "
+        f"{dense}, by route {json.dumps(routes)} (expected "
+        f"{json.dumps(expected_routes)})", flush=True)
+    if launches == 0 or launches != expected or dense != expected:
+        raise AssertionError(f"dense engine: K4 launches {launches}, dense "
+                             f"entry {dense}, expected {expected}")
+    if routes != expected_routes:
+        raise AssertionError(f"dense engine: K4 routes {routes} != "
+                             f"{expected_routes}")
+    for (_, n_new), gen in zip(reqs, streams):
+        if len(gen) != n_new or not all(0 <= t < model.vocab_size
+                                        for t in gen):
+            raise AssertionError("malformed dense stream")
+    if (engine.free_slot_count != 16 or engine.kv_blocks_free() is not None
+            or engine.blocks_in_use is not None):
+        raise AssertionError("dense engine: slots leaked or a pool appeared")
+    return dense, routes, s
+
+
+def _first_divergence(a, b):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _check_streams(torch, model, reqs, seeds, streams, sampling, label):
+    """Every engine's streams against ``generate``'s: identical, or parted
+    at a true near-tie of the top-2 of the logits (greedy) or of the
+    tempered, filtered logits plus the Gumbel noise of that token's key
+    (sampled), first divergence of each request."""
+    from chainermn_tpu_torch.models.transformer import (
+        _tempered_filtered,
+        stream_sample_keys,
+    )
+    from chainermn_tpu_torch.utils import prng
+
+    ref = streams["generate"]
+    n_div, n_tokens = 0, sum(len(s) for s in ref)
+    for name, got in streams.items():
+        for r, ((prompt, _), a, b) in enumerate(zip(reqs, ref, got)):
+            if len(a) != len(b):
+                raise AssertionError(f"{label}: {name} gave {len(b)} tokens "
+                                     f"for request {r}, generate {len(a)}")
+            i = _first_divergence(a, b)
+            if i is None:
+                continue
+            n_div += 1
+            with torch.no_grad():
+                logits = model(torch.tensor([prompt + a[:i]],
+                                            device="cuda"))[0, -1].float()
+            if sampling:
+                key = stream_sample_keys(
+                    prng.PRNGKey(0, device="cuda"),
+                    torch.tensor([seeds[r]], device="cuda"),
+                    torch.tensor([len(prompt) + i], device="cuda"))
+                logits = _tempered_filtered(
+                    logits[None], sampling["temperature"],
+                    sampling["top_k"], sampling["top_p"])[0]
+                logits = logits + prng.gumbel(key, logits.shape)[0]
+            top2 = torch.topk(logits, 2).values
+            gap = float(top2[0] - top2[1])
+            print(f"streams {label}: {name} parts from generate at "
+                  f"request {r} token {i}, top-2 gap {gap:.3e}", flush=True)
+            if not gap < NEAR_TIE:
+                raise AssertionError(
+                    f"{label} streams of {name} and generate part at "
+                    f"request {r} token {i} with a top-2 gap {gap}")
+    print(f"streams {label}: dense fused, dense xla, paged fused and "
+          f"generate over {len(reqs)} requests, {n_tokens} tokens, "
+          f"{n_div} divergences (fp32, TF32 off)", flush=True)
+
+
+def phase_dense_streams(torch, np):
+    """Phase 13 (c): fp32 streams of the dense and paged engines against
+    ``generate``, greedy and sampled."""
+    import zlib
+
+    from chainermn_tpu_torch.models import TransformerLM, generate
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = TransformerLM(compute_dtype=torch.float32, seed=0)
+    reqs = _requests(np, 8, 2, model.vocab_size)
+    for sampling in ({}, dict(temperature=0.8, top_k=50, top_p=0.95)):
+        label = "sampled" if sampling else "greedy"
+        streams = {}
+        for name, kw in (("dense fused", dict(decode_impl="dense")),
+                         ("dense xla", dict(decode_impl="dense",
+                                            decode_attend_impl="xla")),
+                         ("paged fused", dict(kv_block_size=64))):
+            engine = ServingEngine(model, num_slots=8, max_len=2048,
+                                   **kw, **sampling)
+            streams[name], _ = _serve(engine, reqs)
+            del engine
+        # the scheduler's seeds: crc32 of the ids it gave, r0 ... r7
+        seeds = [zlib.crc32(f"r{i}".encode()) & 0x7FFFFFFF
+                 for i in range(len(reqs))]
+        P = max(len(p) for p, _ in reqs)
+        prompt = torch.zeros(len(reqs), P, dtype=torch.long, device="cuda")
+        for r, (p, _) in enumerate(reqs):
+            prompt[r, :len(p)] = torch.tensor(p)
+        n_steps = max(len(p) + g for p, g in reqs)
+        kw = (dict(sampling, rng=np.zeros(2, np.uint32), seeds=seeds)
+              if sampling else {})
+        out = generate(model, prompt, n_steps, **kw).cpu().tolist()
+        streams["generate"] = [out[r][len(p):len(p) + g]
+                               for r, (p, g) in enumerate(reqs)]
+        _check_streams(torch, model, reqs, seeds, streams, sampling, label)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_decoders(torch, np):
+    """Phase 13 (d): ``generate`` and ``beam_search`` at full width."""
+    from chainermn_tpu_torch.models import (
+        TransformerLM,
+        beam_search,
+        generate,
+    )
+
+    model = TransformerLM(seed=0)  # Transformer-base, bf16
+    V = model.vocab_size
+    rs = np.random.RandomState(14)
+    lens = [16, 64, 33, 48]
+    prompt = torch.zeros(4, max(lens), dtype=torch.long)
+    for r, n in enumerate(lens):
+        prompt[r, :n] = torch.from_numpy(rs.randint(1, V, size=n))
+    prompt = prompt.cuda()
+    out = {}
+    for label, kw in (("greedy", {}), ("sampled", dict(
+            temperature=0.8, top_k=50, top_p=0.95,
+            rng=np.zeros(2, np.uint32), seeds=[11, 12, 13, 14]))):
+        generate(model, prompt[:, :8], 16, **kw)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(model, prompt, 256, **kw)
+        toks = toks.cpu()
+        dt = time.perf_counter() - t0
+        ok = (tuple(toks.shape) == (4, 256)
+              and bool(((toks >= 0) & (toks < V)).all())
+              and all(torch.equal(toks[r, :n], prompt[r, :n].cpu())
+                      for r, n in enumerate(lens)))
+        print(f"generate {label}: B 4, prompts {lens}, n_steps 256 in "
+              f"{dt:.3f} s, {1e3 * dt / 256:.3f} ms per step, "
+              f"{1e3 * dt / (4 * 256 - sum(lens)):.3f} ms per generated "
+              f"token", flush=True)
+        if not ok:
+            raise AssertionError(f"generate {label}: malformed output")
+        out[label] = toks
+    bprompt = prompt[:2, :40].clone()  # ragged: 16 and 40 tokens
+    beam_search(model, bprompt[:, :8], 16, 4, eos_id=2)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    beams, scores = beam_search(model, bprompt, 128, 4, eos_id=2,
+                                length_penalty=0.6)
+    scores = scores.cpu()
+    dt = time.perf_counter() - t0
+    greedy = generate(model, bprompt, 128).cpu()
+    one, one_scores = beam_search(model, bprompt, 128, 1)
+    raw, raw_scores = beam_search(model, bprompt, 128, 4)
+    ok = (tuple(beams.shape) == (2, 4, 128)
+          and bool(torch.isfinite(scores[:, 0]).all())
+          and torch.equal(one[:, 0].cpu(), greedy)
+          and bool((raw_scores[:, 0] >= one_scores[:, 0] - 1e-3).all()))
+    print(f"beam_search: B 2, beam 4, n_steps 128, eos 2, length penalty "
+          f"0.6 in {dt:.3f} s ({1e3 * dt / 128:.3f} ms per step); top "
+          f"scores {scores[:, 0].tolist()}; beam 1 == greedy "
+          f"{torch.equal(one[:, 0].cpu(), greedy)}; best raw score "
+          f"{raw_scores[:, 0].tolist()} vs greedy "
+          f"{one_scores[:, 0].tolist()}", flush=True)
+    if not ok:
+        raise AssertionError("beam_search: malformed output, beam 1 != "
+                             "greedy, or the top beam scored below greedy")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1968,6 +2362,10 @@ def main() -> int:
     phase_equivalence(torch, np)
     phase_profile(torch, np, engine)
     del engine
+    dense_rows = phase_dense_kernels(torch, np, F)
+    dense_launches, dense_routes, _ = phase_dense_serving(torch, np, summary)
+    phase_dense_streams(torch, np)
+    phase_decoders(torch, np)
     flash_rows = phase_flash_kernels(torch, np, F)
     flash_launches, _ = phase_training(torch, np)
     phase_grad_equivalence(torch, np)
@@ -2032,6 +2430,30 @@ def main() -> int:
         "kernel_ms": prefill_row["ms"],
         # the rows themselves are the K4 entry's cases
         "cases": [r["case"] for r in rows if r["route"] == "mma"],
+    })
+    # K4's dense entry: phase 13's dense engine, its decode tick row
+    dense_main = next(r for r in dense_rows if r["case"] == "dense_decode"
+                      and r["dtype"] == "bfloat16")
+    kernels["kernels"].append({
+        "name": "dense_flash_decode",
+        "route": "cuda",
+        "impl": "the dense ring viewed as blocks of _pick_block(128, L) "
+                "keys with an identity table and no scratch block, "
+                "through K4's split (decode ticks) and mma (prefills) "
+                "routes",
+        "source": "chainermn_tpu_torch/csrc/paged_decode_sm90.cu",
+        "sources": ["chainermn_tpu_torch/csrc/paged_decode_sm90.cu",
+                    "chainermn_tpu_torch/csrc/paged_prefill_sm90.cu",
+                    "chainermn_tpu_torch/csrc/paged_decode.cu",
+                    "chainermn_tpu_torch/ops/paged_decode.py"],
+        "replaces": "chainermn_tpu/ops/paged_decode.py:305",
+        "launches": dense_launches,
+        "route_launches": dense_routes,
+        **{k: dense_main[k] for k in (
+            "max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        "kernel_ms": dense_main["ms"],
+        "cases": dense_rows,
     })
     # K1-K3 at the main path's inputs: the packed training rows, bf16
     packed = next(r for r in flash_rows

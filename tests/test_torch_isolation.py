@@ -54,7 +54,9 @@ def test_every_port_module_imports_with_jax_blocked():
                  "extensions.checkpoint", "extensions.dcp_adapter",
                  "extensions.observation_aggregator", "native",
                  "native.ckpt_writer", "global_except_hook", "utils",
-                 "utils.preemption"):
+                 "utils.preemption", "utils.prng", "models._decode_common",
+                 "models.transformer", "serving.engine",
+                 "serving.scheduler"):
         assert "chainermn_tpu_torch." + name in PORT_MODULES
     out = subprocess.run(
         [sys.executable, "-c", _BLOCK_AND_IMPORT, str(SMOKE), *PORT_MODULES],

@@ -7,9 +7,19 @@
   and leaves staggered mid-decode — give greedy streams token-identical
   to JAX ``generate`` and to the JAX engine's fused paged path, over
   weights carried across with ``convert.lm_state_from_flax``.
+- The dense layout (``decode_impl='dense'``, ``'xla'`` and ``'fused'``)
+  greedy and sampled (temperature 0.8, top-k 10, top-p 0.9): streams
+  token-identical to JAX ``generate`` with the scheduler's seeds, to the
+  port's ``generate``, and to the JAX engine's dense path; the
+  scheduler derives JAX's seeds (``crc32(request_id) & 0x7FFFFFFF``).
 - ``summary()``: the same rollup keys and values for the same events.
-- Options the port does not serve yet raise ``NotImplementedError``.
+- Options the port does not serve yet raise ``NotImplementedError``; the
+  sampling and layout options it does serve validate as JAX's do, and
+  ``kv_signature`` is JAX's.
 """
+
+import zlib
+
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +39,7 @@ from chainermn_tpu.serving import Scheduler as JaxScheduler
 from chainermn_tpu.serving import ServingEngine as JaxEngine
 from chainermn_tpu_torch.convert import lm_state_from_flax
 from chainermn_tpu_torch.models import TransformerLM
+from chainermn_tpu_torch.models import generate as port_generate
 from chainermn_tpu_torch.observability.trace import summarize_serving
 from chainermn_tpu_torch.serving import (
     BlockAllocator,
@@ -178,12 +189,9 @@ def test_summary_matches_jax_rollup_on_the_same_events():
 
 
 @pytest.mark.parametrize("option", [
-    dict(decode_impl="dense"),
     dict(decode_impl="auto"),
     dict(decode_attend_impl="auto"),
     dict(kv_block_size="auto"),
-    dict(temperature=0.7),
-    dict(top_k=4),
     dict(mesh=object()),
     dict(spec_tokens=2),
     dict(prefix_cache="on"),
@@ -218,3 +226,129 @@ def test_request_past_the_horizon_is_refused_up_front(lm_pair):
     sched = Scheduler(ServingEngine(tm, device="cpu", **ENGINE))
     with pytest.raises(ValueError, match="horizon"):
         sched.submit(Request(prompt=[1] * 30, max_new_tokens=5))
+
+
+SAMPLED = dict(temperature=0.8, top_k=10, top_p=0.9)
+
+
+def _seeded_refs(jm, params, tm, reqs, ids, sampling):
+    """JAX ``generate`` and the port's on each request alone, with the
+    scheduler's seed for that request id."""
+    refs, port_refs = [], []
+    for (prompt, n_new), rid in zip(reqs, ids):
+        kw = dict(sampling)
+        seed = zlib.crc32(rid.encode()) & 0x7FFFFFFF
+        if sampling:
+            kw.update(rng=jax.random.PRNGKey(0), seeds=[seed])
+        refs.append(np.asarray(generate(jm, params, jnp.asarray([prompt]),
+                                        len(prompt) + n_new, **kw))[0]
+                    .tolist())
+        if sampling:
+            kw["rng"] = np.asarray(kw["rng"])
+        port_refs.append(port_generate(tm, torch.tensor([prompt]),
+                                       len(prompt) + n_new, **kw)[0]
+                         .tolist())
+    return refs, port_refs
+
+
+def _serve_ids(sched_cls, req_cls, engine, reqs, policy="prefill_priority"):
+    sched = sched_cls(engine, policy=policy)
+    ids = [sched.submit(req_cls(prompt=p, max_new_tokens=g))
+           for p, g in reqs]
+    results = sched.run()
+    return [results[rid]["tokens"] for rid in ids], ids
+
+
+@pytest.mark.skipif(not fused_supported(),
+                    reason="this jax's Pallas lacks scalar-prefetch grid "
+                    "specs (no JAX fused engine to compare with)")
+@pytest.mark.parametrize("sampling", [{}, SAMPLED],
+                         ids=["greedy", "sampled"])
+@pytest.mark.parametrize("impl", ["fused", "xla"])
+def test_dense_engine_streams_match_generate_and_the_jax_dense_engine(
+        lm_pair, impl, sampling):
+    jm, params, tm = lm_pair
+    reqs = _requests(6, seed=11)
+    got, ids = _serve_ids(Scheduler, Request, ServingEngine(
+        tm, device="cpu", decode_impl="dense", decode_attend_impl=impl,
+        **ENGINE, **sampling), reqs)
+    jax_engine = JaxEngine(
+        jm, params, decode_impl="dense", decode_attend_impl=impl,
+        spec_tokens=0, prefix_cache="off", prefill_chunk=0,
+        prefill_seq_parallel="off", **ENGINE, **sampling)
+    want, jids = _serve_ids(JaxScheduler, JaxRequest, jax_engine, reqs)
+    assert ids == jids
+    assert got == want
+    refs, port_refs = _seeded_refs(jm, params, tm, reqs, ids, sampling)
+    assert got == refs == port_refs
+
+
+def test_paged_engine_samples_the_dense_engines_streams(lm_pair):
+    _, _, tm = lm_pair
+    reqs = _requests(5, seed=12)
+    paged, _ = _serve_ids(Scheduler, Request, ServingEngine(
+        tm, device="cpu", **ENGINE, **SAMPLED), reqs, "fcfs")
+    dense, _ = _serve_ids(Scheduler, Request, ServingEngine(
+        tm, device="cpu", decode_impl="dense", **ENGINE, **SAMPLED), reqs)
+    assert paged == dense
+
+
+def test_scheduler_derives_and_stores_jax_seeds(lm_pair):
+    jm, params, tm = lm_pair
+    sched = Scheduler(ServingEngine(tm, device="cpu", **ENGINE))
+    jsched = JaxScheduler(JaxEngine(
+        jm, params, decode_impl="dense", decode_attend_impl="xla",
+        spec_tokens=0, prefix_cache="off", prefill_chunk=0,
+        prefill_seq_parallel="off", **ENGINE))
+    for rid in (None, "req-7", "x" * 40):
+        r = Request(prompt=[1, 2], max_new_tokens=2, request_id=rid)
+        jr = JaxRequest(prompt=[1, 2], max_new_tokens=2, request_id=rid)
+        sched.submit(r)
+        jsched.submit(jr)
+        assert r.request_id == jr.request_id and r.seed == jr.seed
+    given = Request(prompt=[1], max_new_tokens=1, seed=5)
+    sched.submit(given)
+    assert given.seed == 5
+
+
+def test_dense_engine_has_no_pool_and_forces_the_prefix_cache_off(lm_pair):
+    jm, params, tm = lm_pair
+    engine = ServingEngine(tm, device="cpu", decode_impl="dense",
+                           prefix_cache="on", **ENGINE)
+    assert not engine.prefix_cache_enabled
+    assert (engine.kv_blocks_free(), engine.pool_utilization(),
+            engine.blocks_in_use, engine.num_blocks) == (None,) * 4
+    with pytest.raises(ValueError, match="prefix_cache must be one of"):
+        ServingEngine(tm, device="cpu", decode_impl="dense",
+                      prefix_cache="bogus", **ENGINE)
+    for impl in ("dense", "paged"):
+        port = ServingEngine(tm, device="cpu", decode_impl=impl, **ENGINE)
+        jax_engine = JaxEngine(
+            jm, params, decode_impl=impl, decode_attend_impl="xla",
+            kv_block_size=8, spec_tokens=0, prefix_cache="off",
+            prefill_chunk=0, prefill_seq_parallel="off",
+            **{k: v for k, v in ENGINE.items() if k != "kv_block_size"})
+        assert port.kv_signature() == jax_engine.kv_signature()
+    paged = ServingEngine(tm, device="cpu", **ENGINE)
+    assert paged.kv_blocks_free() == paged.num_blocks - 1
+
+
+@pytest.mark.parametrize("option", [
+    dict(temperature=0.5, rng=np.zeros(2, np.uint32), base_seed=3),
+    dict(top_k=4),
+    dict(top_p=0.5),
+    dict(temperature=0.5, top_p=1.5),
+    dict(temperature=0.5, top_k=0),
+    dict(temperature=0.5, top_k=VOCAB + 1),
+    dict(decode_impl="ring"),
+], ids=["rng-and-base_seed", "top_k-greedy", "top_p-greedy", "top_p-high",
+        "top_k-zero", "top_k-vocab", "unknown-layout"])
+def test_sampling_and_layout_options_validate_as_jax(lm_pair, option):
+    jm, params, tm = lm_pair
+    with pytest.raises(ValueError) as got:
+        ServingEngine(tm, device="cpu", **{**ENGINE, **option})
+    with pytest.raises(ValueError) as want:
+        JaxEngine(jm, params, decode_attend_impl="xla", spec_tokens=0,
+                  prefix_cache="off", prefill_chunk=0,
+                  prefill_seq_parallel="off", **{**ENGINE, **option})
+    assert str(got.value) == str(want.value)

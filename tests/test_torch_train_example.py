@@ -26,9 +26,29 @@ def test_example_twin_trains_to_a_finite_loss(mode, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--sequence-parallel"], ["--local-sgd", "4"],
-                                  ["--error-feedback"], ["--generate", "4"],
-                                  ["--beam", "2"]])
+                                  ["--error-feedback"]])
 def test_left_out_flags_exit_naming_their_roadmap_item(flag, capsys):
     with pytest.raises(SystemExit):
         train_transformer_lm.main(TINY + flag)
     assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [["--generate", "5"],
+                                   ["--generate", "5", "--beam", "3"]],
+                         ids=["generate", "generate-beam"])
+def test_generate_and_beam_decode_after_training(flags, capsys):
+    """The JAX example's demo: an 8-token prompt of 2 rows, decoded to 13
+    tokens (beam search first with ``--beam``), printed as it prints."""
+    train_transformer_lm.main(TINY + flags)
+    out = capsys.readouterr().out
+    line = next(x for x in out.splitlines() if x.startswith("generate:"))
+    assert "prompt (2, 8) -> (2, 13)" in line
+    assert ("beam_search (K=3): best scores" in out) == ("--beam" in flags)
+    assert "done (data-parallel)" in out
+
+
+@pytest.mark.parametrize("flag", [["--generate", "4"], ["--beam", "2"]])
+def test_mlm_refuses_decoding_as_jax_does(flag, capsys):
+    with pytest.raises(SystemExit):
+        train_transformer_lm.main(TINY + ["--mlm"] + flag)
+    assert "--mlm is an encoder" in capsys.readouterr().err

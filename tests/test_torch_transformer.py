@@ -8,7 +8,10 @@ at fp32 compute on the same numpy tokens:
 - logits of a bucketed prefill per slot plus 3 decode ticks through the
   paged slot path, with both attend impls (``'fused'`` runs the JAX
   Pallas kernel in interpret mode and the port's plain K4 version), and
-  the K/V pools they leave behind.
+  the K/V pools they leave behind;
+- the same through the dense slot layout (``kv_layout='dense'``, the
+  prefill through ``decode_slots``), and a span overhanging the dense
+  ring, whose writes past it are dropped as JAX drops them.
 
 Tolerance ``atol = rtol = 1e-4``: fp32 throughout, with reductions in
 different orders (XLA vs PyTorch CPU kernels) over a few layers.
@@ -162,7 +165,87 @@ def test_window_without_an_attention_fn_raises_as_in_jax():
            segment_ids=torch.zeros(1, 4, dtype=torch.long))
 
 
-def test_dense_decode_ring_is_not_ported_and_says_so():
-    _, _, tm = _pair("learned-mha")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(torch.zeros(1, 1, dtype=torch.long), decode=True)
+@pytest.mark.skipif(not fused_supported(),
+                    reason="this jax's Pallas lacks scalar-prefetch grid "
+                    "specs (no JAX fused reference)")
+@pytest.mark.parametrize("impl", ["fused", "xla"])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_dense_slot_prefill_and_decode_logits_match(variant, impl):
+    """The dense slot layout: a bucketed prefill of each slot through
+    ``decode_slots`` (its one cache row), then 3 decode ticks over both
+    slots at different depths; logits every call and the caches left
+    behind match JAX's."""
+    jm, params, tm = _pair(variant)
+    jdense = jm.clone(kv_layout="dense", decode_attend_impl=impl)
+    jcache = jax_cache(jdense, {"params": params["params"]}, 2)
+    tdense = tm.clone(kv_layout="dense", decode_attend_impl=impl)
+    tcache = init_serving_cache(tdense, num_slots=2, device="cpu")
+    rs = np.random.RandomState(4)
+    prompts = [rs.randint(1, CFG["vocab_size"], size=n) for n in (5, 2)]
+
+    def step(tokens, positions, slots):
+        nonlocal jcache
+        jslots = None if slots is None else jnp.asarray(slots, jnp.int32)
+        want, mut = jdense.apply(
+            {**params, "cache": jcache}, jnp.asarray(tokens, jnp.int32),
+            train=False, decode=True,
+            decode_positions=jnp.asarray(positions, jnp.int32),
+            decode_slots=jslots, mutable=["cache"])
+        jcache = mut["cache"]
+        with torch.no_grad():
+            got = tdense(torch.as_tensor(tokens), decode=True,
+                         decode_positions=torch.as_tensor(
+                             positions, dtype=torch.int32),
+                         decode_slots=None if slots is None else
+                         torch.as_tensor(slots, dtype=torch.int32),
+                         cache=tcache)
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        return want
+
+    last = []
+    for s, p in enumerate(prompts):
+        padded = np.zeros((1, 8), np.int64)  # bucket 8, pad id 0
+        padded[0, :len(p)] = p
+        logits = step(padded, [0], [s])
+        last.append(int(np.argmax(logits[0, len(p) - 1])))
+    positions = np.array([len(p) for p in prompts])
+    toks = np.array(last)
+    for _ in range(3):
+        logits = step(toks[:, None], positions, None)
+        toks = np.argmax(logits[:, 0], axis=-1)
+        positions = positions + 1
+    for layer in range(CFG["num_layers"]):
+        jl = jcache[f"block_{layer}"]
+        for name in ("cached_key", "cached_value"):
+            np.testing.assert_allclose(tcache[layer][name].numpy(),
+                                       np.asarray(jl[name]), **TOL)
+
+
+def test_dense_writes_past_the_ring_are_dropped_as_in_jax():
+    """A span overhanging the dense ring (positions + T > L) writes only
+    its columns below L, as JAX's ``.at[].set`` drops the rest; the
+    logits of the kept rows and the cache match JAX's."""
+    jm, params, tm = _pair("rope-gqa-window")
+    L = 12
+    jdense = jm.clone(kv_layout="dense", decode_cache_len=L)
+    jcache = jax_cache(jdense, {"params": params["params"]}, 2)
+    tdense = tm.clone(kv_layout="dense", decode_cache_len=L)
+    tcache = init_serving_cache(tdense, num_slots=2, device="cpu")
+    toks = np.random.RandomState(6).randint(1, 64, size=(2, 5))
+    positions = np.array([3, 9], np.int32)  # row 1 overhangs by 2
+    want, mut = jdense.apply(
+        {**params, "cache": jcache}, jnp.asarray(toks, jnp.int32),
+        train=False, decode=True, decode_positions=jnp.asarray(positions),
+        mutable=["cache"])
+    with torch.no_grad():
+        got = tdense(torch.from_numpy(toks), decode=True,
+                     decode_positions=torch.from_numpy(positions),
+                     cache=tcache)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want)[0], **TOL)
+    np.testing.assert_allclose(got[1, :3].numpy(), np.asarray(want)[1, :3],
+                               **TOL)
+    for layer in range(CFG["num_layers"]):
+        jl = mut["cache"][f"block_{layer}"]
+        np.testing.assert_allclose(tcache[layer]["cached_key"].numpy(),
+                                   np.asarray(jl["cached_key"]), **TOL)
