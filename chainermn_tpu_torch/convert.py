@@ -8,8 +8,9 @@ kept as it is, which is the order the block splits it in.
 
 Conv kernels ``[H, W, in, out]`` (HWIO) become ``[out, in, H, W]`` (OIHW),
 and BatchNorm's ``batch_stats`` become the module's running-statistics
-buffers. Converted so far: the Transformer LM, the MLP and the ResNets;
-the ViT converter lands with its model.
+buffers. Converted so far: the Transformer LM, the MLP, the ResNets and
+the functional chains of a ``MultiNodeChainList`` (their weights keep
+the ``x @ w`` layout); the ViT converter lands with its model.
 """
 
 from __future__ import annotations
@@ -52,6 +53,14 @@ def lm_state_from_flax(params: Mapping) -> dict:
             if "bias" in b[name]:
                 state[pre + name + ".bias"] = _t(b[name]["bias"])
     return state
+
+
+def chain_params_from_flax(params_list) -> list:
+    """A :class:`~chainermn_tpu_torch.links.MultiNodeChainList`'s
+    ``params_list`` from the JAX one's (a list of flat dicts of arrays,
+    e.g. the model-parallel MNIST example's stages): fp32 tensors, the
+    same names and layouts, since both chains compute ``x @ w``."""
+    return [{k: _t(v) for k, v in p.items()} for p in params_list]
 
 
 def _hwio(a) -> torch.Tensor:

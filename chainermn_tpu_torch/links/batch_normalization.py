@@ -25,6 +25,8 @@ normalises its last axis.
 
 from __future__ import annotations
 
+import copy
+import pickle
 from typing import Optional
 
 import torch
@@ -103,16 +105,21 @@ class _SyncBatchNorm(torch.autograd.Function):
 class MultiNodeBatchNormalization(nn.Module):
     """BatchNorm whose batch statistics are those of the GLOBAL batch.
 
-    ``comm``: the communicator whose group the moments are summed over;
-    None gives local (one-process) BN. ``momentum`` is the flax one (the
+    ``comm``: the communicator whose group the moments are summed over,
+    or ``group``: the process group itself; neither gives local
+    (one-process) BN. ``momentum`` is the flax one (the
     weight of the old running value). The running statistics are the
     buffers ``running_mean``/``running_var``, the flax
     ``batch_stats/mean``/``var``. The eval path (running averages, no
     communication) runs when the module is in eval mode or was built
     with ``use_running_average=True``.
+
+    The group is a handle to the job's processes: a deep copy shares it,
+    and a pickle keeps the default group (as a token, bound again when it
+    is loaded) and refuses any other.
     """
 
-    def __init__(self, num_features: int, comm=None, *,
+    def __init__(self, num_features: int, comm=None, *, group=None,
                  momentum: float = 0.99, epsilon: float = 1e-5,
                  dtype: Optional[torch.dtype] = None, use_bias: bool = True,
                  use_scale: bool = True, scale_init: float = 1.0,
@@ -121,6 +128,8 @@ class MultiNodeBatchNormalization(nn.Module):
         device = resolve_device(device)
         self.num_features = num_features
         self.comm = comm
+        self.group = group if group is not None else (
+            comm.group if comm is not None else None)
         self.momentum = momentum
         self.epsilon = epsilon
         self.dtype = dtype
@@ -153,9 +162,9 @@ class MultiNodeBatchNormalization(nn.Module):
             if self.bias is not None:
                 y = y + _per_feature(self.bias.float(), x)
             return y.to(out_dtype)
-        group = self.comm.group if self.comm is not None else None
-        y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, group,
-                                            self.epsilon, out_dtype)
+        y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias,
+                                            self.group, self.epsilon,
+                                            out_dtype)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
@@ -164,4 +173,35 @@ class MultiNodeBatchNormalization(nn.Module):
 
     def extra_repr(self) -> str:
         return (f"{self.num_features}, momentum={self.momentum}, "
-                f"epsilon={self.epsilon}, synced={self.comm is not None}")
+                f"epsilon={self.epsilon}, synced={self.group is not None}")
+
+    def __deepcopy__(self, memo):
+        for handle in (self.group, self.comm):
+            if handle is not None:
+                memo.setdefault(id(handle), handle)
+        new = type(self).__new__(type(self))
+        memo[id(self)] = new
+        new.__dict__.update({k: copy.deepcopy(v, memo)
+                             for k, v in self.__dict__.items()})
+        return new
+
+    def __getstate__(self):
+        state = dict(super().__getstate__())
+        state["comm"] = None
+        if state["group"] is not None:
+            if state["group"] is not dist.group.WORLD:
+                raise pickle.PicklingError(
+                    "a BN synchronized over a subgroup cannot be pickled; "
+                    "build it again in the receiving process")
+            state["group"] = _WORLD
+        return state
+
+    def __setstate__(self, state):
+        if state.get("group") == _WORLD:
+            state["group"] = (dist.group.WORLD if dist.is_initialized()
+                              else None)
+        super().__setstate__(state)
+
+
+#: a pickled BN's token for the default group
+_WORLD = "torch.distributed.group.WORLD"

@@ -37,8 +37,12 @@ Two versions of one function:
   through the same kernels: a zero-copy view as ``L / bs`` blocks per
   row (``bs = _pick_block(128, L)``), an identity block table and no
   scratch block. :data:`DENSE_LAUNCHES` counts its calls on CUDA.
-
-Left for later: 5-D tensor-parallel stacked pools.
+- The 5-D tensor-parallel stacked entry of both versions: pools ``[S,
+  num_blocks, bs, Hkv_local, D]`` and ``q`` ``[S, B, T, Hq_local, D]``,
+  the tables and positions shared across the stack — one 4-D call per
+  shard into its slice of one output, as the JAX entry unrolls its
+  per-shard calls. :data:`STACKED_LAUNCHES` counts its calls on CUDA;
+  each shard's call is one of :data:`LAUNCHES`, on its route.
 """
 
 from __future__ import annotations
@@ -60,6 +64,9 @@ ROUTE_LAUNCHES = {"split": 0, "mma": 0, "rows": 0}
 #: calls of :func:`dense_flash_decode` on CUDA tensors (each is also one
 #: of :data:`LAUNCHES`)
 DENSE_LAUNCHES = 0
+#: calls of the 5-D stacked entry on CUDA tensors (each adds one call per
+#: shard to :data:`LAUNCHES`)
+STACKED_LAUNCHES = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (32, 64, 128)
@@ -79,11 +86,12 @@ _lib = None
 
 
 def reset_launches():
-    """Zero :data:`LAUNCHES`, :data:`ROUTE_LAUNCHES` and
-    :data:`DENSE_LAUNCHES`."""
-    global LAUNCHES, DENSE_LAUNCHES
+    """Zero :data:`LAUNCHES`, :data:`ROUTE_LAUNCHES`,
+    :data:`DENSE_LAUNCHES` and :data:`STACKED_LAUNCHES`."""
+    global LAUNCHES, DENSE_LAUNCHES, STACKED_LAUNCHES
     LAUNCHES = 0
     DENSE_LAUNCHES = 0
+    STACKED_LAUNCHES = 0
     for route in ROUTE_LAUNCHES:
         ROUTE_LAUNCHES[route] = 0
 
@@ -193,9 +201,9 @@ def paged_prefill_tile_counts():
 def _check_shapes(q, k_pool, v_pool, block_tables, positions, window):
     if q.dim() != 4 or k_pool.dim() != 4:
         raise ValueError(
-            f"q must be [B, T, Hq, D] and pools [num_blocks, bs, Hkv, D]; "
-            f"got {tuple(q.shape)} / {tuple(k_pool.shape)} (5-D "
-            "tensor-parallel pools are not ported yet)")
+            f"q must be [B, T, Hq, D] and pools [num_blocks, bs, Hkv, D] "
+            f"(or q [S, B, T, Hq, D] and pools [S, num_blocks, bs, Hkv, "
+            f"D]); got {tuple(q.shape)} / {tuple(k_pool.shape)}")
     if v_pool.shape != k_pool.shape:
         raise ValueError(f"k_pool {tuple(k_pool.shape)} and v_pool "
                          f"{tuple(v_pool.shape)} differ")
@@ -215,6 +223,18 @@ def _check_shapes(q, k_pool, v_pool, block_tables, positions, window):
         raise ValueError(f"window must be >= 1 or None, got {window}")
 
 
+def _stacked_shards(q, k_pool, v_pool):
+    """The stack depth ``S`` of a 5-D call (raises on a malformed one)."""
+    if (q.dim() != 5 or k_pool.dim() != 5 or v_pool.shape != k_pool.shape
+            or q.shape[0] != k_pool.shape[0]):
+        raise ValueError(
+            f"a stacked call takes q [S, B, T, Hq, D] and pools [S, "
+            f"num_blocks, bs, Hkv, D] with the same S; got "
+            f"{tuple(q.shape)} / {tuple(k_pool.shape)} / "
+            f"{tuple(v_pool.shape)}")
+    return k_pool.shape[0]
+
+
 def paged_flash_decode(q, k_pool, v_pool, block_tables, positions, *,
                        window: Optional[int] = None,
                        scale: Optional[float] = None,
@@ -227,7 +247,12 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, positions, *,
         position ``positions[b] + t``. The caller has already written the
         matching K/V into the pool (:func:`~chainermn_tpu_torch.ops.
         paged_kv.paged_update`).
-      k_pool / v_pool: ``[num_blocks, bs, Hkv, D]``, q's dtype.
+      k_pool / v_pool: ``[num_blocks, bs, Hkv, D]``, q's dtype. Or the
+        TP-stacked form: pools ``[S, num_blocks, bs, Hkv_local, D]`` with
+        ``q`` ``[S, B, T, Hq_local, D]``, the tables and positions shared
+        across the stack; shard ``s`` is the 4-D call on ``q[s]``,
+        ``k_pool[s]``, ``v_pool[s]``, each on its route, and the result
+        is ``[S, B, T, Hq_local, D]``.
       block_tables: ``[B, max_blocks]`` int32 logical -> physical map.
       positions: ``[B]`` int32 first-new-token position per row.
       window: optional causal sliding-window width
@@ -241,6 +266,28 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, positions, *,
     tensors the route's kernels run (bf16 or fp32, ``D`` in 32/64/128)
     or the call raises — there is no fallback to another route.
     """
+    if k_pool.dim() == 5:
+        S = _stacked_shards(q, k_pool, v_pool)
+        if q.device.type != "cuda":
+            return torch.stack([_paged_flash_decode(
+                q[s], k_pool[s], v_pool[s], block_tables, positions,
+                window, scale, scratch_block) for s in range(S)])
+        out = torch.empty_like(q)
+        for s in range(S):
+            _paged_flash_decode(q[s], k_pool[s], v_pool[s], block_tables,
+                                positions, window, scale, scratch_block,
+                                out=out[s])
+        global STACKED_LAUNCHES
+        STACKED_LAUNCHES += 1
+        return out
+    return _paged_flash_decode(q, k_pool, v_pool, block_tables, positions,
+                               window, scale, scratch_block)
+
+
+def _paged_flash_decode(q, k_pool, v_pool, block_tables, positions, window,
+                        scale, scratch_block, out=None):
+    """The 4-D call; on CUDA the kernels write into ``out`` (a contiguous
+    tensor like ``q``) when it is given."""
     _check_shapes(q, k_pool, v_pool, block_tables, positions, window)
     if q.device.type == "cpu":
         return paged_flash_decode_reference(
@@ -278,7 +325,8 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, positions, *,
     scratch = -1 if scratch_block is None else int(scratch_block)
     M = block_tables.shape[1]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
     route = _route(q.dtype, T, Hq, Hkv)
     lib = load_kernel()
     if route != "rows" and q.data_ptr() % 16:
@@ -318,7 +366,13 @@ def paged_flash_decode_reference(q, k_pool, v_pool, block_tables,
                                  scratch_block: Optional[int] = 0):
     """The plain PyTorch version of :func:`paged_flash_decode`: the same
     masks and numerics over the gathered ``pool[tables]`` view, in one
-    softmax pass instead of the kernel's online recurrence."""
+    softmax pass instead of the kernel's online recurrence (the 5-D
+    stacked form: one such call per shard, stacked)."""
+    if k_pool.dim() == 5:
+        return torch.stack([paged_flash_decode_reference(
+            q[s], k_pool[s], v_pool[s], block_tables, positions,
+            window=window, scale=scale, scratch_block=scratch_block)
+            for s in range(_stacked_shards(q, k_pool, v_pool))])
     _check_shapes(q, k_pool, v_pool, block_tables, positions, window)
     B, T, Hq, D = q.shape
     _, bs, Hkv, _ = k_pool.shape

@@ -50,10 +50,18 @@ CHILD_THREADS = 1
 
 def _child(worker: Callable, rank: int, size: int, tmp: str) -> None:
     """One rank: join the gloo group, run ``worker`` on the inputs, save
-    its results (or its traceback)."""
+    its results (or its traceback), and end the process at once.
+
+    The rank leaves with ``os._exit``, without the interpreter's teardown:
+    a worker that imports ``torch.distributed.checkpoint`` while its group
+    exists keeps the gloo group's threads running past
+    ``destroy_process_group``, and tearing the process down around them
+    aborts it now and then (SIGABRT, "terminate called without an active
+    exception"), after its results were written."""
     import torch.distributed as dist
 
     torch.set_num_threads(CHILD_THREADS)
+    code = 0
     try:
         dist.init_process_group(
             "gloo", init_method="file://" + os.path.join(tmp, "store"),
@@ -69,7 +77,11 @@ def _child(worker: Callable, rank: int, size: int, tmp: str) -> None:
     except BaseException:
         with open(os.path.join(tmp, f"err{rank}.txt"), "w") as f:
             f.write(traceback.format_exc())
-        raise
+        code = 1
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
 
 
 def run_distributed(worker: Callable[[dict], Mapping[str, Any]], size: int,

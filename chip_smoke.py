@@ -477,7 +477,9 @@ def phase_kernels(torch, np, F):
             if route == "split":
                 row["split_plan"] = pd._split_plan(
                     kw["B"], kw["Hkv"], args[3].shape[1], args[1].shape[1])
-            if dtype == torch.bfloat16:  # the serving dtype: time it
+            # the serving dtype, and the rows route (fp32) at the decode
+            # tick and the T 512 prefill: time it
+            if dtype == torch.bfloat16 or name in ("decode", "prefill_T512"):
                 nbytes, ops = _k4_work(np, args[0], args[1], args[3],
                                        args[4], window)
                 bound_ms, bound_by = _bound(nbytes, ops, dtype)
@@ -2224,6 +2226,335 @@ def phase_mnist_resume(torch, smi, tmp):
     return finals[1]
 
 
+# ---------------------------------------------------------------- phase 14
+
+#: phase 14 (a): phase 3's serving pool (Hq = Hkv = 8) split into this
+#: many tensor-parallel shards of 4 heads each
+STACK_SHARDS = 2
+#: phase 14 (c): the Transformer-base block at tensor-parallel size 1
+TP_D, TP_FF, TP_HEADS, TP_B, TP_T = 512, 2048, 8, 8, 2048
+#: phase 14 (d): SGD steps of the converted model and its twin
+MNBN_STEPS = 5
+
+
+def _stack_heads(torch, t, shards):
+    """``[..., H, D]`` as ``[shards, ..., H / shards, D]``: the heads
+    split into ``shards`` tensor-parallel groups."""
+    return torch.stack(t.chunk(shards, dim=-2)).contiguous()
+
+
+def phase_stacked_kernels(torch, np, F):
+    """Phase 14 (a): K4's 5-D tensor-parallel stacked entry at phase 3's
+    pool split into STACK_SHARDS shards: the decode tick and a T 512
+    prefill, counted as this phase's main path, then each held to its
+    per-shard 4-D calls (bit for bit) and to the plain version, and
+    timed beside SDPA on the same heads and its bound."""
+    from chainermn_tpu_torch.ops import paged_decode as pd
+
+    gen = torch.Generator().manual_seed(14)
+    flush = torch.empty(24 * 2**20, dtype=torch.float32, device="cuda")
+    spread = [int(x) for x in np.linspace(0, 2047, 16)]
+    cases = [("stacked_decode", dict(B=16, T=1, Hq=8, Hkv=8,
+                                     positions=spread, scratch_rows=(3,))),
+             ("stacked_prefill_T512", dict(B=1, T=512, Hq=8, Hkv=8,
+                                           positions=[0]))]
+    made = []
+    for name, kw in cases:
+        q, kp, vp, tables, pos = _k4_case(torch, gen, dtype=torch.bfloat16,
+                                          **kw)
+        for r in kw.get("scratch_rows", ()):
+            pos[r] = 0
+        stacked = [_stack_heads(torch, t, STACK_SHARDS) for t in (q, kp, vp)]
+        made.append((name, kw, (q, kp, vp, tables, pos), stacked))
+    # the main path: both calls, counted
+    torch.cuda.synchronize()
+    pd.reset_launches()
+    outs = [pd.paged_flash_decode(*stacked, tables, pos)
+            for _, _, (_, _, _, tables, pos), stacked in made]
+    torch.cuda.synchronize()
+    counted = {"stacked": pd.STACKED_LAUNCHES, "launches": pd.LAUNCHES,
+               "routes": dict(pd.ROUTE_LAUNCHES)}
+    want_routes = {"split": STACK_SHARDS, "mma": STACK_SHARDS, "rows": 0}
+    print(f"K4 stacked main path: {json.dumps(counted)} (expected 2 "
+          f"stacked calls, routes {json.dumps(want_routes)})", flush=True)
+    if (counted["stacked"] != 2 or counted["routes"] != want_routes
+            or counted["launches"] != 2 * STACK_SHARDS):
+        raise AssertionError(f"K4's 5-D entry launches {counted} != 2 "
+                             f"calls of {STACK_SHARDS} shards on the split "
+                             "and mma routes")
+    rows = []
+    for (name, kw, full, stacked), got in zip(made, outs):
+        tables, pos = full[3], full[4]
+        shards_equal = all(bool(torch.equal(got[s], pd.paged_flash_decode(
+            stacked[0][s], stacked[1][s], stacked[2][s], tables, pos)))
+            for s in range(STACK_SHARDS))
+        want = pd.paged_flash_decode_reference(*stacked, tables, pos)
+        err = (got.float() - want.float()).abs().max().item()
+        over = _per_entry_over_limit(got, want)
+        nbytes, ops = _k4_work(np, full[0], full[1], tables, pos, None)
+        bound_ms, bound_by = _bound(nbytes, ops, torch.bfloat16)
+        row = {"case": name, "dtype": "bfloat16", "shards": STACK_SHARDS,
+               "shape": {k: v for k, v in kw.items()
+                         if k in ("B", "T", "Hq", "Hkv")},
+               "route": pd._route(torch.bfloat16, kw["T"],
+                                  kw["Hq"] // STACK_SHARDS,
+                                  kw["Hkv"] // STACK_SHARDS),
+               "max_abs_err": err, "tolerance": TOLERANCE["torch.bfloat16"],
+               "per_entry_over_limit": over,
+               "equal_to_per_shard_calls": shards_equal,
+               "ms": _time_ms(torch, lambda: pd.paged_flash_decode(
+                   *stacked, tables, pos), flush),
+               "plain_ms": _time_ms(
+                   torch, lambda: pd.paged_flash_decode_reference(
+                       *stacked, tables, pos), flush),
+               "library_ms": _time_ms(torch, _sdpa_yardstick(
+                   torch, F, *full, None), flush),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bytes": nbytes, "ops": ops}
+        print("K4 stacked", json.dumps(row), flush=True)
+        if not (shards_equal and err <= TOLERANCE["torch.bfloat16"]
+                and over <= 1.0 and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"K4 stacked {name}: equal to the "
+                                 f"per-shard calls={shards_equal}, max abs "
+                                 f"err {err}, per entry {over} of its limit")
+        rows.append(row)
+    return rows, counted
+
+
+def _one_rank_cases(torch, Fn, C, T):
+    """``(name, f, expected(x))`` of every function of ``functions/``,
+    ``parallel/collectives.py`` and the f/g pairs of ``parallel/
+    tensor.py`` at world size 1: what each means on one rank."""
+    return [
+        ("send_recv(x, 0, 0)", lambda x: Fn.send_recv(x, 0, 0), lambda x: x),
+        ("send+recv", lambda x: _sent_and_received(Fn, x), lambda x: x),
+        ("pseudo_connect", lambda x: Fn.pseudo_connect(x.sum() * 0, x),
+         lambda x: x),
+        ("stream_blocks", lambda x: Fn.stream_blocks({"k": x}, 0, 0)["k"],
+         lambda x: x),
+        ("allgather", lambda x: Fn.allgather(x), lambda x: x[None]),
+        ("allgather tiled", lambda x: Fn.allgather(x, axis=1, tiled=True),
+         lambda x: x),
+        ("alltoall", lambda x: Fn.alltoall(x), lambda x: x),
+        ("bcast", lambda x: Fn.bcast(x), lambda x: x),
+        ("gather", lambda x: Fn.gather(x), lambda x: x[None]),
+        ("scatter", lambda x: Fn.scatter(x), lambda x: x),
+        ("allreduce", lambda x: Fn.allreduce(x), lambda x: x),
+        ("allreduce mean", lambda x: C.allreduce(x, op="mean"),
+         lambda x: x),
+        ("reduce_scatter", lambda x: C.reduce_scatter(x), lambda x: x),
+        ("ppermute", lambda x: C.ppermute(x, None, [(0, 0)]), lambda x: x),
+        ("shift", lambda x: C.shift(x), lambda x: x),
+        ("copy_to_tp", lambda x: T.copy_to_tp(x), lambda x: x),
+        ("reduce_from_tp", lambda x: T.reduce_from_tp(x), lambda x: x),
+        ("gather_from_tp", lambda x: T.gather_from_tp(x), lambda x: x),
+    ]
+
+
+def _sent_and_received(Fn, x):
+    received, delegate = Fn.send(x, 0, None, src=0)
+    return Fn.recv(received, delegate=delegate)
+
+
+def phase_cross_rank_functions(torch):
+    """Phase 14 (b): every function of ``functions/`` and
+    ``parallel/collectives.py`` (and the f/g pairs) over NCCL at world
+    size 1 on CUDA tensors: forward and ``autograd.grad`` equal, bit for
+    bit, to their one-rank meaning."""
+    from chainermn_tpu_torch import functions as Fn
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.parallel import collectives as C
+    from chainermn_tpu_torch.parallel import tensor as T
+
+    comm = create_communicator("pure_nccl")
+    if not (C.axis_index() == 0 and C.axis_size_of(comm) == 1
+            and C.axes_bound(comm.group)):
+        raise AssertionError("the one-rank NCCL group's index, size or "
+                             "bound probe is wrong")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, f, meaning in _one_rank_cases(torch, Fn, C, T):
+            x = torch.randn(4, 6, 8, device="cuda", generator=gen,
+                            dtype=dtype).requires_grad_()
+            y = f(x)
+            ct = torch.randn(y.shape, device="cuda", generator=gen,
+                             dtype=dtype)
+            (g,) = torch.autograd.grad(y, x, ct)
+            want_y = meaning(x.detach())
+            ok = (torch.equal(y.detach(), want_y)
+                  and torch.equal(g, ct.reshape(x.shape)))
+            results[f"{name} {str(dtype)[6:]}"] = ok
+            if not ok:
+                raise AssertionError(f"{name} ({dtype}) at world size 1: "
+                                     "forward or gradient differs from its "
+                                     "one-rank meaning")
+        for op in ("max", "min"):
+            x = torch.randn(5, device="cuda", dtype=dtype,
+                            generator=gen).requires_grad_()
+            y = C.allreduce(x, comm, op=op)
+            try:
+                torch.autograd.grad(y.sum(), x)
+                raised = False
+            except NotImplementedError:
+                raised = True
+            if not (torch.equal(y.detach(), x.detach()) and raised):
+                raise AssertionError(f"allreduce {op}: value or its "
+                                     "refused gradient")
+            results[f"allreduce {op} {str(dtype)[6:]}"] = True
+    print(f"cross-rank functions over NCCL at world size 1: "
+          f"{sum(results.values())} of {len(results)} equal to their "
+          f"one-rank meaning, forward and backward: "
+          f"{json.dumps(results)}", flush=True)
+    return comm
+
+
+def phase_tensor_parallel(torch, np, comm):
+    """Phase 14 (c): ``tp_mlp``, ``tp_attention`` and the column and row
+    layers at tensor-parallel size 1, Transformer-base widths (d 512,
+    d_ff 2048, 8 heads, B 8 x T 2048, bf16), against the dense layers:
+    outputs and gradients, and ms of each."""
+    import torch.nn.functional as F
+
+    from chainermn_tpu_torch.ops.attention import dot_product_attention
+    from chainermn_tpu_torch.parallel import tensor as T
+
+    g = comm.group
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    flush = torch.empty(24 * 2**20, dtype=torch.float32, device="cuda")
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=0.02):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(bf)
+
+    x = rnd(TP_B, TP_T, TP_D, scale=1.0)
+    w1, b1, w2, b2 = rnd(TP_D, TP_FF), rnd(TP_FF), rnd(TP_FF, TP_D), rnd(TP_D)
+    wq, wk, wv, wo = (rnd(TP_D, TP_D) for _ in range(4))
+    hd = TP_D // TP_HEADS
+
+    def dense_attn(x, wq, wk, wv, wo):
+        q, k, v = ((x @ w).reshape(TP_B, TP_T, TP_HEADS, hd)
+                   for w in (wq, wk, wv))
+        ctx = dot_product_attention(q, k, v, causal=True)
+        return ctx.reshape(TP_B, TP_T, TP_D) @ wo
+
+    layers = {
+        "column_parallel_dense": (
+            lambda x, w, b: T.column_parallel_dense(x, w, b, group=g),
+            lambda x, w, b: x @ w + b, (x, w1, b1)),
+        "row_parallel_dense": (
+            lambda x, w, b: T.row_parallel_dense(x, w, b, group=g),
+            lambda x, w, b: x @ w + b, (rnd(TP_B, TP_T, TP_FF, scale=1.0),
+                                        w2, b2)),
+        "tp_mlp": (
+            lambda x, w1, b1, w2, b2: T.tp_mlp(x, w1, b1, w2, b2, group=g),
+            lambda x, w1, b1, w2, b2: F.gelu(x @ w1 + b1,
+                                             approximate="tanh") @ w2 + b2,
+            (x, w1, b1, w2, b2)),
+        "tp_attention": (
+            lambda x, *w: T.tp_attention(x, *w, group=g, n_heads=TP_HEADS,
+                                         causal=True),
+            dense_attn, (x, wq, wk, wv, wo)),
+    }
+    rows = {}
+    for name, (tp, dense, args) in layers.items():
+        args = [a.detach().requires_grad_() for a in args]
+        y = tp(*args)
+        ct = torch.randn(y.shape, device="cuda", generator=gen).to(bf)
+        grads = torch.autograd.grad(y, args, ct)
+        y_ref = dense(*args)
+        grads_ref = torch.autograd.grad(y_ref, args, ct)
+        errs = [((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1.0)).item()
+                for a, b in zip([y, *grads], [y_ref, *grads_ref])]
+        bitwise = all(bool(torch.equal(a, b)) for a, b in
+                      zip([y, *grads], [y_ref, *grads_ref]))
+        row = {"err_over_max": max(errs), "bit_identical": bitwise,
+               "ms": _time_ms(torch, lambda: tp(*args), flush),
+               "dense_ms": _time_ms(torch, lambda: dense(*args), flush),
+               "fwd_bwd_ms": _time_ms(torch, lambda: torch.autograd.grad(
+                   tp(*args), args, ct), flush),
+               "dense_fwd_bwd_ms": _time_ms(
+                   torch, lambda: torch.autograd.grad(dense(*args), args,
+                                                      ct), flush)}
+        rows[name] = row
+        print(f"tensor parallel at TP 1 {name} {json.dumps(row)}",
+              flush=True)
+        if max(errs) > TOLERANCE["torch.bfloat16"]:
+            raise AssertionError(f"{name} at TP 1 differs from the dense "
+                                 f"layer: {errs}")
+    return rows
+
+
+def _bn_net(torch, norm):
+    from torch import nn
+
+    return nn.Sequential(
+        nn.Conv2d(3, 16, 3, padding=1), norm(16), nn.ReLU(),
+        nn.Conv2d(16, 32, 3, stride=2, padding=1), norm(32), nn.ReLU(),
+        nn.AdaptiveAvgPool2d(1), nn.Flatten(), nn.Linear(32, 10))
+
+
+def phase_mnbn(torch, comm):
+    """Phase 14 (d): ``create_mnbn_model`` over a net with plain
+    ``nn.BatchNorm2d`` against the same net built with
+    ``MultiNodeBatchNormalization``: MNBN_STEPS SGD steps on the card,
+    equal losses; the converted state loads into the unconverted net."""
+    from chainermn_tpu_torch.links import (
+        MultiNodeBatchNormalization,
+        create_mnbn_model,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(14)
+    plain = _bn_net(torch, torch.nn.BatchNorm2d).cuda()
+    converted = create_mnbn_model(plain, comm)
+    built = _bn_net(torch, lambda c: MultiNodeBatchNormalization(
+        c, comm, momentum=0.9, epsilon=1e-5, device="cuda")).cuda()
+    state = {k: v for k, v in plain.state_dict().items()
+             if "num_batches_tracked" not in k}
+    built.load_state_dict(state)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    batch = (torch.randn(32, 3, 32, 32, device="cuda", generator=gen),
+             torch.randint(0, 10, (32,), device="cuda", generator=gen))
+    batches = [batch] * MNBN_STEPS  # one batch: the loss must fall
+    losses = {}
+    for name, net in (("converted", converted), ("built", built)):
+        opt = torch.optim.SGD(net.parameters(), lr=0.1, momentum=0.9)
+        losses[name] = []
+        for x, y in batches:
+            loss = torch.nn.functional.cross_entropy(net(x), y)
+            opt.zero_grad()
+            loss.backward()
+            comm.allreduce_grad(net)
+            opt.step()
+            losses[name].append(loss.item())
+    fresh = _bn_net(torch, torch.nn.BatchNorm2d).cuda()
+    fresh.load_state_dict(converted.state_dict())  # strict: every name
+    x = batches[0][0]
+    with torch.no_grad():
+        same_eval = bool(torch.allclose(fresh.eval()(x), converted.eval()(x),
+                                        rtol=1e-5, atol=1e-5))
+    n_synced = sum(isinstance(m, MultiNodeBatchNormalization)
+                   for m in converted.modules())
+    print(f"create_mnbn_model: {n_synced} BatchNorm2d converted; "
+          f"{MNBN_STEPS} SGD steps on the card, losses converted "
+          f"{losses['converted']} vs built with "
+          f"MultiNodeBatchNormalization {losses['built']} (equal: "
+          f"{losses['converted'] == losses['built']}); state_dict loads "
+          f"into the unconverted net, eval outputs equal: {same_eval}",
+          flush=True)
+    if (n_synced != 2 or not same_eval
+            or max(abs(a - b) / abs(b) for a, b in zip(
+                losses["converted"], losses["built"])) > 1e-6
+            or not losses["converted"][-1] < losses["converted"][0]):
+        raise AssertionError("create_mnbn_model: the converted net's "
+                             "losses or state differ")
+    return losses
+
+
 # ---------------------------------------------------------------- main
 
 #: the bf16 kernels whose tensor-core instructions are counted: K1-K3
@@ -2379,6 +2710,12 @@ def main() -> int:
         phase_resume(torch, np, smi, Path(tmp))
         phase_preemption(torch, np, smi, Path(tmp))
         phase_mnist_resume(torch, smi, Path(tmp))
+    t14 = time.perf_counter()
+    stacked_rows, stacked_counted = phase_stacked_kernels(torch, np, F)
+    comm = phase_cross_rank_functions(torch)
+    phase_tensor_parallel(torch, np, comm)
+    phase_mnbn(torch, comm)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
     import torch.distributed as dist
 
     dist.destroy_process_group()  # the training phases' one-rank group
@@ -2411,6 +2748,11 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        # the rows route (fp32), off the serving path: phase 2's timed rows
+        "rows_route": {r["case"]: {k: r[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")} for r in rows
+            if r["route"] == "rows" and "ms" in r},
         "cases": rows,
     }]}
     # K4's prefill kernel (the mma route) on its own, at the serving
@@ -2454,6 +2796,27 @@ def main() -> int:
             "bound_by", "library_ms")},
         "kernel_ms": dense_main["ms"],
         "cases": dense_rows,
+    })
+    # K4's 5-D tensor-parallel stacked entry: phase 14 (a)'s main path
+    stacked_main = stacked_rows[0]
+    kernels["kernels"].append({
+        "name": "paged_flash_decode_stacked",
+        "route": "cuda",
+        "impl": f"the 5-D entry: one 4-D call per shard into its slice of "
+                f"one output ({STACK_SHARDS} shards of phase 3's pool), on "
+                "K4's split (decode) and mma (prefill) routes",
+        "source": "chainermn_tpu_torch/csrc/paged_decode_sm90.cu",
+        "sources": ["chainermn_tpu_torch/csrc/paged_decode_sm90.cu",
+                    "chainermn_tpu_torch/csrc/paged_prefill_sm90.cu",
+                    "chainermn_tpu_torch/ops/paged_decode.py"],
+        "replaces": "chainermn_tpu/ops/paged_decode.py:204",
+        "launches": stacked_counted["stacked"],
+        "route_launches": stacked_counted["routes"],
+        **{k: stacked_main[k] for k in (
+            "max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        "kernel_ms": stacked_main["ms"],
+        "cases": stacked_rows,
     })
     # K1-K3 at the main path's inputs: the packed training rows, bf16
     packed = next(r for r in flash_rows

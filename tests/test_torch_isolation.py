@@ -56,7 +56,11 @@ def test_every_port_module_imports_with_jax_blocked():
                  "native.ckpt_writer", "global_except_hook", "utils",
                  "utils.preemption", "utils.prng", "models._decode_common",
                  "models.transformer", "serving.engine",
-                 "serving.scheduler"):
+                 "serving.scheduler", "functions", "functions.collective",
+                 "functions.point_to_point", "parallel",
+                 "parallel.collectives", "parallel.tensor",
+                 "links.multi_node_chain_list", "links.mnbn",
+                 "examples.mnist.train_mnist_model_parallel"):
         assert "chainermn_tpu_torch." + name in PORT_MODULES
     out = subprocess.run(
         [sys.executable, "-c", _BLOCK_AND_IMPORT, str(SMOKE), *PORT_MODULES],
