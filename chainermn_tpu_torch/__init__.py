@@ -19,7 +19,11 @@ per-rank snapshots (async through a native writer, or through
 ``torch.distributed.checkpoint`` with ``extensions.dcp_adapter``) and
 agrees on the newest common one at restart; ``utils.preemption`` turns
 SIGTERM into a checkpoint and a clean exit, and ``global_except_hook``
-turns one rank's crash into the whole job's end.
+turns one rank's crash into the whole job's end. The autograd graph spans
+ranks: ``functions`` (differentiable send/recv and collectives, over
+``parallel.collectives``), ``links.MultiNodeChainList`` (a model split
+across ranks), ``links.create_mnbn_model``, and ``parallel.tensor``'s
+tensor-parallel layers.
 
 Entry points run on ``cuda`` unless the caller passes ``device=`` (the
 CPU tests pass ``device="cpu"``); with no card and no ``device=`` they

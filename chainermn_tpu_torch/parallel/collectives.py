@@ -38,11 +38,10 @@ selects the same layouts. ``allreduce``, ``bcast``, ``ppermute`` and
 ``shift`` take a tensor or a dict, list or tuple of them, as the JAX
 functions take pytrees.
 
-Left for later: the two-level, staged and int8 wires
-(``two_level_allreduce``, ``staged_*``, ``int8_allreduce_mean*``), with
-ROADMAP queue 3.2 and 3.3, and the tuned bucket size and wire
-(``tuned_bucket_bytes``, ``resolve_allreduce_wire``), with the tuning
-registry (queue 8).
+Left for later, each raising ``NotImplementedError`` that names its
+ROADMAP item: the two-level, decomposed and staged wires over several
+axes (queue 3.2), the int8 wires and their error feedback (queue 3.3),
+and the tuned bucket size and wire (queue 8, the tuning registry).
 """
 
 from __future__ import annotations
@@ -53,6 +52,8 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
+from chainermn_tpu_torch.communicators.base import CommunicatorBase
+
 PyTree = Any
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
@@ -62,8 +63,6 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
 def as_group(comm_or_group):
     """The process group of a communicator, or the group itself (``None``
     is the default group)."""
-    from chainermn_tpu_torch.communicators.base import CommunicatorBase
-
     if isinstance(comm_or_group, CommunicatorBase):
         return comm_or_group.group
     return comm_or_group
@@ -377,6 +376,50 @@ def alltoall(x: torch.Tensor, group=None, *, split_axis: int = 0,
     return _linear(
         x, lambda v: _all_to_all(v, g, sa, ca, tiled),
         lambda ct: _all_to_all(ct, g, ca, sa, tiled))
+
+
+def _later(name: str, item: str) -> Callable:
+    def left_out(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name} is not ported yet (ROADMAP queue {item})")
+
+    left_out.__name__ = left_out.__qualname__ = name
+    left_out.__doc__ = f"Not ported yet: ROADMAP queue {item}."
+    return left_out
+
+
+_WIRES = "3.2, communicators: the two-level and staged wires"
+_INT8 = "3.3, optimizer and reduction: the int8 wire and error feedback"
+_TUNED = "8, tuning: the tuned bucket size and wire"
+two_level_allreduce = _later("two_level_allreduce", _WIRES)
+two_level_shard_len = _later("two_level_shard_len", _WIRES)
+decomposed_allreduce = _later("decomposed_allreduce", _WIRES)
+axes_size = _later("axes_size", _WIRES)
+axes_index = _later("axes_index", _WIRES)
+staged_reduce_scatter = _later("staged_reduce_scatter", _WIRES)
+staged_allreduce = _later("staged_allreduce", _WIRES)
+staged_allgather = _later("staged_allgather", _WIRES)
+staged_broadcast = _later("staged_broadcast", _WIRES)
+int8_allreduce_mean = _later("int8_allreduce_mean", _INT8)
+int8_decomposed_allreduce_mean = _later("int8_decomposed_allreduce_mean",
+                                        _INT8)
+int8_two_level_allreduce_mean = _later("int8_two_level_allreduce_mean",
+                                       _INT8)
+int8_allreduce_mean_with_feedback = _later(
+    "int8_allreduce_mean_with_feedback", _INT8)
+int8_two_level_allreduce_mean_with_feedback = _later(
+    "int8_two_level_allreduce_mean_with_feedback", _INT8)
+tuned_bucket_bytes = _later("tuned_bucket_bytes", _TUNED)
+resolve_allreduce_wire = _later("resolve_allreduce_wire", _TUNED)
+#: the left-outs above, by name
+LEFT_OUT = ("two_level_allreduce", "two_level_shard_len",
+            "decomposed_allreduce", "axes_size", "axes_index",
+            "staged_reduce_scatter", "staged_allreduce", "staged_allgather",
+            "staged_broadcast", "int8_allreduce_mean",
+            "int8_decomposed_allreduce_mean", "int8_two_level_allreduce_mean",
+            "int8_allreduce_mean_with_feedback",
+            "int8_two_level_allreduce_mean_with_feedback",
+            "tuned_bucket_bytes", "resolve_allreduce_wire")
 
 
 __all__ = ["allgather", "allreduce", "alltoall", "as_group", "axes_bound",

@@ -31,6 +31,7 @@ from chainermn_tpu import functions as jf
 from chainermn_tpu.functions.point_to_point import stream_blocks
 from chainermn_tpu.parallel import collectives as JC
 from chainermn_tpu_torch import functions as Fn
+from chainermn_tpu_torch.parallel import collectives as C
 from chainermn_tpu_torch.testing import run_distributed
 from torch_cross_rank_workers import (
     NO_GRAD_CASES,
@@ -232,6 +233,15 @@ def test_send_recv_touches_its_two_ranks_only(runs, n):
     got = [int(o["calls/send_recv"]) for o in outs]
     assert got == [int(i in (r["src"], r["dst"])) for i in range(n)]
     assert all(bool(o["send_without_src_raised"]) for o in outs)
+
+
+@pytest.mark.parametrize("name", C.LEFT_OUT)
+def test_left_out_wires_raise_naming_their_roadmap_item(name):
+    """Every other function of the JAX ``parallel/collectives.py`` is in
+    the port and raises, naming its ROADMAP item."""
+    assert hasattr(JC, name)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue"):
+        getattr(C, name)(None, "x")
 
 
 def test_send_requires_static_src():
