@@ -156,9 +156,31 @@ script exits non-zero without its final ``ok`` line:
     without a stop, bit for bit. (c) The MNIST twin with ``--checkpoint``
     to 100 iterations, then to 200: the second run resumes from 100.
 
+14. (run after phase 12) Cross-rank autograd and tensor parallelism on
+    one card: (a) K4's 5-D tensor-parallel entry on phase 3's pool split
+    into ``STACK_SHARDS`` shards of 4 heads (bf16): the decode tick and
+    a T 512 prefill, counted as this phase's main path (2 stacked calls,
+    ``STACK_SHARDS`` launches on the split and on the mma route), each
+    equal bit for bit to its per-shard 4-D calls and within
+    ``TOLERANCE`` and ``ELEMENT_TOL`` of the plain version, timed beside
+    SDPA on the same heads and its bound; (b) every function of
+    ``functions/``, ``parallel/collectives.py`` and the tensor-parallel
+    f/g pairs over the one-rank NCCL group, fp32 and bf16: forward and
+    ``autograd.grad`` equal bit for bit to their one-rank meaning (max
+    and min refuse a gradient); (c) the column and row dense, ``tp_mlp``
+    and ``tp_attention`` at TP 1 at Transformer-base widths (d 512, d_ff
+    2048, 8 heads, B 8 x T 2048, bf16) against the dense layers, outputs
+    and gradients within ``TOLERANCE`` (bit-identity printed), and the
+    ms of each; (d) ``create_mnbn_model`` over a net with
+    ``nn.BatchNorm2d``: 5 SGD steps with deterministic cuDNN equal bit
+    for bit to the net built with ``MultiNodeBatchNormalization``, and
+    its ``state_dict`` loads into the unconverted net. Phase 2 also
+    times the rows route's fp32 decode tick and T 512 prefill.
+
 The ``kernels`` JSON and the card's name and power limit come on the two
 lines before the last; the last line is ``{"ok": true, "device": {...}}``.
-``dense_flash_decode``'s ``launches`` are phase 13 (b)'s.
+``dense_flash_decode``'s ``launches`` are phase 13 (b)'s,
+``paged_flash_decode_stacked``'s phase 14 (a)'s.
 K1-K3's ``launches`` are phase 7's (the LM training path); their
 ``launches_by_path`` add phase 11's encoder run.
 
