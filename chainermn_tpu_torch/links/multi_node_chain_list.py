@@ -245,7 +245,7 @@ class MultiNodeChainList:
             out = self.apply(params_list, x)
             if not replicate_output:
                 return out
-            root = next(c.rank for c in self.components if not c.rank_out)
+            root = self._check(dist.get_world_size(self.group)).rank
             return _Replicated.apply(out, self.group, root)
 
         return fwd
