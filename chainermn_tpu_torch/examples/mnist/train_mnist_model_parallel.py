@@ -13,11 +13,12 @@ data, the batches (``np.random.RandomState(1)`` over ``get_mnist``'s
 training set, the same batch on every rank) and the flags are the JAX
 example's.
 
-Two gloo ranks on the CPU (``--communicator naive``, the default, keeps
-the tensors on the CPU; the NCCL names put them on each rank's card)::
+``--device`` defaults to the CUDA card (and raises without one); the
+communicator defaults to ``pure_nccl`` there and to ``naive`` (gloo) on
+the CPU. Two gloo ranks on the CPU::
 
     from chainermn_tpu_torch.testing import run_distributed
-    run_distributed(worker, 2, {...})   # worker calls main([...])
+    run_distributed(worker, 2, {...})   # worker calls main(["--device", "cpu", ...])
 
 or through :func:`chainermn_tpu_torch.testing.launch_ranks`, whose
 ranks join the group with ``init_rank_from_env`` before ``main``.
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from chainermn_tpu_torch._device import resolve_device
 from chainermn_tpu_torch.communicators import create_communicator
 from chainermn_tpu_torch.examples.mnist.train_mnist import get_mnist
 from chainermn_tpu_torch.links import MultiNodeChainList
@@ -40,8 +42,10 @@ from chainermn_tpu_torch.links import MultiNodeChainList
 
 def _parser():
     p = argparse.ArgumentParser(description="model-parallel MNIST")
-    p.add_argument("--communicator", default="naive",
-                   help="naive: gloo on the CPU; pure_nccl: the card")
+    p.add_argument("--communicator", default=None,
+                   help="default: pure_nccl on cuda, naive on cpu")
+    p.add_argument("--device", default=None,
+                   help="default: the current CUDA card")
     p.add_argument("--batchsize", type=int, default=128)
     p.add_argument("--iterations", type=int, default=100)
     p.add_argument("--lr", type=float, default=0.05)
@@ -89,8 +93,10 @@ def main(argv: Optional[Sequence[str]] = None, *, params=None) -> dict:
     :func:`chainermn_tpu_torch.convert.chain_params_from_flax`) replaces
     the seeded initial weights."""
     args = _parser().parse_args(argv)
-    comm = create_communicator(args.communicator)
-    device = comm.device
+    device = resolve_device(args.device)
+    comm = create_communicator(
+        args.communicator or ("pure_nccl" if device.type == "cuda"
+                              else "naive"), device=device)
     if comm.rank == 0:
         print(f"communicator: {comm} (2-stage model parallel)", flush=True)
     train, _ = get_mnist()

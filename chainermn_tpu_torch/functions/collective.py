@@ -2,8 +2,8 @@
 ``chainermn_tpu/functions/collective.py``; the reference ChainerMN's
 ``functions/collective_communication.py`` †, SURVEY.md §2.4).
 
-Each is a thin wrapper over :mod:`chainermn_tpu_torch.parallel.collectives`
-and takes a communicator or a process group (``None`` is the default
+These are the functions of :mod:`chainermn_tpu_torch.parallel.collectives`
+under this module's names; each takes a communicator or a process group (``None`` is the default
 group), as the JAX functions take a communicator or an axis name. Each
 backward is the transpose that JAX's AD gives inside ``shard_map``, so a
 backward on every rank gives the gradient of the sum of the ranks'
@@ -24,45 +24,14 @@ function       backward
 Every rank of the group calls each function, in the same order.
 """
 
-from __future__ import annotations
-
-from chainermn_tpu_torch.parallel import collectives as C
-
-
-def allgather(x, comm_or_group=None, *, axis: int = 0, tiled: bool = False):
-    """Differentiable allgather (backward: reduce-scatter of the
-    cotangents — the reference's alltoall-sum)."""
-    return C.allgather(x, comm_or_group, axis=axis, tiled=tiled)
-
-
-def alltoall(x, comm_or_group=None, *, split_axis: int = 0,
-             concat_axis: int = 0, tiled: bool = True):
-    """Differentiable all-to-all (backward: the inverse all-to-all)."""
-    return C.alltoall(x, comm_or_group, split_axis=split_axis,
-                      concat_axis=concat_axis, tiled=tiled)
-
-
-def bcast(x, comm_or_group=None, root: int = 0):
-    """Differentiable broadcast from ``root`` (backward: the cotangents
-    sum onto ``root`` — the reference's gather+sum)."""
-    return C.bcast(x, comm_or_group, root=root)
-
-
-def gather(x, comm_or_group=None, root: int = 0, *, axis: int = 0):
-    """Differentiable gather to ``root``, zeros elsewhere (backward:
-    scatter)."""
-    return C.gather(x, comm_or_group, root=root, axis=axis)
-
-
-def scatter(x, comm_or_group=None, root: int = 0, *, axis: int = 0):
-    """Differentiable scatter from ``root`` (backward: gather)."""
-    return C.scatter(x, comm_or_group, root=root, axis=axis)
-
-
-def allreduce(x, comm_or_group=None, *, op: str = "sum"):
-    """Differentiable allreduce (the transpose of a sum is a sum)."""
-    return C.allreduce(x, comm_or_group, op=op)
-
+from chainermn_tpu_torch.parallel.collectives import (
+    allgather,
+    allreduce,
+    alltoall,
+    bcast,
+    gather,
+    scatter,
+)
 
 __all__ = ["allgather", "allreduce", "alltoall", "bcast", "gather",
            "scatter"]

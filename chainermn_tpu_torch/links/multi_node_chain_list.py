@@ -9,10 +9,12 @@ processes did: the owner of a component runs its chain and sends the
 output to each rank of ``rank_out`` (a list is a multicast); a component
 with ``rank_in`` takes what those ranks sent (a list is a merge, a tuple
 in that order). Activations cross through
-:func:`~chainermn_tpu_torch.functions.send_recv`, preceded by a small
-header with the tensor's shape and dtype, since the receiver does not run
-the chain that made it (the JAX program infers the shape with
-``eval_shape`` on every shard).
+:func:`~chainermn_tpu_torch.functions.send_recv`. A receiver does not run
+the chain that made what it receives, so every rank learns each wire's
+shape and dtype by running all the chains on meta tensors, which holds
+no data and does no arithmetic (the JAX program's ``eval_shape`` on
+every shard); the shapes are kept per input shape and parameter shapes,
+so a training loop infers them once.
 
 Each rank chains its transfers in program order: the input of every
 transfer carries a zero-valued graft (a delegate, :func:`~chainermn_tpu_
@@ -59,11 +61,6 @@ from chainermn_tpu_torch.parallel import collectives as C
 
 Ranks = Union[int, Sequence[int], None]
 
-#: header of a wire: dtype code, ndim, then up to _MAX_DIMS sizes
-_MAX_DIMS = 8
-_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.float16,
-           torch.int64, torch.int32)
-
 
 def _as_list(r: Ranks) -> list:
     if r is None:
@@ -73,21 +70,15 @@ def _as_list(r: Ranks) -> list:
     return list(r)
 
 
-def _header(t: torch.Tensor) -> torch.Tensor:
-    if t.dim() > _MAX_DIMS or t.dtype not in _DTYPES:
-        raise ValueError(f"a wire carries a tensor of at most {_MAX_DIMS} "
-                         f"dims and a dtype in {_DTYPES}; got "
-                         f"{tuple(t.shape)} {t.dtype}")
-    h = torch.zeros(2 + _MAX_DIMS, dtype=torch.int64, device=t.device)
-    h[0] = _DTYPES.index(t.dtype)
-    h[1] = t.dim()
-    h[2:2 + t.dim()] = torch.tensor(t.shape, dtype=torch.int64)
-    return h
+def _meta(x):
+    """``x`` (a tensor or a tuple of them) on the meta device."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("meta")
+    return tuple(t.detach().to("meta") for t in x)
 
 
-def _template(h: torch.Tensor, device) -> torch.Tensor:
-    h = h.tolist()
-    return torch.zeros(h[2:2 + h[1]], dtype=_DTYPES[h[0]], device=device)
+def _signature(params: dict) -> tuple:
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in params.items())
 
 
 class _Component:
@@ -137,6 +128,7 @@ class MultiNodeChainList:
     def __init__(self, comm=None) -> None:
         self.group = C.as_group(comm)
         self.components: list[_Component] = []
+        self._outputs: dict = {}  # shapes key -> the chains' meta outputs
 
     def add_link(self, fn: Callable, *, rank: int, rank_in: Ranks = None,
                  rank_out: Ranks = None, init_fn: Optional[Callable] = None,
@@ -144,7 +136,46 @@ class MultiNodeChainList:
         self.components.append(_Component(
             fn, init_fn, rank, rank_in, rank_out,
             name or f"component_{len(self.components)}"))
+        self._outputs.clear()
         return self
+
+    def _walk(self, x: torch.Tensor, params_of: Callable) -> list:
+        """Every chain in registration order on meta tensors, each given
+        ``params_of(ci, comp, inp)`` and the meta activations that reach
+        it (``x``'s shape for an entry component); their meta outputs."""
+        acts: dict = {}
+        outs = []
+        for ci, comp in enumerate(self.components):
+            for s in comp.rank_in:
+                if (s, comp.rank) not in acts:
+                    raise ValueError(
+                        f"{comp.name} (rank {comp.rank}) expects an input "
+                        f"from rank {s}, but no earlier component sent one "
+                        f"— components must be registered in dependency "
+                        f"order (reference parity: MultiNodeChainList "
+                        f"rejects forward references)")
+            got = [acts[(s, comp.rank)] for s in comp.rank_in]
+            inp = (_meta(x) if not got else got[0] if len(got) == 1
+                   else tuple(got))
+            params = {k: v.detach().to("meta")
+                      for k, v in params_of(ci, comp, inp).items()}
+            with torch.no_grad():
+                out = comp.fn(params, inp)
+            outs.append(out)
+            for dst in comp.rank_out:
+                acts[(comp.rank, dst)] = out
+        return outs
+
+    def _shapes(self, params_list: Sequence[Any], x: torch.Tensor) -> list:
+        """Each component's output on meta tensors, the same on every rank
+        with no communication; kept per ``x``'s and the parameters' shapes
+        and dtypes."""
+        key = (tuple(x.shape), x.dtype,
+               tuple(_signature(p) for p in params_list))
+        if key not in self._outputs:
+            self._outputs[key] = self._walk(
+                x, lambda ci, comp, inp: params_list[ci])
+        return self._outputs[key]
 
     # ------------------------------------------------------------------
 
@@ -194,6 +225,7 @@ class MultiNodeChainList:
         g = self.group
         me = dist.get_rank(g)
         terminal = self._check(dist.get_world_size(g))
+        shapes = self._shapes(params_list, x)
         chain = None  # the rank's last transfer (its delegate)
         wires: dict = {}
         output = None
@@ -212,25 +244,17 @@ class MultiNodeChainList:
                 if me not in (comp.rank, dst):
                     continue  # neither end: nothing to do
                 if comp.rank == me:
-                    t = out if chain is None else pseudo_connect(chain, out)
-                    if dst != me:
-                        dist.send(_header(t), C._global(g, dst), group=g)
+                    t = out
                 else:
-                    h = torch.empty(2 + _MAX_DIMS, dtype=torch.int64,
-                                    device=x.device)
-                    dist.recv(h, C._global(g, comp.rank), group=g)
-                    t = _template(h, x.device)
-                    if chain is not None:
-                        t = pseudo_connect(chain, t)
+                    t = torch.zeros_like(shapes[ci], device=x.device)
+                if chain is not None:
+                    t = pseudo_connect(chain, t)
                 chain = send_recv(t, comp.rank, dst, g)
                 if dst == me:
                     wires[(comp.rank, dst)] = chain
-        # every rank learns the terminal output's shape and dtype
-        h = (_header(output) if terminal.rank == me else
-             torch.empty(2 + _MAX_DIMS, dtype=torch.int64, device=x.device))
-        dist.broadcast(h, src=C._global(g, terminal.rank), group=g)
         if output is None:
-            output = _template(h, x.device)
+            output = torch.zeros_like(
+                shapes[self.components.index(terminal)], device=x.device)
             if chain is None:  # a rank with no part in the model
                 return output.requires_grad_(output.is_floating_point())
         return output if chain is None else pseudo_connect(chain, output)
@@ -262,33 +286,17 @@ class MultiNodeChainList:
         gen = (seed if isinstance(seed, torch.Generator)
                else torch.Generator().manual_seed(int(seed)))
         params_list = []
-        acts: dict = {}
-        for comp in self.components:
+
+        def params_of(ci, comp, inp):
             if comp.init_fn is None:
                 raise ValueError(f"{comp.name} registered without init_fn")
-            for s in comp.rank_in:
-                if (s, comp.rank) not in acts:
-                    raise ValueError(
-                        f"{comp.name} (rank {comp.rank}) expects an input "
-                        f"from rank {s}, but no earlier component sent one "
-                        f"— components must be registered in dependency "
-                        f"order (reference parity: MultiNodeChainList "
-                        f"rejects forward references)")
-            got = [acts[(s, comp.rank)] for s in comp.rank_in]
-            inp = (x if not got else got[0] if len(got) == 1
-                   else tuple(got))
             real = (torch.zeros(inp.shape, dtype=inp.dtype)
                     if isinstance(inp, torch.Tensor) else
                     tuple(torch.zeros(i.shape, dtype=i.dtype) for i in inp))
-            params = comp.init_fn(gen, real)
-            params_list.append(params)
-            meta_in = (inp.to("meta") if isinstance(inp, torch.Tensor)
-                       else tuple(i.to("meta") for i in inp))
-            meta_params = {k: v.detach().to("meta")
-                           for k, v in params.items()}
-            out = comp.fn(meta_params, meta_in)
-            for dst in comp.rank_out:
-                acts[(comp.rank, dst)] = out
+            params_list.append(comp.init_fn(gen, real))
+            return params_list[-1]
+
+        self._walk(x, params_of)
         return params_list
 
 

@@ -268,10 +268,10 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, positions, *,
     """
     if k_pool.dim() == 5:
         S = _stacked_shards(q, k_pool, v_pool)
-        if q.device.type != "cuda":
-            return torch.stack([_paged_flash_decode(
-                q[s], k_pool[s], v_pool[s], block_tables, positions,
-                window, scale, scratch_block) for s in range(S)])
+        if q.device.type == "cpu":
+            return paged_flash_decode_reference(
+                q, k_pool, v_pool, block_tables, positions, window=window,
+                scale=scale, scratch_block=scratch_block)
         out = torch.empty_like(q)
         for s in range(S):
             _paged_flash_decode(q[s], k_pool[s], v_pool[s], block_tables,

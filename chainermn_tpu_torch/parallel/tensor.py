@@ -46,9 +46,10 @@ def copy_to_tp(x: torch.Tensor, group=None) -> torch.Tensor:
 
     Wrap a replicated activation before it meets column-sharded weights:
     each rank computes an independent cotangent slice and the input's
-    gradient is their sum."""
+    gradient is their sum. The forward is a view of ``x``: nothing is
+    copied."""
     g = C.as_group(group)
-    return C._linear(x, lambda v: v.clone(),
+    return C._linear(x, lambda v: v.view_as(v),
                      lambda ct: C._all_reduce(ct, g))
 
 

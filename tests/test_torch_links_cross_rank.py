@@ -13,9 +13,11 @@ The JAX side runs on an n-device CPU mesh, the port at n gloo ranks
 JAX example's weights from its own ``init``) and carried across.
 
 The JAX test that pins the compiled program's HLO conditionals has no
-torch analog: a counter shows instead that a rank never calls a chain it
-does not own, and the ``torch.distributed`` calls of a two-stage forward
-and backward are counted (one transfer each way).
+torch analog: a counter shows instead that a rank never runs a chain it
+does not own on data (every rank runs each chain once on meta tensors,
+to learn the wires' shapes, as JAX traces every branch), and the
+``torch.distributed`` calls of a two-stage forward and backward are
+counted (one transfer each way).
 
 Tolerances: 1e-6 absolute and relative in fp32 (a tanh chain, summed in
 another order), except where a case says why not.
@@ -288,6 +290,16 @@ def test_non_owner_never_calls_its_chain(runs, n, name):
             assert (calls[k] > 0) == (rank == r), (r, k, calls)
 
 
+@pytest.mark.parametrize("n,name", CHAIN_CASES)
+def test_wire_shapes_are_inferred_once_on_meta_tensors(runs, n, name):
+    """Every rank runs every chain once on meta tensors, over the case's
+    several forwards of the same shapes (the shapes are kept), and never
+    again."""
+    outs, _ = runs[n]
+    for o in outs:
+        assert list(o[f"{name}/meta_calls"]) == [1] * len(chain_specs(n)[name])
+
+
 @pytest.mark.parametrize("kind", ["forward_reference", "no_terminal",
                                   "rank_outside"])
 @pytest.mark.parametrize("n", SIZES)
@@ -299,18 +311,15 @@ def test_chain_rejections(runs, n, kind):
 @pytest.mark.parametrize("n", SIZES)
 def test_two_stage_transfers_once_each_way(runs, n):
     """The torch analog of the HLO pin: a forward sends the activation
-    0 -> 1 (a header and one transfer) and every rank learns the output's
-    shape (one broadcast); the backward sends its cotangent 1 -> 0, one
+    0 -> 1, one transfer (the shapes are known on every rank without
+    communicating); the backward sends its cotangent 1 -> 0, one
     transfer, and nothing else."""
     outs, _ = runs[n]
     for r, o in enumerate(outs):
         fwd = {k: int(o[f"calls/forward/{k}"]) for k in DIST_CALLS}
         bwd = {k: int(o[f"calls/backward/{k}"]) for k in DIST_CALLS}
         want_fwd = dict.fromkeys(DIST_CALLS, 0)
-        want_fwd["broadcast"] = 1
-        if r in (0, 1):
-            want_fwd["batch_isend_irecv"] = 1
-            want_fwd["send" if r == 0 else "recv"] = 1
+        want_fwd["batch_isend_irecv"] = int(r in (0, 1))
         want_bwd = dict.fromkeys(DIST_CALLS, 0)
         want_bwd["batch_isend_irecv"] = int(r in (0, 1))
         assert fwd == want_fwd and bwd == want_bwd, (r, fwd, bwd)
@@ -586,3 +595,18 @@ def test_model_parallel_twin_matches_the_jax_example():
     for o in outs:
         np.testing.assert_allclose(o["losses"], want, rtol=1e-5, atol=1e-6)
     assert want[-1] < want[0]
+
+
+def test_model_parallel_twin_runs_on_the_card_by_default(monkeypatch):
+    """With no ``--device`` the twin asks for the CUDA card and raises
+    without one, before any communicator exists; its other flags keep
+    the JAX example's defaults."""
+    from chainermn_tpu_torch.examples.mnist import train_mnist_model_parallel
+
+    args = train_mnist_model_parallel._parser().parse_args([])
+    assert (args.device, args.communicator) == (None, None)
+    assert (args.batchsize, args.iterations, args.lr, args.n_units) == (
+        128, 100, 0.05, 256)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_mnist_model_parallel.main(["--iterations", "1"])

@@ -212,14 +212,18 @@ def chain_specs(n: int) -> dict:
     return specs
 
 
-def _chain(comm, spec, calls=None):
+def _chain(comm, spec, calls=None, meta_calls=None):
+    """The chain list of ``spec``; ``calls[k]`` counts chain ``k``'s calls
+    on data and ``meta_calls[k]`` its calls on meta tensors (shape
+    inference)."""
     from chainermn_tpu_torch.links import MultiNodeChainList
 
     model = MultiNodeChainList(comm)
     for ci, (fn, rank, rank_in, rank_out) in enumerate(spec):
         if calls is not None:
             def fn(params, x, _fn=fn, _ci=ci):
-                calls[_ci] += 1
+                first = x[0] if isinstance(x, tuple) else x
+                (meta_calls if first.is_meta else calls)[_ci] += 1
                 return _fn(params, x)
         model.add_link(fn, rank=rank, rank_in=rank_in, rank_out=rank_out)
     return model
@@ -279,8 +283,8 @@ def links_worker(inputs: dict) -> dict:
     for name, spec in chain_specs(n).items():
         params = [_chain_params(inputs, name, k) for k in range(len(spec))]
         x = torch.tensor(inputs[f"{name}/x"])
-        calls = [0] * len(spec)
-        model = _chain(comm, spec, calls)
+        calls, meta_calls = [0] * len(spec), [0] * len(spec)
+        model = _chain(comm, spec, calls, meta_calls)
         out[f"{name}/replicated"] = model.build()(params, x).detach().numpy()
         y = model.apply(params, x)
         if name == "two_stage":
@@ -299,6 +303,7 @@ def links_worker(inputs: dict) -> dict:
                 g = t.grad if t.grad is not None else torch.zeros_like(t)
                 out[f"{name}/g{k}/{key}"] = g.numpy()
         out[f"{name}/calls"] = np.array(calls)
+        out[f"{name}/meta_calls"] = np.array(meta_calls)
     bad = {"w": torch.zeros(3, 4), "b": torch.zeros(4)}
     x = torch.zeros(2, 3)
     fwd_ref = _chain(comm, [(dense_fn, 0, 1, None), (dense_fn, 1, None, 0)])
@@ -352,8 +357,8 @@ def twin_worker(inputs: dict) -> dict:
     params = [{k[len(f"p{i}/"):]: v for k, v in inputs.items()
                if k.startswith(f"p{i}/")} for i in range(2)]
     res = train_mnist_model_parallel.main(
-        ["--iterations", str(int(inputs["iterations"])), "--batchsize",
-         str(int(inputs["batchsize"]))],
+        ["--device", "cpu", "--iterations", str(int(inputs["iterations"])),
+         "--batchsize", str(int(inputs["batchsize"]))],
         params=chain_params_from_flax(params))
     return {"losses": np.array(res["losses"]),
             "final_acc": np.array(res["final_acc"])}
