@@ -23,7 +23,10 @@ turns one rank's crash into the whole job's end. The autograd graph spans
 ranks: ``functions`` (differentiable send/recv and collectives, over
 ``parallel.collectives``), ``links.MultiNodeChainList`` (a model split
 across ranks), ``links.create_mnbn_model``, and ``parallel.tensor``'s
-tensor-parallel layers.
+tensor-parallel layers. The LM splits across ranks by its weights
+(``TransformerLM(tp_group=)``, ``serving.ServingEngine(mesh=)``) or by
+its state (``parallel.zero``, ``parallel.fsdp``), and the checkpointer
+saves the sharded state.
 
 Entry points run on ``cuda`` unless the caller passes ``device=`` (the
 CPU tests pass ``device="cpu"``); with no card and no ``device=`` they

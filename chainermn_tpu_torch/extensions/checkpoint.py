@@ -32,12 +32,18 @@ optimizer its state with one step on zero gradients at learning rate 0
 (the parameters do not move; ``torch.distributed.checkpoint`` primes
 optimizers the same way), then loads the saved state over it.
 
-Sharded leaves (``DTensor``, ``ShardedTensor``) do not exist in the port
-until ROADMAP queue 1, item 6.2 (ZeRO/FSDP); saving one raises. The
-numpy shard-key helpers of the JAX format (:func:`_index_str`,
-:meth:`MultiNodeCheckpointer._global_from_shards`) are kept, so
-``allow_world_resize=True`` reads the same shard entries; for replicated
-state it works today.
+Sharded leaves (``DTensor``, as :mod:`chainermn_tpu_torch.parallel.fsdp`
+places parameters and optimizer state) are saved as the JAX package saves
+a multi-process sharded array: each rank writes only its local shard,
+keyed ``path@@start:stop|...`` by its global index (:func:`_index_str`); a
+replicated ``DTensor`` is written whole under its path. A restore at the
+same world size takes each rank's shard by the template leaf's own
+index; ``allow_world_resize=True`` reassembles each leaf from every
+rank's files (:meth:`MultiNodeCheckpointer._global_from_shards`) and cuts
+the template's shard out of it, so 4 ranks' FSDP state loads on 2. A
+snapshot that the JAX package wrote (arrays only, no ``__leaves__``
+entry) restores into a template of tensors the same way. ``ShardedTensor``
+leaves raise.
 """
 
 from __future__ import annotations
@@ -97,12 +103,41 @@ def _tree_of(state):
     return state
 
 
-def _is_sharded(leaf) -> bool:
+def _is_dtensor(leaf) -> bool:
     try:
         from torch.distributed.tensor import DTensor
     except ImportError:  # a torch without DTensor holds none
-        DTensor = ()
-    return isinstance(leaf, DTensor) or type(leaf).__name__ == "ShardedTensor"
+        return False
+    return isinstance(leaf, DTensor)
+
+
+def _dtensor_index(leaf) -> tuple:
+    """The global slices of this rank's local shard of a ``DTensor``:
+    along each ``Shard(d)`` mesh dim, the chunks of ``torch.chunk``
+    (``ceil(size / n)`` each, the last ones shorter or empty)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    bounds = [[0, s] for s in leaf.shape]
+    coord = leaf.device_mesh.get_coordinate()
+    for i, pl in enumerate(leaf.placements):
+        if isinstance(pl, Replicate):
+            continue
+        if type(pl) is not Shard:
+            raise NotImplementedError(
+                f"checkpointing a DTensor placed {pl} is not ported (Shard "
+                "and Replicate are)")
+        lo, hi = bounds[pl.dim]
+        n = leaf.device_mesh.size(i)
+        c = -(-(hi - lo) // n)
+        start = min(lo + coord[i] * c, hi)
+        bounds[pl.dim] = [start, min(start + c, hi)]
+    return tuple(slice(a, b) for a, b in bounds)
+
+
+def _is_replicated(leaf) -> bool:
+    from torch.distributed.tensor import Replicate
+
+    return all(isinstance(pl, Replicate) for pl in leaf.placements)
 
 
 def _flatten(tree, path: str = "", out: Optional[dict] = None):
@@ -126,10 +161,10 @@ def _flatten(tree, path: str = "", out: Optional[dict] = None):
     key = path or "<root>"
     if _SHARD_SEP in key:
         raise ValueError(f"tree-path key {key!r} contains {_SHARD_SEP!r}")
-    if isinstance(tree, torch.Tensor) and _is_sharded(tree):
+    if type(tree).__name__ == "ShardedTensor":
         raise NotImplementedError(
-            f"saving the sharded leaf {key!r} is not ported yet (ROADMAP "
-            "queue 1, item 6.2: ZeRO/FSDP); save replicated state")
+            f"the ShardedTensor leaf {key!r} is not ported; place sharded "
+            "state as a DTensor")
     if not isinstance(tree, (torch.Tensor, np.ndarray, np.generic)
                       + _SCALARS):
         raise TypeError(f"cannot checkpoint a leaf of type {type(tree)} at "
@@ -162,7 +197,15 @@ def _meta_and_arrays(state) -> tuple[dict, dict]:
     _, leaves = _flatten(_tree_of(state))
     meta, arrays = {}, {}
     for key, leaf in leaves.items():
-        if isinstance(leaf, torch.Tensor):
+        if _is_dtensor(leaf):
+            meta[key] = ["array", str(leaf.dtype)]
+            local = _to_array(leaf.to_local())
+            if _is_replicated(leaf):
+                arrays[key] = local
+            else:
+                index = _index_str(_dtensor_index(leaf), leaf.shape)
+                arrays[f"{key}{_SHARD_SEP}{index}"] = local
+        elif isinstance(leaf, torch.Tensor):
             meta[key] = ["array", str(leaf.dtype)]
             arrays[key] = _to_array(leaf)
         elif isinstance(leaf, (np.ndarray, np.generic)):
@@ -237,7 +280,16 @@ def _into(template, tree):
 
 def _restore_leaf(key, arr, meta, t):
     """The saved array ``arr`` as the template leaf ``t`` (a tensor on
-    its device and dtype, or a numpy array)."""
+    its device and dtype, or a numpy array; for a ``DTensor`` template,
+    ``arr`` is this rank's shard and a ``DTensor`` of the template's
+    placements comes back)."""
+    if _is_dtensor(t):
+        from torch.distributed.tensor import DTensor
+
+        local = _restore_leaf(key, arr, meta, t.to_local())
+        return DTensor.from_local(local, t.device_mesh, t.placements,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
     if tuple(arr.shape) != tuple(np.shape(t)):
         raise ValueError(f"checkpoint leaf {key!r} has shape "
                          f"{tuple(arr.shape)}, template expects "
@@ -507,25 +559,46 @@ class MultiNodeCheckpointer:
 
     def _restore_from(self, template, data, where: str, *, resized: bool):
         files = set(data.files if hasattr(data, "files") else data)
-        if _LEAVES_KEY not in files:
-            raise ValueError(f"checkpoint {where} has no {_LEAVES_KEY!r} "
-                             "entry: not a snapshot of this format")
-        meta = json.loads(str(np.asarray(data[_LEAVES_KEY])))
         shard_keys = {k.split(_SHARD_SEP, 1)[0] for k in files
                       if _SHARD_SEP in k}
+        if _LEAVES_KEY in files:
+            meta = json.loads(str(np.asarray(data[_LEAVES_KEY])))
+        else:
+            # the JAX package's snapshot: arrays only, keyed by tree path
+            meta = {k.split(_SHARD_SEP, 1)[0]: ["array", "numpy"]
+                    for k in files}
         for k in shard_keys:
             meta.setdefault(k, ["array", "sharded"])
 
+        def global_of(key, t):
+            dtype = (np.asarray(t).dtype if not isinstance(t, torch.Tensor)
+                     else _to_array(torch.empty(0, dtype=t.dtype)).dtype)
+            return self._global_from_shards(key, data, tuple(np.shape(t)),
+                                            dtype)
+
         def array_of(key, t):
+            if _is_dtensor(t):
+                index = _dtensor_index(t)
+                skey = f"{key}{_SHARD_SEP}{_index_str(index, t.shape)}"
+                if skey in files:
+                    return np.asarray(data[skey])
+                if key in files:
+                    return np.asarray(data[key])[index]
+                if not resized:
+                    raise ValueError(
+                        f"checkpoint misses shard {skey!r} required by the "
+                        "template's placement; was it saved under another "
+                        "mesh layout? (allow_world_resize=True reassembles "
+                        "it from every rank's files)")
+                return global_of(key, t)[index]
             if key in files:
                 return np.asarray(data[key])
             if not resized:
                 raise ValueError(
                     f"checkpoint leaf {key!r} was saved sharded; restore "
-                    "it with allow_world_resize=True")
-            dtype = (np.asarray(t).dtype if not isinstance(t, torch.Tensor)
-                     else _to_array(torch.empty(0, dtype=t.dtype)).dtype)
-            return self._global_from_shards(key, data, np.shape(t), dtype)
+                    "it into a DTensor template, or with "
+                    "allow_world_resize=True")
+            return global_of(key, t)
 
         return _restore(template, meta, array_of, where)
 

@@ -32,7 +32,15 @@ product, and the tied head computed in the compute dtype. Caches are
 explicit lists of per-block dicts that the caller passes and the model
 writes in place; no state hides in the module.
 
-Left for later: MoE, tensor parallelism, LoRA adapters, ``sow_kv``.
+Tensor parallelism (``tp_group``): a block built with this rank's LOCAL
+``num_heads``/``num_kv_heads``/``d_ff`` and an explicit ``head_dim``
+holds its shard of every column/row weight and makes exactly one
+all-reduce per column→row pair, two per layer (:meth:`TransformerLM.
+clone` cuts a full model down to such a shard; :func:`~chainermn_tpu_torch.
+serving.engine.shard_lm_params` gives the weights).
+
+Left for later: MoE (also under tensor parallelism, ROADMAP queue 1, item
+6.6), LoRA adapters, ``sow_kv``.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from chainermn_tpu_torch.ops.paged_decode import (
     paged_flash_decode,
 )
 from chainermn_tpu_torch.ops.paged_kv import paged_lookup, paged_update
+from chainermn_tpu_torch.parallel.tensor import copy_to_tp, reduce_from_tp
 from chainermn_tpu_torch.utils import prng
 
 DECODE_ATTEND_IMPLS = ("xla", "fused")
@@ -127,7 +136,19 @@ def _dense_write(cache_t, rows, cols, new):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: ``x + proj(attn(LN(x)))`` then ``x + FFN(LN(x))``."""
+    """Pre-LN block: ``x + proj(attn(LN(x)))`` then ``x + FFN(LN(x))``.
+
+    ``tp_group`` (a process group or a communicator; None: no tensor
+    parallelism) makes the block one rank's shard of a tensor-parallel
+    block: ``num_heads``, ``num_kv_heads`` and ``d_ff`` are then this
+    rank's (set ``head_dim``, since ``d_model // num_heads`` no longer
+    holds), ``qkv`` and ``ff_up`` are column shards and ``proj`` and
+    ``ff_down`` row shards. The normed input is wrapped in
+    :func:`~chainermn_tpu_torch.parallel.tensor.copy_to_tp` before
+    ``qkv`` and ``ff_up``, and the outputs of ``proj`` and ``ff_down``
+    in :func:`~chainermn_tpu_torch.parallel.tensor.reduce_from_tp`: one
+    all-reduce per column→row pair. ``ff_down``'s bias rides inside the
+    reduce, so the shard holds ``bias / n``."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int, *,
                  compute_dtype=torch.bfloat16,
@@ -136,6 +157,7 @@ class TransformerBlock(nn.Module):
                  window: Optional[int] = None,
                  decode_attend_impl: str = "xla", causal: bool = True,
                  dropout_rate: float = 0.0, kv_layout: str = "paged",
+                 head_dim: Optional[int] = None, tp_group=None,
                  device=None) -> None:
         super().__init__()
         if decode_attend_impl not in DECODE_ATTEND_IMPLS:
@@ -164,7 +186,9 @@ class TransformerBlock(nn.Module):
         self.decode_attend_impl = decode_attend_impl
         #: the slot-decode cache layout (:meth:`_slot_decode_attend`)
         self.kv_layout = kv_layout
-        self.head_dim = d_model // num_heads
+        #: the tensor-parallel group (None: the whole block on this rank)
+        self.tp_group = tp_group
+        self.head_dim = head_dim or d_model // num_heads
         kv_heads = num_kv_heads or num_heads
         dt = dict(dtype=compute_dtype, device=device)
         self.ln1 = LayerNorm(d_model, **dt)
@@ -303,7 +327,11 @@ class TransformerBlock(nn.Module):
         kv_heads = self.num_kv_heads or self.num_heads
         hd = self.head_dim
         B, T = x.shape[:2]
-        qkv = _dense(self.qkv, self.ln1(x), dt)
+        tp = self.tp_group is not None
+        h = self.ln1(x)
+        if tp:
+            h = copy_to_tp(h, self.tp_group)
+        qkv = _dense(self.qkv, h, dt)
         q, k, v = torch.split(
             qkv, [self.num_heads * hd, kv_heads * hd, kv_heads * hd], dim=-1)
         qh = q.reshape(B, T, self.num_heads, hd)
@@ -334,9 +362,17 @@ class TransformerBlock(nn.Module):
             o = attn(qh, kh, vh, causal=self.causal, scale=hd ** -0.5, **kw)
         m_attn, m_ffn = dropout_masks or (None, None)
         o = _dense(self.proj, o.reshape(B, T, self.num_heads * hd), dt)
+        if tp:  # the attention pair's one all-reduce
+            o = reduce_from_tp(o, self.tp_group)
         x = x + self._dropout(o, m_attn)
-        h = F.gelu(_dense(self.ff_up, self.ln2(x), dt), approximate="tanh")
-        return x + self._dropout(_dense(self.ff_down, h, dt), m_ffn)
+        h = self.ln2(x)
+        if tp:
+            h = copy_to_tp(h, self.tp_group)
+        h = F.gelu(_dense(self.ff_up, h, dt), approximate="tanh")
+        h = _dense(self.ff_down, h, dt)
+        if tp:  # the FFN pair's: ff_down's bias / n sums back to the bias
+            h = reduce_from_tp(h, self.tp_group)
+        return x + self._dropout(h, m_ffn)
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
@@ -417,6 +453,7 @@ class TransformerLM(nn.Module):
                  remat_policy: str = "dots", causal: bool = True,
                  kv_layout: str = "paged",
                  decode_cache_len: Optional[int] = None,
+                 head_dim: Optional[int] = None, tp_group=None,
                  device=None) -> None:
         super().__init__()
         if not 0.0 <= dropout_rate < 1.0:
@@ -450,7 +487,11 @@ class TransformerLM(nn.Module):
         #: rows of a dense decode cache (the slot layout's and
         #: :func:`init_cache`'s ring); None means ``max_len``
         self.decode_cache_len = decode_cache_len
-        self.head_dim = d_model // num_heads
+        #: the tensor-parallel group of every block (None: no tensor
+        #: parallelism); ``num_heads``, ``num_kv_heads`` and ``d_ff`` are
+        #: then this rank's
+        self.tp_group = tp_group
+        self.head_dim = head_dim or d_model // num_heads
         self.kv_heads = num_kv_heads or num_heads
         self.tok_emb = nn.Embedding(vocab_size, d_model, device=device)
         if pos_encoding == "learned":
@@ -459,17 +500,20 @@ class TransformerLM(nn.Module):
         else:
             self.pos_emb = None
         self.blocks = nn.ModuleList([
-            TransformerBlock(d_model, num_heads, d_ff,
-                             compute_dtype=compute_dtype,
-                             attention_fn=attention_fn,
-                             num_kv_heads=num_kv_heads, window=window,
-                             decode_attend_impl=decode_attend_impl,
-                             causal=causal, dropout_rate=dropout_rate,
-                             kv_layout=kv_layout, device=device)
-            for _ in range(num_layers)
-        ])
+            self._block(device) for _ in range(num_layers)])
         self.ln_f = LayerNorm(d_model, dtype=compute_dtype, device=device)
         self.init_weights(torch.Generator().manual_seed(seed))
+
+    def _block(self, device) -> TransformerBlock:
+        """A block of this model's fields."""
+        return TransformerBlock(
+            self.d_model, self.num_heads, self.d_ff,
+            compute_dtype=self.compute_dtype,
+            attention_fn=self.attention_fn, num_kv_heads=self.num_kv_heads,
+            window=self.window, decode_attend_impl=self.decode_attend_impl,
+            causal=self.causal, dropout_rate=self.dropout_rate,
+            kv_layout=self.kv_layout, head_dim=self.head_dim,
+            tp_group=self.tp_group, device=device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -492,18 +536,36 @@ class TransformerLM(nn.Module):
         self.ln_f.weight.fill_(1.0)
         self.ln_f.bias.zero_()
 
+    _DECODE_FIELDS = ("decode_attend_impl", "kv_layout", "decode_cache_len")
+    _SHARD_FIELDS = ("num_heads", "num_kv_heads", "d_ff", "head_dim")
+
     def clone(self, **overrides) -> "TransformerLM":
-        """A view of this model with decode fields changed and the SAME
-        parameter tensors (flax ``Module.clone``'s role: the serving
-        engine serves through a clone carrying its ``decode_attend_impl``,
-        ``kv_layout`` and ``decode_cache_len``, leaving the caller's model
-        untouched)."""
-        unknown = set(overrides) - {"decode_attend_impl", "kv_layout",
-                                    "decode_cache_len"}
+        """A view of this model with fields changed (flax ``Module.clone``'s
+        role), leaving the caller's model untouched.
+
+        The decode fields (``decode_attend_impl``, ``kv_layout``,
+        ``decode_cache_len``) and ``tp_group`` keep the SAME parameter
+        tensors: the serving engine serves through such a clone. The
+        local widths of a tensor-parallel shard (``num_heads``,
+        ``num_kv_heads``, ``d_ff``, ``head_dim``, with ``tp_group``) give
+        every block new, UNINITIALISED ``qkv``/``proj``/``ff_up``/
+        ``ff_down`` layers of the shard's shapes, for the caller to load
+        a shard into (:func:`~chainermn_tpu_torch.serving.engine.
+        tp_local_model` does); the replicated leaves (embeddings, norms, the
+        tied head) stay the same tensors. The MoE fields raise (ROADMAP
+        queue 1, item 6.6)."""
+        moe = {"expert_axis", "moe_experts_local"} & set(overrides)
+        if moe:
+            raise NotImplementedError(
+                f"{sorted(moe)} (MoE blocks, also under tensor parallelism) "
+                "are not ported yet (ROADMAP queue 1, item 6.6: moe.py)")
+        unknown = set(overrides) - set(self._DECODE_FIELDS) - set(
+            self._SHARD_FIELDS) - {"tp_group"}
         if unknown:
-            raise ValueError(f"clone() takes decode_attend_impl, kv_layout "
-                             f"and decode_cache_len only, got "
-                             f"{sorted(unknown)}")
+            raise ValueError(
+                f"clone() takes {', '.join(self._DECODE_FIELDS)}, "
+                f"{', '.join(self._SHARD_FIELDS)} and tp_group, got "
+                f"{sorted(unknown)}")
         impl = overrides.get("decode_attend_impl", self.decode_attend_impl)
         if impl not in DECODE_ATTEND_IMPLS:
             raise ValueError(f"decode_attend_impl must be 'xla' or 'fused', "
@@ -514,14 +576,31 @@ class TransformerLM(nn.Module):
                              f"{layout!r}")
         new = copy.copy(self)
         new._modules = dict(self._modules)
-        new.blocks = nn.ModuleList([copy.copy(b) for b in self.blocks])
-        new.decode_attend_impl = impl
-        new.kv_layout = layout
-        new.decode_cache_len = overrides.get("decode_cache_len",
-                                             self.decode_cache_len)
-        for b in new.blocks:
-            b.decode_attend_impl = impl
-            b.kv_layout = layout
+        for k, v in overrides.items():
+            setattr(new, k, v)
+        new.kv_heads = new.num_kv_heads or new.num_heads
+        if new.num_heads % new.kv_heads:
+            raise ValueError(f"num_heads={new.num_heads} is not a multiple "
+                             f"of num_kv_heads={new.kv_heads}")
+        reshaped = any(getattr(new, k) != getattr(self, k)
+                       for k in self._SHARD_FIELDS)
+        if reshaped:
+            device = self.tok_emb.weight.device
+            blocks = []
+            for old in self.blocks:
+                with torch.device("meta"):
+                    b = new._block(None)
+                for name in ("qkv", "proj", "ff_up", "ff_down"):
+                    setattr(b, name, getattr(b, name).to_empty(device=device))
+                b.ln1, b.ln2 = old.ln1, old.ln2
+                blocks.append(b)
+            new.blocks = nn.ModuleList(blocks)
+        else:
+            new.blocks = nn.ModuleList([copy.copy(b) for b in self.blocks])
+            for b in new.blocks:
+                b.decode_attend_impl = impl
+                b.kv_layout = layout
+                b.tp_group = new.tp_group
         return new
 
     def forward(self, tokens, *, segment_ids=None, positions=None,

@@ -24,6 +24,17 @@ array (counterpart of ``chainermn_tpu/serving/engine.py::ServingEngine``).
   token at absolute position ``i`` of a request with seed ``s`` draws
   with ``fold_in(fold_in(base_key, s), i)``.
 
+- **Tensor parallelism** (``mesh=``, a process group or communicator of
+  ``n`` ranks, one process per rank): every rank builds an engine over
+  the same full model; each holds its shard (:func:`shard_lm_params`,
+  rank ``r`` loads ``[r]``) in a local decode model of ``Hq / n`` query
+  heads, ``Hkv / n`` kv heads and ``d_ff / n``, its own cache of those
+  kv heads, and attends through K4's 4-D entry on its own heads. Every
+  forward makes two all-reduces per layer and no other collective; the
+  logits after the last reduce are the same on every rank, and so are
+  the schedulers' decisions and the streams, provided every rank is
+  handed the same requests in the same order.
+
 Token-stream guarantee, as in the JAX package: a request's stream equals
 the sequential :func:`~chainermn_tpu_torch.models.transformer.generate`
 stream for the same prompt (and, sampled, the same seed), whatever other
@@ -35,11 +46,13 @@ Options of the JAX engine that this port does not serve yet raise
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from chainermn_tpu_torch._device import resolve_device
 from chainermn_tpu_torch.datasets.bucketing import (
@@ -52,6 +65,11 @@ from chainermn_tpu_torch.models.transformer import (
     _tempered_filtered,
     _validate_filters,
     stream_sample_keys,
+)
+from chainermn_tpu_torch.parallel.collectives import as_group
+from chainermn_tpu_torch.parallel.tensor import (
+    shard_qkv_columns,
+    stack_tp_params,
 )
 from chainermn_tpu_torch.serving.kv_blocks import (
     BlockAllocator,
@@ -68,6 +86,157 @@ def _not_ported(option: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{option} is not ported yet (ROADMAP queue 1, serving items left "
         f"out of the first slice: {item})")
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel weights
+
+_ROW_SHARDED = ("proj", "ff_down")  # the JAX kernel's rows: columns here
+
+
+def _tp_layer(name: str):
+    """``(layer, leaf)`` of a block leaf (``blocks.{i}.{layer}.{leaf}``),
+    or None for the replicated leaves outside the blocks."""
+    parts = name.split(".")
+    if len(parts) == 4 and parts[0] == "blocks":
+        if "moe_" in parts[2]:
+            raise NotImplementedError(
+                f"sharding the MoE leaf {name!r} is not ported yet (ROADMAP "
+                "queue 1, item 6.6: moe.py)")
+        return parts[2], parts[3]
+    return None
+
+
+def _stack_leaf(name: str, leaf, n: int, heads: int, kv_heads: int,
+                head_dim: int):
+    """The ``[n, ...]`` per-rank shards of one leaf of the port's LM
+    state: ``qkv`` by heads, ``ff_up`` by its output rows, ``proj`` and
+    ``ff_down`` by their input columns (``nn.Linear.weight`` is ``[out,
+    in]``, the flax kernel ``[in, out]``), ``ff_down``'s bias divided by
+    ``n``, every other leaf tiled."""
+    layer, kind = _tp_layer(name) or (None, None)
+    if layer == "qkv" and kind == "weight":
+        return shard_qkv_columns(leaf.t(), heads, kv_heads, head_dim,
+                                 n).transpose(1, 2)
+    if layer in _ROW_SHARDED and kind == "weight":
+        return stack_tp_params(leaf, n, 1)
+    if layer == "ff_up":
+        return stack_tp_params(leaf, n, 0)
+    if layer == "ff_down" and kind == "bias":
+        leaf = leaf / n
+    return torch.stack([leaf] * n)
+
+
+def _tp_check(model, n: int) -> None:
+    """The JAX engine's divisibility check of a tensor-parallel mesh."""
+    if model.num_heads % n or model.kv_heads % n or model.d_ff % n:
+        raise ValueError(
+            f"heads={model.num_heads}/kv={model.kv_heads}/d_ff={model.d_ff} "
+            f"must divide the model-axis size {n}")
+
+
+def shard_lm_params(model, state, n: int) -> dict:
+    """Stack a :class:`~chainermn_tpu_torch.models.transformer.
+    TransformerLM` state dict (``model.state_dict()``, or the names that
+    :func:`~chainermn_tpu_torch.convert.lm_state_from_flax` gives) into
+    ``[n, ...]`` per-rank shards for tensor-parallel decode; rank ``r``
+    of the group loads ``[r]`` (:func:`tp_local_model` does).
+
+    The JAX ``shard_lm_params`` map in the port's layout: the ``qkv``
+    weight head-sharded (each rank's ``Hq / n`` query heads, then its
+    ``Hkv / n`` key and value heads, as :func:`~chainermn_tpu_torch.
+    parallel.tensor.shard_qkv_columns` cuts the flax kernel), ``proj``
+    and ``ff_down`` weights split along their input dim (the kernel's
+    rows), ``ff_up``'s weight and bias along the output dim, ``ff_down``'s
+    bias stored as ``bias / n`` so the row-parallel all-reduce
+    reassembles it (exactly, for ``n`` a power of two), and every other
+    leaf (embeddings, norms, learned positions) tiled. ``model`` gives
+    the full widths."""
+    heads, kv, hd = model.num_heads, model.kv_heads, model.head_dim
+    return {name: _stack_leaf(name, leaf, n, heads, kv, hd).contiguous()
+            for name, leaf in state.items()}
+
+
+def unshard_lm_params(model, stacked) -> dict:
+    """Inverse of :func:`shard_lm_params`: the full state dict from its
+    ``[n, ...]`` stacks. ``ff_down``'s bias, stored divided by ``n``, is
+    the sum of its shards."""
+    heads, kv, hd = model.num_heads, model.kv_heads, model.head_dim
+    out = {}
+    for name, leaf in stacked.items():
+        n = leaf.shape[0]
+        layer, kind = _tp_layer(name) or (None, None)
+        if layer == "qkv" and kind == "weight":
+            ql, kl = heads // n * hd, kv // n * hd
+            out[name] = torch.cat(
+                [leaf[:, :ql].reshape(-1, leaf.shape[-1]),
+                 leaf[:, ql:ql + kl].reshape(-1, leaf.shape[-1]),
+                 leaf[:, ql + kl:].reshape(-1, leaf.shape[-1])], dim=0)
+        elif layer in _ROW_SHARDED and kind == "weight":
+            out[name] = torch.cat(list(leaf), dim=1)
+        elif layer == "ff_up":
+            out[name] = torch.cat(list(leaf), dim=0)
+        elif layer == "ff_down" and kind == "bias":
+            out[name] = leaf.sum(0)
+        else:
+            out[name] = leaf[0]
+    return out
+
+
+def tp_local_model(model, group, **clone_kw):
+    """This rank's shard of ``model`` for tensor parallelism over
+    ``group`` (a process group or communicator): a clone at ``Hq / n``
+    heads, ``Hkv / n`` kv heads and ``d_ff / n`` with ``tp_group=group``
+    and this rank's weights loaded, sharing ``model``'s replicated
+    leaves. ``clone_kw`` are more :meth:`TransformerLM.clone` fields.
+    Raises the JAX engine's ``ValueError`` when a width does not divide
+    the group size."""
+    g = as_group(group)
+    n, r = dist.get_world_size(g), dist.get_rank(g)
+    _tp_check(model, n)
+    local = model.clone(num_heads=model.num_heads // n,
+                        num_kv_heads=model.kv_heads // n,
+                        d_ff=model.d_ff // n, head_dim=model.head_dim,
+                        tp_group=group, **clone_kw)
+    heads, kv, hd = model.num_heads, model.kv_heads, model.head_dim
+    mine = local.state_dict(keep_vars=True)
+    with torch.no_grad():
+        for name, leaf in model.state_dict(keep_vars=True).items():
+            if mine[name] is not leaf:  # the clone's own sharded layers
+                mine[name].copy_(_stack_leaf(name, leaf, n, heads, kv,
+                                             hd)[r])
+    return local
+
+
+#: engines built with an NCCL mesh in this process (the device check's
+#: store keys must differ from one engine to the next)
+_NCCL_CHECKS = itertools.count()
+
+
+def _check_nccl_devices(group, device) -> None:
+    """Refuse an NCCL group whose ranks share a card (NCCL refuses two
+    ranks on one device; the engine does not switch backend for it):
+    every rank posts its card's UUID in the group's store, before any
+    NCCL collective."""
+    n = dist.get_world_size(group)
+    if n == 1 or dist.get_backend(group) != "nccl":
+        return
+    from torch.distributed.distributed_c10d import (
+        _get_process_group_store,
+    )
+
+    store = _get_process_group_store(group)
+    prefix = f"cmt_tp_devices/{next(_NCCL_CHECKS)}/"
+    store.set(prefix + str(dist.get_rank(group)),
+              str(torch.cuda.get_device_properties(device).uuid))
+    keys = [prefix + str(r) for r in range(n)]
+    store.wait(keys)
+    uuids = [store.get(k).decode() for k in keys]
+    if len(set(uuids)) < n:
+        raise ValueError(
+            f"mesh= is an NCCL group of {n} ranks on {len(set(uuids))} "
+            "device(s): NCCL needs one card per rank (a tensor-parallel "
+            "group on one card must be gloo over CUDA tensors)")
 
 
 class ServingEngine:
@@ -97,10 +266,16 @@ class ServingEngine:
       pad_id: prompt right-padding token for the bucketed prefill.
       prefix_cache: ``'off'``; under ``'dense'`` any valid value is
         forced off (dense rows are slot-private).
+      mesh: a process group or communicator (the JAX ``'model'`` axis):
+        tensor-parallel decode over its ranks, each serving through its
+        shard of ``model`` (:func:`tp_local_model`). Every rank builds the
+        engine over the same weights and serves the same requests. Heads,
+        kv heads and ``d_ff`` must divide its size; an NCCL group must
+        hold one card per rank.
       device: where the caches live; ``None`` means the CUDA card and
         raises without one. Must be the model's device.
 
-    The other JAX options (``mesh``, ``spec_tokens``, the prefix cache,
+    The other JAX options (``spec_tokens``, the prefix cache,
     ``prefill_chunk``, ``prefill_seq_parallel``, ``adapter_bank``,
     ``'auto'`` registry resolution) raise ``NotImplementedError`` when
     set.
@@ -140,8 +315,10 @@ class ServingEngine:
             raise ValueError(f"decode_attend_impl must be one of "
                              f"{DECODE_ATTEND_IMPLS}, got "
                              f"{decode_attend_impl!r}")
-        if mesh is not None:
-            raise _not_ported("mesh=", "tensor-parallel serving")
+        if mesh is not None and prefill_seq_parallel != "off":
+            raise _not_ported(
+                f"prefill_seq_parallel={prefill_seq_parallel!r} with mesh=",
+                "sequence-parallel prefill, which needs 6.5")
         if spec_tokens != 0:
             raise _not_ported(f"spec_tokens={spec_tokens!r}",
                               "speculative decoding")
@@ -207,9 +384,18 @@ class ServingEngine:
             # the ladder must be able to carry a full-horizon prompt
             self._buckets = self._buckets + (max_len,)
 
-        self._decode_model = model.clone(
-            decode_attend_impl=decode_attend_impl, kv_layout=decode_impl,
-            decode_cache_len=max_len)
+        clone_kw = dict(decode_attend_impl=decode_attend_impl,
+                        kv_layout=decode_impl, decode_cache_len=max_len)
+        #: the tensor-parallel group (None without ``mesh=``) and its size
+        self.mesh = None if mesh is None else as_group(mesh)
+        self.tp_size = 1
+        if mesh is None:
+            self._decode_model = model.clone(**clone_kw)
+        else:
+            self.tp_size = dist.get_world_size(self.mesh)
+            _tp_check(model, self.tp_size)
+            _check_nccl_devices(self.mesh, self.device)
+            self._decode_model = tp_local_model(model, mesh, **clone_kw)
         if dense:
             self.kv_block_size = None
             self._alloc = None

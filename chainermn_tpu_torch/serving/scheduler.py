@@ -239,7 +239,14 @@ class Scheduler:
 
         ``max_seconds`` bounds the run by wall clock (checked once per
         round; unfinished work stays queued/in flight); ``max_steps`` is
-        the runaway guard and raises."""
+        the runaway guard and raises. Under tensor parallelism
+        (``engine.tp_size > 1``) every rank must take the same decisions,
+        so the clock may not end a run: ``max_seconds`` is refused."""
+        if max_seconds is not None and getattr(self.engine, "tp_size", 1) > 1:
+            raise ValueError(
+                "max_seconds reads each rank's own clock; under tensor "
+                "parallelism the ranks would stop after different rounds "
+                "and leave their all-reduces unmatched")
         self.start_window()
         t0 = self._window_t0
         steps = 0

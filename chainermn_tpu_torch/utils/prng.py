@@ -20,6 +20,11 @@ Layout, as in ``jax/_src/prng.py`` and ``jax/_src/random.py``:
 - ``uniform``: the top mantissa bits under the exponent of 1.0, minus
   1.0, scaled into ``[minval, maxval)`` by one multiply-add and clamped
   below at ``minval`` (bf16 draws 8 bits and keeps their top 7);
+- ``split(key, num)``: threefry2x32 of the 64-bit iota over ``num``
+  split into its high and low words, the two output words a new key;
+- ``normal``: ``sqrt(2) * erfinv(u)`` with ``u`` uniform over
+  ``(-1, 1)``, ``erfinv`` by XLA's single-precision polynomial (Giles);
+  rounded in another order, so a few ulps from jax's, not bit for bit;
 - ``gumbel``: ``-log(-log(u))`` with ``u`` uniform over ``[tiny, 1)``;
 - ``categorical``: ``argmax(gumbel + logits)`` over the last axis.
 """
@@ -87,6 +92,15 @@ def fold_in(key, data):
     return torch.stack([y1, y2], dim=-1)
 
 
+def split(key, num: int = 2):
+    """``num`` new keys from ``key`` ``[2]``: ``[num, 2]`` (jax's
+    ``random.split`` with ``jax_threefry_partitionable`` on)."""
+    key = _as_key(key)
+    iota = torch.arange(num, dtype=torch.int64, device=key.device)
+    y1, y2 = threefry2x32(key[0], key[1], iota >> 32, _u32(iota))
+    return torch.stack([y1, y2], dim=-1)
+
+
 def random_bits(key, shape):
     """32 random bits per entry of ``shape`` for each key of ``key``
     ``[..., 2]``: ``[..., *shape]`` int64 words. The counters are the
@@ -135,6 +149,37 @@ def uniform(key, shape, dtype=torch.float32, minval=0.0, maxval=1.0):
     return torch.maximum(lo, scaled)
 
 
+#: XLA's ``ErfInv`` for float32 (M. Giles' approximation): the
+#: polynomial in ``w - 2.5`` where ``w = -log1p(-x * x) < 5``, else in
+#: ``sqrt(w) - 3``
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv32(x):
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(small, _ERFINV_SMALL[0], _ERFINV_LARGE[0])
+    for a, b in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
+        p = torch.where(small, a, b) + p * w
+    return p * x
+
+
+def normal(key, shape, dtype=torch.float32):
+    """Standard normal float32 draws: ``sqrt(2) * erfinv(u)``, ``u``
+    uniform over ``[nextafter(-1, 0), 1)`` (jax's ``random.normal``)."""
+    if dtype != torch.float32:
+        raise TypeError(f"normal takes float32, got {dtype}")
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, dtype, minval=lo, maxval=1.0)
+    return _erfinv32(u) * torch.tensor(np.sqrt(2.0), dtype=dtype)
+
+
 def gumbel(key, shape, dtype=torch.float32):
     """Gumbel draws ``-log(-log(u))``, ``u`` uniform over ``[tiny, 1)``
     (jax's ``mode='low'``, its default)."""
@@ -151,5 +196,5 @@ def categorical(key, logits):
     return torch.argmax(g + logits, dim=-1)
 
 
-__all__ = ["PRNGKey", "categorical", "fold_in", "gumbel", "random_bits",
-           "threefry2x32", "uniform"]
+__all__ = ["PRNGKey", "categorical", "fold_in", "gumbel", "normal",
+           "random_bits", "split", "threefry2x32", "uniform"]

@@ -176,16 +176,42 @@ script exits non-zero without its final ``ok`` line:
     for bit to the net built with ``MultiNodeBatchNormalization``, and
     its ``state_dict`` loads into the unconverted net. Phase 2 also
     times the rows route's fp32 decode tick and T 512 prefill.
+15. (run after phase 14) Tensor-parallel LM, ZeRO and FSDP on one card:
+    (a) phase 3's engine and traffic with ``mesh=`` the one-rank NCCL
+    group (TP 1): streams bit-identical to phase 3's, every decode tick
+    ``2 x num_layers`` all-reduces and no other ``torch.distributed``
+    call, ``num_layers`` K4 launches (4-D entry, the rank's heads);
+    (b) TP 2 on the one card: two processes (``python3 chip_smoke.py
+    --tp-child DIR RANK``) share ``cuda:0`` in a gloo group over CUDA
+    tensors (NCCL refuses two ranks on one device, and an engine handed
+    such an NCCL group must refuse it), each rank on 4 heads and d_ff
+    1024, phase 3's requests cut to ``TP_CARD_REQUESTS`` of
+    ``TP_CARD_NEW_TOKENS`` new tokens: fp32 greedy streams equal to the
+    mesh-less fp32 engine's (or parted at a true near-tie), every rank's
+    streams equal, each rank's K4 launches ``num_layers x (prefills +
+    decode steps)``; bf16: the share of equal tokens and the first
+    prefill's max logit difference (a rank that fails in either dtype
+    fails the phase); (c) phase 7's shape for ``TP_TRAIN_STEPS`` steps as
+    the TP 1 shard: losses bit-identical to the model without TP, K1-K3
+    ``num_layers`` launches a step each; the example twin's default run
+    (world size 1, dp 1 x tp 1); (d) ZeRO and FSDP at world size 1 over
+    NCCL, phase 7's LM: losses within ``ZERO_FSDP_LOSS_TOL`` of plain
+    AdamW's, peak memory of each; the FSDP state (DTensor leaves, saved
+    as ``key@@index`` shards) saved at step ``ZERO_FSDP_RESUME_AT``,
+    loaded into a fresh one and resumed: losses bit-identical to the run
+    without a stop.
 
 The ``kernels`` JSON and the card's name and power limit come on the two
 lines before the last; the last line is ``{"ok": true, "device": {...}}``.
 ``dense_flash_decode``'s ``launches`` are phase 13 (b)'s,
 ``paged_flash_decode_stacked``'s phase 14 (a)'s.
 K1-K3's ``launches`` are phase 7's (the LM training path); their
-``launches_by_path`` add phase 11's encoder run.
+``launches_by_path`` add phase 11's encoder run and phase 15 (c)'s TP 1
+training; K4's add phase 15 (a)'s TP 1 serving and each rank's of (b).
 
 ``python3 chip_smoke.py --drill-child DIR MODE`` is phase 12's child
-process, not a check of its own.
+process and ``--tp-child DIR RANK`` phase 15 (b)'s, not checks of their
+own.
 """
 
 from __future__ import annotations
@@ -600,7 +626,7 @@ def phase_serving(torch, np):
         logits = model(torch.tensor([prompt + streams[0]], device="cuda"))
     if not bool(torch.isfinite(logits.float()).all()):
         raise AssertionError("non-finite logits at full width")
-    return launches, routes, summary, engine
+    return launches, routes, summary, engine, streams
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1364,10 +1390,12 @@ def _packed_loss(model, batch):
     return lm_loss(model(tokens, segment_ids=seg), tokens, mask=valid)
 
 
-def _profile_window(torch, fn, label, markers):
+def _profile_window(torch, fn, label, markers, host_ops=None):
     """Wall vs device-busy time of ``fn()`` under torch.profiler (the sum
     of the kernels' device time; one stream, so they do not overlap) and
-    the busiest kernels; ``markers`` name kernels whose share to print."""
+    the busiest kernels; ``markers`` name kernels whose share to print.
+    ``host_ops``, a dict, receives each host-side event's self time
+    (ms) and count: the ops and the CUDA runtime calls."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1378,11 +1406,14 @@ def _profile_window(torch, fn, label, markers):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []  # device-side events only: CPU ops would count twice
     for ev in prof.key_averages():
-        if "CUDA" in str(ev.device_type):
-            dev = getattr(ev, "self_device_time_total", None)
-            if dev is None:
-                dev = ev.self_cuda_time_total
-            kernels.append((dev / 1e3, ev.count, ev.key))
+        if "CUDA" not in str(ev.device_type):
+            if host_ops is not None:
+                host_ops[ev.key] = (ev.self_cpu_time_total / 1e3, ev.count)
+            continue
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = ev.self_cuda_time_total
+        kernels.append((dev / 1e3, ev.count, ev.key))
     kernels.sort(reverse=True)
     busy = sum(kc[0] for kc in kernels)
     if busy <= 0:
@@ -2594,6 +2625,600 @@ def _mnbn_steps(torch, comm, MultiNodeBatchNormalization, create_mnbn_model):
     return losses
 
 
+# ---------------------------------------------------------------- phase 15
+
+TP_CARD_SHARDS = 2
+TP_CARD_REQUESTS = 8
+TP_CARD_NEW_TOKENS = 16
+TP_CHILD_TIMEOUT_S = 420
+TP_TRAIN_STEPS = 10
+#: phase 7's gate: ZeRO and FSDP against plain AdamW, step by step
+ZERO_FSDP_LOSS_TOL = 1e-3
+ZERO_FSDP_RESUME_AT = 5
+#: the ``torch.distributed`` calls phase 15 counts
+DIST_CALLS = ("all_reduce", "all_gather", "all_gather_into_tensor",
+              "reduce_scatter_tensor", "broadcast", "reduce", "gather",
+              "scatter", "send", "recv", "batch_isend_irecv",
+              "all_to_all_single")
+
+
+class _CountedDist:
+    """Count the ``torch.distributed`` calls made while it is entered
+    (the port looks them up on the module, where they are wrapped)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist = dist
+        self.counts = dict.fromkeys(DIST_CALLS, 0)
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.dist, n) for n in DIST_CALLS}
+
+        def wrap(name):
+            def call(*a, **k):
+                self.counts[name] += 1
+                return self.saved[name](*a, **k)
+            return call
+
+        for n in DIST_CALLS:
+            setattr(self.dist, n, wrap(n))
+        return self.counts
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.dist, n, f)
+
+
+def _ticks_counted(engine, pd):
+    """Wrap ``engine.decode_step`` to record, per tick, its
+    ``torch.distributed`` calls (nonzero ones) and K4's launches; returns
+    the list the ticks append to."""
+    ticks = []
+    step = engine.decode_step
+
+    def counted():
+        k4 = pd.LAUNCHES
+        with _CountedDist() as calls:
+            out = step()
+        ticks.append(({k: v for k, v in calls.items() if v},
+                      pd.LAUNCHES - k4))
+        return out
+
+    engine.decode_step = counted
+    return ticks
+
+
+def phase_tp_serving(torch, np, comm, phase3_streams):
+    """Phase 15 (a): phase 3's engine and traffic with ``mesh=`` the
+    one-rank NCCL group (TP 1): streams bit-identical to phase 3's, and
+    every decode tick 2 x num_layers all-reduces, nothing else, and
+    num_layers K4 launches."""
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.ops import paged_decode as pd
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    model = TransformerLM(seed=0)
+    engine = ServingEngine(model, num_slots=16, max_len=2048,
+                           kv_block_size=64, decode_attend_impl="fused",
+                           mesh=comm)
+    reqs = _requests(np, 24, 0, model.vocab_size)
+    _serve(engine, _requests(np, 2, 1, model.vocab_size))  # warm-up
+    torch.cuda.synchronize()
+    pd.reset_launches()
+    ticks = _ticks_counted(engine, pd)
+    t0 = time.perf_counter()
+    streams, sched = _serve(engine, reqs)
+    wall = time.perf_counter() - t0
+    summary = sched.summary()
+    launches, routes = pd.LAUNCHES, dict(pd.ROUTE_LAUNCHES)
+    want_calls = {"all_reduce": 2 * model.num_layers}
+    bad = [t for t in ticks if t != (want_calls, model.num_layers)]
+    same = streams == phase3_streams
+    del engine
+    cost = _one_rank_all_reduce_us(torch, comm)
+    profiled, host = _tp1_profiles(torch, np, model, comm)
+    row = {"tp": 1, "group": "nccl", "requests": len(reqs),
+           "decode_ticks": len(ticks), "dist_calls_per_tick": ticks[0][0],
+           "k4_launches_per_tick": ticks[0][1], "k4_launches": launches,
+           "route_launches": routes, "wall_s": wall,
+           "token_ms_p50": summary["token_ms_p50"],
+           "token_ms_p99": summary["token_ms_p99"],
+           "bit_identical_to_phase3": same,
+           "one_rank_all_reduce_host_us": cost,
+           "profiled_8_ticks": profiled, "host_extra_ms_by_op": host}
+    print("tp serving (a) summary", json.dumps(row), flush=True)
+    print(f"tp serving (a): TP 1 over NCCL, {len(reqs)} requests, "
+          f"{len(ticks)} decode ticks, each {ticks[0][0]} torch.distributed "
+          f"calls and {ticks[0][1]} K4 launches (expected {want_calls} and "
+          f"{model.num_layers}); K4 launches {launches} by route "
+          f"{json.dumps(routes)}; decode step p50 "
+          f"{summary['token_ms_p50']} ms (phase 3 without a mesh: see its "
+          f"summary); host us of one reduce_from_tp at the tick's shape "
+          f"{cost}; 8 profiled ticks {profiled}; streams bit-identical to "
+          f"phase 3: {same}", flush=True)
+    if bad:
+        raise AssertionError(f"{len(bad)} decode ticks made other "
+                             f"collectives or launches: {bad[:3]}")
+    if not same:
+        raise AssertionError("TP 1 streams differ from phase 3's")
+    return row
+
+
+def _tp1_profiles(torch, np, model, comm, top=12):
+    """8 decode ticks of 16 slots under torch.profiler, with the mesh (TP
+    1) and without, in the order TP 1, none, none, TP 1 (two engines in
+    one process, so the host's drift between windows shows): each
+    window's wall, device busy and summed host self time, and the host
+    self time that TP 1 adds, by op and runtime call (the mean of its
+    two windows less the mean of the other two), largest first."""
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    engines = {}
+    for name, mesh in (("tp1", comm), ("no_mesh", None)):
+        e = ServingEngine(model, num_slots=16, max_len=2048,
+                          kv_block_size=64, decode_attend_impl="fused",
+                          mesh=mesh)
+        for p, _ in _requests(np, 16, 3, model.vocab_size):
+            e.prefill_join(p)
+        e.decode_step()  # warm
+        engines[name] = e
+    profiled, ops = {}, {}
+    for name in ("tp1", "no_mesh", "no_mesh", "tp1"):
+        e, got = engines[name], {}
+
+        def ticks8(e=e):
+            for _ in range(8):
+                e.decode_step()
+
+        wall_ms, busy, _ = _profile_window(
+            torch, ticks8, f"tp serving (a) {name} 8 ticks",
+            ("paged_decode",), host_ops=got)
+        profiled.setdefault(name, []).append(
+            {"wall_ms": wall_ms, "busy_ms": busy,
+             "host_self_ms": sum(t for t, _ in got.values())})
+        ops.setdefault(name, []).append(got)
+    del engines
+
+    def mean(name, key):
+        return sum(w.get(key, (0.0, 0))[0] for w in ops[name]) / 2
+
+    keys = set().union(*ops["tp1"], *ops["no_mesh"])
+    extra = sorted(((mean("tp1", k) - mean("no_mesh", k), k) for k in keys),
+                   reverse=True)
+    host = [{"op": k, "extra_ms": d,
+             "tp1_calls": ops["tp1"][0].get(k, (0, 0))[1],
+             "no_mesh_calls": ops["no_mesh"][0].get(k, (0, 0))[1]}
+            for d, k in extra[:top]]
+    total = sum(d for d, _ in extra)
+    print(f"tp serving (a) host: TP 1 adds {total:.3f} ms of host self time "
+          f"over 8 ticks (mean of two windows each); by op: "
+          + "; ".join(f"{h['op'][:60]} +{h['extra_ms']:.3f} ms "
+                      f"({h['tp1_calls']} vs {h['no_mesh_calls']} calls)"
+                      for h in host), flush=True)
+    return profiled, {"total_extra_ms": total, "top": host}
+
+
+def _one_rank_all_reduce_us(torch, comm, reps=200):
+    """Host µs of one ``reduce_from_tp`` at the decode tick's shape ([16,
+    1, 512] bf16) over ``comm``'s one-rank NCCL group, and of the clone
+    it makes first, each ``reps`` calls ending in a synchronize."""
+    from chainermn_tpu_torch.parallel import collectives as C
+
+    x = torch.randn(16, 1, 512, device="cuda", dtype=torch.bfloat16)
+    out = {}
+    for name, fn in (("clone", lambda: x.clone()),
+                     ("clone_and_all_reduce",
+                      lambda: C._all_reduce(x, comm.group))):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+    return out
+
+
+def _tp_requests(np, vocab):
+    """Phase 3's first requests, cut to ``TP_CARD_REQUESTS`` of
+    ``TP_CARD_NEW_TOKENS`` new tokens."""
+    return [(p, TP_CARD_NEW_TOKENS)
+            for p, _ in _requests(np, 24, 0, vocab)[:TP_CARD_REQUESTS]]
+
+
+class _FirstOutput:
+    """Stands in for an engine's decode model and keeps the first output
+    (the first prefill's logits)."""
+
+    def __init__(self, model):
+        self.model, self.first = model, None
+
+    def __call__(self, *a, **k):
+        out = self.model(*a, **k)
+        if self.first is None:
+            self.first = out.detach().float().cpu()
+        return out
+
+
+def _tp_serve(torch, np, dtype, mesh, device):
+    """A fresh engine over phase 3's model at ``dtype`` serving the cut
+    traffic: (streams, first prefill's logits, summary, K4 launches, ms)."""
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.ops import paged_decode as pd
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    model = TransformerLM(seed=0, compute_dtype=dtype, device=device)
+    engine = ServingEngine(model, num_slots=16, max_len=2048,
+                           kv_block_size=64, decode_attend_impl="fused",
+                           mesh=mesh, device=device)
+    first = _FirstOutput(engine._decode_model)
+    engine._decode_model = first
+    reqs = _tp_requests(np, model.vocab_size)
+    pd.reset_launches()
+    t0 = time.perf_counter()
+    streams, sched = _serve(engine, reqs)
+    summary = sched.summary()
+    summary["k4_expected"] = model.num_layers * (summary["prefills"]
+                                                 + summary["decode_steps"])
+    return (streams, first.first, summary, pd.LAUNCHES,
+            dict(pd.ROUTE_LAUNCHES), time.perf_counter() - t0)
+
+
+def _tp_child(tmp, rank):
+    """One rank of phase 15 (b): a gloo group of ``TP_CARD_SHARDS`` ranks
+    on the one card, fp32 then bf16 TP serving, and an NCCL group on the
+    same card handed to the engine, which must refuse it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=TP_CARD_SHARDS)
+    out = {"rank": rank}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype)[6:]
+        streams, logits, summ, k4, routes, wall = _tp_serve(
+            torch, np, dtype, dist.group.WORLD, "cuda:0")
+        np.save(f"{tmp}/logits_{key}_{rank}.npy", logits.numpy())
+        out[key] = {"streams": streams, "k4_launches": k4,
+                    "k4_expected": summ["k4_expected"],
+                    "route_launches": routes, "wall_s": wall,
+                    "token_ms_p50": summ["token_ms_p50"],
+                    "token_ms_p99": summ["token_ms_p99"],
+                    "decode_steps": summ["decode_steps"],
+                    "prefills": summ["prefills"]}
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    nccl = dist.new_group(backend="nccl")
+    model = TransformerLM(vocab_size=64, num_layers=1, num_heads=4,
+                          d_model=32, d_ff=64, max_len=64, device="cuda:0")
+    try:
+        ServingEngine(model, num_slots=2, mesh=nccl, device="cuda:0")
+        out["nccl_refusal"] = None
+    except ValueError as e:
+        out["nccl_refusal"] = str(e)
+    with open(f"{tmp}/out{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _near_tie_parts(torch, model, reqs, ref, got):
+    """Each request's first token where ``got`` parts from ``ref``, with
+    the top-2 gap of ``model``'s logits there: [(request, token, gap)]."""
+    parts = []
+    for r, ((prompt, _), a, b) in enumerate(zip(reqs, ref, got)):
+        i = _first_divergence(a, b)
+        if i is None and len(a) == len(b):
+            continue
+        i = min(len(a), len(b)) if i is None else i
+        with torch.no_grad():
+            logits = model(torch.tensor([prompt + a[:i]],
+                                        device="cuda"))[0, -1].float()
+        top2 = torch.topk(logits, 2).values
+        parts.append((r, i, float(top2[0] - top2[1])))
+    return parts
+
+
+def phase_tp_two_ranks(torch, np, smi):
+    """Phase 15 (b): TP 2 on the one card: two processes on ``cuda:0``
+    in a gloo group over CUDA tensors (NCCL refuses two ranks on one
+    device), each rank on 4 heads and d_ff 1024, phase 3's requests cut
+    to 8 of 16 new tokens. fp32 greedy streams equal the mesh-less fp32
+    engine's (or part at a true near-tie); bf16: the share of equal
+    tokens and the first prefill's max logit difference; per rank K4's
+    launches and ms per tick; an NCCL group on the one card is
+    refused."""
+    from chainermn_tpu_torch.models import TransformerLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        streams, logits, summ, k4, _, _ = _tp_serve(torch, np, dtype, None,
+                                                    "cuda")
+        ref[str(dtype)[6:]] = (streams, logits, summ)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp2_") as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--tp-child",
+             tmp, str(r)]) for r in range(TP_CARD_SHARDS)]
+        deadline = time.monotonic() + TP_CHILD_TIMEOUT_S
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            raise AssertionError(f"TP 2 ranks exited with {codes}")
+        outs = [json.loads(Path(tmp, f"out{r}.json").read_text())
+                for r in range(TP_CARD_SHARDS)]
+        logits = {k: [np.load(Path(tmp, f"logits_{k}_{r}.npy"))
+                      for r in range(TP_CARD_SHARDS)]
+                  for k in ("float32", "bfloat16")}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    reqs = _tp_requests(np, 32000)
+    rows = {}
+    for key in ("float32", "bfloat16"):
+        want, want_logits, want_summ = ref[key]
+        got = [o[key]["streams"] for o in outs]
+        if any(g != got[0] for g in got[1:]):
+            raise AssertionError(f"TP 2 {key}: the ranks' streams differ")
+        same_tok = sum(x == y for a, b in zip(want, got[0])
+                       for x, y in zip(a, b))
+        n_tok = sum(len(a) for a in want)
+        diff = float(np.abs(logits[key][0] - want_logits.numpy()).max())
+        rows[key] = {
+            "equal_tokens": same_tok, "tokens": n_tok,
+            "equal_share": same_tok / n_tok,
+            "streams_identical": got[0] == want,
+            "first_prefill_max_logit_diff": diff,
+            "ranks_logits_identical": all(
+                np.array_equal(x, logits[key][0]) for x in logits[key][1:]),
+            "per_rank": [{k: o[key][k] for k in (
+                "k4_launches", "k4_expected", "route_launches", "token_ms_p50",
+                "token_ms_p99", "decode_steps", "prefills", "wall_s")}
+                for o in outs],
+            "meshless_token_ms_p50": want_summ["token_ms_p50"]}
+        if any(p["k4_launches"] != p["k4_expected"] or not p["k4_launches"]
+               for p in rows[key]["per_rank"]):
+            raise AssertionError(f"TP 2 {key}: a rank's K4 launches are not "
+                                 f"num_layers x (prefills + decode steps): "
+                                 f"{rows[key]['per_rank']}")
+        if key == "float32":
+            model = TransformerLM(seed=0, compute_dtype=torch.float32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            parts = _near_tie_parts(torch, model, reqs, want, got[0])
+            torch.backends.cuda.matmul.allow_tf32 = True
+            del model
+            rows[key]["divergences"] = parts
+            far = [p for p in parts if not p[2] < NEAR_TIE]
+            if far:
+                raise AssertionError(f"TP 2 fp32 streams part from the "
+                                     f"mesh-less engine's away from a "
+                                     f"near-tie: {far}")
+    refusals = [o["nccl_refusal"] for o in outs]
+    rows["nccl_refusal"] = refusals
+    print("tp serving (b) summary", json.dumps(rows), flush=True)
+    for key in ("float32", "bfloat16"):
+        r = rows[key]
+        print(f"tp serving (b) {key}: TP {TP_CARD_SHARDS} on one card over "
+              f"gloo, {TP_CARD_REQUESTS} requests x {TP_CARD_NEW_TOKENS} "
+              f"tokens: {r['equal_tokens']}/{r['tokens']} tokens equal to "
+              f"the mesh-less engine's ({r['equal_share']:.4f}), first "
+              f"prefill max logit diff {r['first_prefill_max_logit_diff']:.3e}"
+              f"; per rank K4 launches "
+              f"{[p['k4_launches'] for p in r['per_rank']]}, ms per tick "
+              f"p50 {[p['token_ms_p50'] for p in r['per_rank']]} (mesh-less "
+              f"{r['meshless_token_ms_p50']}); card {smi}", flush=True)
+    if not all(m and "NCCL" in m for m in refusals):
+        raise AssertionError(f"an NCCL group of {TP_CARD_SHARDS} ranks on "
+                             f"one card was not refused: {refusals}")
+    return rows
+
+
+def _tp_train(torch, np, comm, batches, *, tp: bool):
+    """Phase 7's model and AdamW for ``len(batches)`` steps, plain or as
+    the TP 1 shard over ``comm``: (losses, K1-K3 launches, the
+    ``torch.distributed`` calls of the last step, peak bytes)."""
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
+    from chainermn_tpu_torch.serving import tp_local_model
+    from chainermn_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(seed=0, attention_fn=fa.flash_attention)
+    if tp:
+        model = tp_local_model(model, comm)
+    opt = create_multi_node_optimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4), comm)
+    state = create_train_state(model, opt, comm)
+    step = make_train_step(_packed_loss, opt, comm)
+    _reset_launches(fa)
+    state, losses, ms = _run_steps(step, state, batches[:-1])
+    launches = dict(fa.LAUNCHES)
+    with _CountedDist() as calls:
+        state, last, ms_last = _run_steps(step, state, batches[-1:])
+    return (losses + last, launches,
+            {k: v for k, v in calls.items() if v},
+            torch.cuda.max_memory_allocated(), ms + ms_last,
+            model.num_layers)
+
+
+def phase_tp_training(torch, np, comm, smi):
+    """Phase 15 (c): phase 7's shape (B 8 x T 2048, packed, flash
+    attention, AdamW) for 10 steps as the TP 1 shard over the one-rank
+    NCCL group against the model without TP: losses bit-identical; K1-K3
+    launches per step; then the example twin's default run (world size
+    1, dp 1 x tp 1, on the card)."""
+    from chainermn_tpu_torch.examples.tensor_parallel import (
+        train_tp_transformer as twin,
+    )
+    from chainermn_tpu_torch.examples.transformer.train_transformer_lm \
+        import pack_documents
+
+    rng = np.random.default_rng(0)
+    batches = [tuple(torch.from_numpy(x).cuda()
+                     for x in pack_documents(rng, 8, 2048))
+               for _ in range(TP_TRAIN_STEPS)]
+    plain, _, plain_calls, plain_peak, plain_ms, _ = _tp_train(
+        torch, np, comm, batches, tp=False)
+    tp, tp_launch, tp_calls, tp_peak, tp_ms, layers = _tp_train(
+        torch, np, comm, batches, tp=True)
+    t0 = time.perf_counter()
+    res = twin.main([])
+    twin_s = time.perf_counter() - t0
+    row = {"steps": TP_TRAIN_STEPS, "plain_losses": plain,
+           "tp_losses": tp, "bit_identical": plain == tp,
+           "k1_k3_launches_tp_first_steps": tp_launch,
+           "dist_calls_last_step": {"plain": plain_calls, "tp": tp_calls},
+           "peak_memory_bytes": {"plain": plain_peak, "tp": tp_peak},
+           "step_ms_p50": {"plain": statistics.median(plain_ms[1:]),
+                           "tp": statistics.median(tp_ms[1:])},
+           "twin": {"final_loss": res["final"],
+                    "first_loss": res["losses"][0],
+                    "iterations": len(res["losses"]), "seconds": twin_s}}
+    print("tp training (c) summary", json.dumps(row), flush=True)
+    print(f"tp training (c): TP 1 over NCCL, {TP_TRAIN_STEPS} steps of B 8 x "
+          f"T 2048: losses bit-identical to the model without TP: "
+          f"{plain == tp}; K1-K3 launches over the first "
+          f"{TP_TRAIN_STEPS - 1} steps {tp_launch}; torch.distributed "
+          f"calls of a step {tp_calls} (without TP {plain_calls}); twin "
+          f"default run: loss {res['losses'][0]:.4f} -> {res['final']:.4f} "
+          f"in {len(res['losses'])} iterations, {twin_s:.1f} s; card {smi}",
+          flush=True)
+    if plain != tp:
+        raise AssertionError(f"TP 1 losses {tp} != {plain}")
+    want = layers * (TP_TRAIN_STEPS - 1)
+    if any(v != want for v in tp_launch.values()):
+        raise AssertionError(f"K1-K3 launches {tp_launch} on the TP path "
+                             f"!= num_layers x steps = {want}")
+    if not res["final"] < res["losses"][0]:
+        raise AssertionError("the TP example twin did not learn")
+    return row
+
+
+def _zero_fsdp_run(torch, comm, batches, mode, *, ckpt=None, save_at=None,
+                   resume=False):
+    """Phase 7's model for ``len(batches)`` steps under ``mode`` ('zero'
+    or 'fsdp'): (losses, peak bytes, the ``torch.distributed`` calls of
+    the last step, state)."""
+    import functools
+
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.parallel.fsdp import (
+        create_fsdp_train_state,
+        make_fsdp_train_step,
+    )
+    from chainermn_tpu_torch.parallel.zero import zero_shard_optimizer
+    from chainermn_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    make = functools.partial(torch.optim.AdamW, lr=3e-4, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=1e-4)
+    model = TransformerLM(seed=0, attention_fn=fa.flash_attention)
+    if mode == "zero":
+        opt = zero_shard_optimizer(make, model.parameters(), comm)
+        state = create_train_state(model, opt, comm)
+        step = make_train_step(_packed_loss, opt, comm)
+    else:
+        state, pl = create_fsdp_train_state(model, make, comm)
+        step = make_fsdp_train_step(_packed_loss, state.optimizer, comm, pl)
+    start = 0
+    if resume:
+        state, start = ckpt.maybe_load(state)
+    losses, ms = [], []
+    calls = {}
+    for i in range(start, len(batches)):
+        t0 = time.perf_counter()
+        with _CountedDist() as c:
+            state, metrics = step(state, batches[i])
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        calls = {k: v for k, v in c.items() if v}
+        if ckpt is not None and save_at == i + 1:
+            ckpt.save(state, i + 1)
+    return (losses, torch.cuda.max_memory_allocated(), calls, state, start,
+            ms)
+
+
+def phase_zero_fsdp(torch, np, comm, smi, plain, tmp):
+    """Phase 15 (d): ZeRO and FSDP at world size 1 over NCCL, phase 7's LM
+    for 10 steps: losses within ``ZERO_FSDP_LOSS_TOL`` of plain AdamW's
+    (phase 15 (c)'s run without TP), peak memory of each; the FSDP state
+    (DTensor leaves) saved at step 5, loaded into a fresh one, and 5 more
+    steps bit-identical to the run without a stop."""
+    from chainermn_tpu_torch.examples.transformer.train_transformer_lm \
+        import pack_documents
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+
+    rng = np.random.default_rng(0)
+    batches = [tuple(torch.from_numpy(x).cuda()
+                     for x in pack_documents(rng, 8, 2048))
+               for _ in range(TP_TRAIN_STEPS)]
+    rows = {"plain_adamw": {"losses": plain["plain_losses"],
+                            "peak_memory_bytes":
+                            plain["peak_memory_bytes"]["plain"],
+                            "step_ms_p50": plain["step_ms_p50"]["plain"]}}
+    for mode in ("zero", "fsdp"):
+        losses, peak, calls, state, _, ms = _zero_fsdp_run(
+            torch, comm, batches, mode)
+        drift = max(abs(a - b) for a, b in zip(losses, plain["plain_losses"]))
+        rows[mode] = {"losses": losses, "peak_memory_bytes": peak,
+                      "max_loss_diff_vs_adamw": drift,
+                      "dist_calls_per_step": calls,
+                      "step_ms_p50": statistics.median(ms[1:])}
+        del state
+        if drift > ZERO_FSDP_LOSS_TOL:
+            raise AssertionError(f"{mode} losses {losses} part from AdamW's "
+                                 f"{plain['plain_losses']} by {drift}")
+    ckpt = create_multi_node_checkpointer("fsdp15", comm, path=str(tmp))
+    first, *_ = _zero_fsdp_run(torch, comm, batches[:ZERO_FSDP_RESUME_AT],
+                               "fsdp", ckpt=ckpt,
+                               save_at=ZERO_FSDP_RESUME_AT)
+    rest, _, _, state, start, _ = _zero_fsdp_run(
+        torch, comm, batches, "fsdp", ckpt=ckpt, resume=True)
+    ckpt.close()
+    shard_keys = sum("@@" in k for k in np.load(
+        ckpt._fname(ZERO_FSDP_RESUME_AT)).files)
+    same = first + rest == rows["fsdp"]["losses"]
+    rows["fsdp_resume"] = {"resumed_at": start, "bit_identical": same,
+                           "shard_entries": shard_keys}
+    del state
+    print("zero/fsdp (d) summary", json.dumps(rows), flush=True)
+    diffs = {m: rows[m]["max_loss_diff_vs_adamw"] for m in ("zero", "fsdp")}
+    gib = {m: rows[m]["peak_memory_bytes"] / 2**30
+           for m in ("plain_adamw", "zero", "fsdp")}
+    step_ms = {m: rows[m]["step_ms_p50"]
+               for m in ("plain_adamw", "zero", "fsdp")}
+    print(f"zero/fsdp (d): world size 1 over NCCL, {TP_TRAIN_STEPS} steps: "
+          f"max loss diff vs AdamW {diffs}; peak memory GiB {gib}; step "
+          f"ms p50 {step_ms}; FSDP "
+          f"resume at {start} ({shard_keys} shard entries) bit-identical: "
+          f"{same}; card {smi}", flush=True)
+    if start != ZERO_FSDP_RESUME_AT or not same or not shard_keys:
+        raise AssertionError(f"FSDP resume at {start}: {first + rest} != "
+                             f"{rows['fsdp']['losses']}")
+    return rows
+
+
 # ---------------------------------------------------------------- main
 
 #: the bf16 kernels whose tensor-core instructions are counted: K1-K3
@@ -2728,7 +3353,7 @@ def main() -> int:
     _k4_registers_line(BUILD_LOG["paged_decode"]["path"])
 
     rows = phase_kernels(torch, np, F)
-    launches, routes, summary, engine = phase_serving(torch, np)
+    launches, routes, summary, engine, streams3 = phase_serving(torch, np)
     phase_equivalence(torch, np)
     phase_profile(torch, np, engine)
     del engine
@@ -2755,6 +3380,14 @@ def main() -> int:
     phase_tensor_parallel(torch, np, comm)
     phase_mnbn(torch, comm)
     print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
+    t15 = time.perf_counter()
+    tp_serving = phase_tp_serving(torch, np, comm, streams3)
+    del streams3
+    tp_two = phase_tp_two_ranks(torch, np, smi)
+    tp_training = phase_tp_training(torch, np, comm, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fsdp_") as tmp:
+        phase_zero_fsdp(torch, np, comm, smi, tp_training, Path(tmp))
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
     import torch.distributed as dist
 
     dist.destroy_process_group()  # the training phases' one-rank group
@@ -2779,6 +3412,13 @@ def main() -> int:
         "replaces": "chainermn_tpu/ops/paged_decode.py:167",
         "launches": launches,
         "route_launches": routes,
+        # each path's own run: phase 3, TP 1 serving (phase 15 (a)) and
+        # each rank of TP 2 on the one card (phase 15 (b), bf16)
+        "launches_by_path": {
+            "serving_phase3": launches,
+            "tp1_serving_phase15a": tp_serving["k4_launches"],
+            "tp2_serving_per_rank_phase15b": [
+                r["k4_launches"] for r in tp_two["bfloat16"]["per_rank"]]},
         "max_abs_err": main_row["max_abs_err"],
         "tolerance": main_row["tolerance"],
         "ms": main_row["ms"],
@@ -2876,7 +3516,9 @@ def main() -> int:
             "launches": flash_launches[key],
             "launches_by_path": {
                 "lm_training_phase7": flash_launches[key],
-                "mlm_encoder_phase11": encoder["launches"][key]},
+                "mlm_encoder_phase11": encoder["launches"][key],
+                "tp1_training_phase15c": tp_training[
+                    "k1_k3_launches_tp_first_steps"][key]},
             "max_abs_err": max(packed["max_abs_err"][e] for e in errs),
             "tolerance": packed["tolerance"],
             "ms": packed["ms"][key],
@@ -2909,5 +3551,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--drill-child"]:  # phase 12's child processes
         sys.path.insert(0, str(ROOT))
         _drill_child(sys.argv[2], sys.argv[3])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--tp-child"]:  # phase 15 (b)'s ranks
+        sys.path.insert(0, str(ROOT))
+        _tp_child(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
     sys.exit(main())

@@ -168,11 +168,15 @@ def test_checkpointer_cleanup(tmp_path, comm):
 
 
 def test_sharded_leaf_save_raises_naming_the_roadmap_item(tmp_path, comm):
+    """DTensor leaves are saved since ROADMAP queue 1, item 6.2
+    (tests/test_torch_sharded_checkpoint.py); the older ShardedTensor
+    still raises, naming the DTensor to use instead."""
     class ShardedTensor(torch.Tensor):
         pass
 
     ckpt = create_multi_node_checkpointer("shard", comm, path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="queue 1, item 6.2"):
+    with pytest.raises(NotImplementedError,
+                       match="ShardedTensor .* not ported.*DTensor"):
         ckpt.save({"w": torch.zeros(2).as_subclass(ShardedTensor)}, 1)
 
 

@@ -15,6 +15,9 @@ import chainermn_tpu_torch
 from chainermn_tpu_torch.communicators import create_communicator
 from chainermn_tpu_torch.examples.imagenet import train_imagenet
 from chainermn_tpu_torch.examples.mnist import train_mnist
+from chainermn_tpu_torch.examples.tensor_parallel import (
+    train_tp_transformer,
+)
 from chainermn_tpu_torch.examples.transformer import train_transformer_lm
 from chainermn_tpu_torch.links import MultiNodeBatchNormalization
 from chainermn_tpu_torch.models import MLP, ResNet50, TransformerLM
@@ -60,7 +63,9 @@ def test_every_port_module_imports_with_jax_blocked():
                  "functions.point_to_point", "parallel",
                  "parallel.collectives", "parallel.tensor",
                  "links.multi_node_chain_list", "links.mnbn",
-                 "examples.mnist.train_mnist_model_parallel"):
+                 "examples.mnist.train_mnist_model_parallel",
+                 "parallel.zero", "parallel.fsdp",
+                 "examples.tensor_parallel.train_tp_transformer"):
         assert "chainermn_tpu_torch." + name in PORT_MODULES
     out = subprocess.run(
         [sys.executable, "-c", _BLOCK_AND_IMPORT, str(SMOKE), *PORT_MODULES],
@@ -105,6 +110,8 @@ def test_entry_points_raise_without_a_card_or_a_device(monkeypatch):
         train_mnist.main(["--iterations", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_imagenet.main(["--iterations", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_tp_transformer.main(["--iterations", "1"])
     for make in (MLP, ResNet50, lambda: MultiNodeBatchNormalization(4)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -192,7 +192,9 @@ def test_summary_matches_jax_rollup_on_the_same_events():
     dict(decode_impl="auto"),
     dict(decode_attend_impl="auto"),
     dict(kv_block_size="auto"),
-    dict(mesh=object()),
+    # mesh= is served (tests/test_torch_tp_serving.py); with it,
+    # sequence-parallel prefill is not
+    dict(mesh=object(), prefill_seq_parallel="on"),
     dict(spec_tokens=2),
     dict(prefix_cache="on"),
     dict(prefill_chunk=16),

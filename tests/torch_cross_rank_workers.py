@@ -32,12 +32,12 @@ DIST_CALLS = ("all_reduce", "all_gather", "broadcast", "reduce",
 
 
 @contextlib.contextmanager
-def counted_dist_calls():
-    """Count the ``torch.distributed`` calls made inside the block
-    (``counts[name]``); the functions are wrapped in the module, which is
-    where the port looks them up."""
-    counts = dict.fromkeys(DIST_CALLS, 0)
-    saved = {name: getattr(dist, name) for name in DIST_CALLS}
+def counted_dist_calls(names=DIST_CALLS):
+    """Count the ``torch.distributed`` calls ``names`` made inside the
+    block (``counts[name]``); the functions are wrapped in the module,
+    which is where the port looks them up."""
+    counts = dict.fromkeys(names, 0)
+    saved = {name: getattr(dist, name) for name in names}
 
     def wrap(name):
         def call(*args, **kwargs):
@@ -45,7 +45,7 @@ def counted_dist_calls():
             return saved[name](*args, **kwargs)
         return call
 
-    for name in DIST_CALLS:
+    for name in names:
         setattr(dist, name, wrap(name))
     try:
         yield counts
