@@ -8,9 +8,11 @@ kept as it is, which is the order the block splits it in.
 
 Conv kernels ``[H, W, in, out]`` (HWIO) become ``[out, in, H, W]`` (OIHW),
 and BatchNorm's ``batch_stats`` become the module's running-statistics
-buffers. Converted so far: the Transformer LM, the MLP, the ResNets and
+buffers. Converted so far: the Transformer LM, the MLP, the ResNets,
 the functional chains of a ``MultiNodeChainList`` (their weights keep
-the ``x @ w`` layout); the ViT converter lands with its model.
+the ``x @ w`` layout), a run of Transformer blocks and a rank's slice of
+a pipeline's stacked stage parameters; the ViT converter lands with its
+model.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Mapping
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 
 def _t(a) -> torch.Tensor:
@@ -42,9 +45,21 @@ def lm_state_from_flax(params: Mapping) -> dict:
     if "pos_emb" in p:
         state["pos_emb"] = _t(p["pos_emb"])
     n_blocks = sum(1 for k in p if k.startswith("block_"))
-    for i in range(n_blocks):
-        b = p[f"block_{i}"]
-        pre = f"blocks.{i}."
+    state.update(blocks_state_from_flax(
+        [p[f"block_{i}"] for i in range(n_blocks)], prefix="blocks."))
+    return state
+
+
+def blocks_state_from_flax(blocks, prefix: str = "") -> dict:
+    """``state_dict`` of an ``nn.ModuleList`` of the port's
+    :class:`~chainermn_tpu_torch.models.transformer.TransformerBlock`
+    from the flax params of a run of JAX ``TransformerBlock``s (one
+    ``block_i`` subtree each, in order): keys ``f"{prefix}{i}.{name}"``,
+    the names :func:`lm_state_from_flax` gives a block (a pipeline
+    stage's blocks, called through ``torch.func.functional_call``)."""
+    state = {}
+    for i, b in enumerate(blocks):
+        pre = f"{prefix}{i}."
         for ln, name in (("LayerNorm_0", "ln1"), ("LayerNorm_1", "ln2")):
             state[pre + name + ".weight"] = _t(b[ln]["scale"])
             state[pre + name + ".bias"] = _t(b[ln]["bias"])
@@ -53,6 +68,23 @@ def lm_state_from_flax(params: Mapping) -> dict:
             if "bias" in b[name]:
                 state[pre + name + ".bias"] = _t(b[name]["bias"])
     return state
+
+
+def stage_params_from_stack(stacked, rank: int,
+                            virtual_stages: int = 1):
+    """This rank's slice of a JAX-layout stack of pipeline stage
+    parameters (a pytree of numpy arrays ``[n_stages * v, ...]``, the
+    layout of ``stack_stage_params`` or ``stack_interleaved_stage_params``)
+    as fp32 tensors: index ``rank`` of each leaf, or its ``[v, ...]``
+    chunks ``[rank * v, (rank + 1) * v)`` under interleaving — what
+    ``P('stage')`` hands device ``rank``."""
+    v = virtual_stages
+
+    def leaf(a):
+        a = np.asarray(a)
+        return _t(a[rank] if v == 1 else a[rank * v:(rank + 1) * v])
+
+    return pytree.tree_map(leaf, stacked)
 
 
 def chain_params_from_flax(params_list) -> list:

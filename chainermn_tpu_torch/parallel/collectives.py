@@ -206,7 +206,21 @@ def _scatter_from(t, group, root, axis, tiled):
     return out if tiled else out.squeeze(axis)
 
 
+def _stage_through_host(t, group) -> bool:
+    """gloo's point-to-point transport hands the tensor's pointer to its
+    TCP pair, which cannot read a CUDA tensor (the sender dies with
+    ``writev ... Bad address``): a gloo group moves a CUDA tensor through
+    a host copy. NCCL and CPU tensors go as they are."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
 def _permute(t, group, perm):
+    if _stage_through_host(t, group):
+        return _permute_direct(t.cpu(), group, perm).to(t.device)
+    return _permute_direct(t, group, perm)
+
+
+def _permute_direct(t, group, perm):
     me = dist.get_rank(group)
     t = t.contiguous()
     out = None

@@ -200,18 +200,40 @@ script exits non-zero without its final ``ok`` line:
     as ``key@@index`` shards) saved at step ``ZERO_FSDP_RESUME_AT``,
     loaded into a fresh one and resumed: losses bit-identical to the run
     without a stop.
+16. (run after phase 15) The pipeline engines on phase 7's LM (6
+    blocks, bf16, B 8 x T 2048 plain causal, ``PIPE_MICRO``
+    microbatches), the blocks' parameters through ``functional_call`` as
+    the stage function, flash attention (K1-K3) in every stage, the
+    embedding and tied head outside the conveyor: (a) world size 1 over
+    the one-rank NCCL group, one step each of GPipe, interleaved (v 2)
+    and 1F1B (head as ``head_params``, the embedding through the input
+    gradients) against the model without the pipeline on the full batch:
+    loss within ``PIPE_LOSS_TOL``, every gradient entry within
+    ``PIPE_GRAD_TOL``, K1/K2/K3 launches a step ``num_layers x
+    microbatches`` (K1 twice that under 1F1B's recompute), step ms and
+    peak memory; (b) two stages on the one card: two processes
+    (``python3 chip_smoke.py --pipe-child DIR RANK``) on ``cuda:0`` in a
+    gloo group (each transfer staged through the host), GPipe and 1F1B,
+    each rank held to the unpipelined model's gradients and compared
+    with (a)'s (max difference printed), the embedding and head
+    gradients equal on both ranks, per-rank launches, bytes sent a step
+    and step ms; then the hetero twin over the same two ranks (accuracy
+    at least ``PIPE_TWIN_ACC``); a failing rank fails the phase; (c) the
+    pipeline twin at world size 1, GPipe and 1F1B, ``PIPE_TWIN_ITERATIONS``
+    iterations, accuracy at least ``PIPE_TWIN_ACC``.
 
 The ``kernels`` JSON and the card's name and power limit come on the two
 lines before the last; the last line is ``{"ok": true, "device": {...}}``.
 ``dense_flash_decode``'s ``launches`` are phase 13 (b)'s,
 ``paged_flash_decode_stacked``'s phase 14 (a)'s.
 K1-K3's ``launches`` are phase 7's (the LM training path); their
-``launches_by_path`` add phase 11's encoder run and phase 15 (c)'s TP 1
-training; K4's add phase 15 (a)'s TP 1 serving and each rank's of (b).
+``launches_by_path`` add phase 11's encoder run, phase 15 (c)'s TP 1
+training and phase 16's pipelined steps ((a) by engine, (b) by rank);
+K4's add phase 15 (a)'s TP 1 serving and each rank's of (b).
 
 ``python3 chip_smoke.py --drill-child DIR MODE`` is phase 12's child
-process and ``--tp-child DIR RANK`` phase 15 (b)'s, not checks of their
-own.
+process, ``--tp-child DIR RANK`` phase 15 (b)'s and ``--pipe-child DIR
+RANK`` phase 16 (b)'s, not checks of their own.
 """
 
 from __future__ import annotations
@@ -3219,6 +3241,477 @@ def phase_zero_fsdp(torch, np, comm, smi, plain, tmp):
     return rows
 
 
+# ---------------------------------------------------------------- phase 16
+
+#: phase 16: phase 7's LM over B 8 x T 2048 (plain causal) in 4
+#: microbatches of 2; on the one card (b) 2 stages of 3 blocks each
+PIPE_B, PIPE_T, PIPE_MICRO = 8, 2048, 4
+PIPE_CARD_STAGES = 2
+PIPE_CHILD_TIMEOUT_S = 300
+#: steps of each engine: the first warms up, the step ms is the median
+#: of the rest
+PIPE_STEPS = 4
+#: (c) the twin's runs: iterations, and the accuracy each must reach
+#: (10 classes, chance 0.1; the JAX test asks 0.9 of its 120 iterations)
+PIPE_TWIN_ITERATIONS = 60
+PIPE_TWIN_ACC = 0.9
+#: pipelined against the same model without the pipeline on the full
+#: batch, each gradient entry: |g - g_ref| <= rtol * |g_ref| + atol *
+#: max |g_ref| of its leaf. Written before the first run. bf16 rounds
+#: every activation and every weight gradient to 8 mantissa bits (2^-9
+#: relative); the pipeline's GEMMs run on 2 of the 8 rows at a time, so
+#: cuBLAS tiles and rounds other partial products, and a weight gradient
+#: is 4 microbatch products, each rounded to bf16, summed in fp32 where
+#: the full batch rounds one. Through 6 blocks that compounds to a few
+#: ulps of a leaf's largest entries (0.009 of it in the same comparison
+#: on the CPU's bf16 at d 128 and 6 blocks); 0.03 leaves that 3x room.
+PIPE_GRAD_TOL = (0.03, 0.03)
+#: the loss (about 10.4 at these weights) from bf16 logits
+PIPE_LOSS_TOL = 2e-3
+
+
+def _pipe_tokens(torch, np, device):
+    rng = np.random.default_rng(16)
+    return torch.from_numpy(rng.integers(0, 32000, size=(PIPE_B, PIPE_T))
+                            ).to(device)
+
+
+def _pipe_pieces(torch, model):
+    """The pipelined LM's pieces over ``model``: the embedding (tokens and
+    learned positions, in the compute dtype), a stage (a run of blocks,
+    an ``nn.Sequential``, through ``functional_call`` on the stage's
+    parameters) and the head (the final norm and the tied embedding, by
+    default the model's own, or ``(norm weight, norm bias, embedding)``),
+    computing what ``model(tokens)`` computes."""
+    import torch.nn.functional as F
+    from torch.func import functional_call
+
+    dt = model.compute_dtype
+
+    def embed(tokens):
+        x = model.tok_emb.weight[tokens.long()].to(dt)
+        return x + model.pos_emb[:tokens.shape[1]].to(dt)
+
+    def stage(blocks):
+        return lambda p, x: functional_call(blocks, p, (x,))
+
+    def head(x, hp=None):
+        w, b, emb = hp or (model.ln_f.weight, model.ln_f.bias,
+                           model.tok_emb.weight)
+        h = functional_call(model.ln_f, {"weight": w, "bias": b}, (x,))
+        return F.linear(h.to(dt), emb.to(dt))
+
+    return embed, stage, head
+
+
+#: the leaves outside the conveyor, on every rank
+PIPE_OUTER = ("tok_emb.weight", "pos_emb", "ln_f.weight", "ln_f.bias")
+
+
+def _pipe_steps(torch, model, group, tokens, engines, first, count,
+                profile=None):
+    """``PIPE_STEPS`` steps of each engine over blocks ``[first, first +
+    count)`` on this rank (stage ``first // count`` of ``group``): per
+    engine the loss, the gradients of this rank's blocks (by the model's
+    names) and of the leaves outside the conveyor, step ms (the median
+    after the first step, and each), the K1-K3 launches of the last step
+    and peak memory; ``profile``, a label, adds a profiled step of each
+    engine (its busy share)."""
+    from torch import nn
+
+    from chainermn_tpu_torch.models import lm_loss
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.parallel import pipeline as pl
+
+    embed, stage, head = _pipe_pieces(torch, model)
+    params = dict(model.named_parameters())
+    blocks = nn.Sequential(*model.blocks[first:first + count])
+    own = {n: params[f"blocks.{first + int(n.split('.')[0])}."
+                     + n.split(".", 1)[1]]
+           for n, _ in blocks.named_parameters()}
+    hp_names = ("ln_f.weight", "ln_f.bias", "tok_emb.weight")
+
+    def head_loss_grad(hp, y, tok):
+        with torch.enable_grad():
+            hp = [t.detach().requires_grad_() for t in hp]
+            y = y.detach().requires_grad_()
+            loss = lm_loss(head(y, hp), tok)
+            *dh, dy = torch.autograd.grad(loss, [*hp, y])
+        return loss.detach(), (tuple(dh), dy)
+
+    def grads_of():
+        names = [f"blocks.{i}." for i in range(first, first + count)]
+        return {k: p.grad.detach().clone() for k, p in params.items()
+                if k in PIPE_OUTER or k.startswith(tuple(names))}
+
+    runs = {}
+    for name in engines:
+        if name == "gpipe":
+            pipe = pl.make_pipeline(stage(blocks), group,
+                                    n_microbatches=PIPE_MICRO)
+
+            def step():
+                loss = lm_loss(head(pipe(own, embed(tokens))), tokens)
+                loss.backward()
+                return loss
+        elif name == "interleaved":
+            # one stage, two chunks of half the blocks each
+            half = count // 2
+            template = nn.Sequential(*model.blocks[first:first + half])
+            pipe = pl.make_pipeline(stage(template), group,
+                                    n_microbatches=PIPE_MICRO,
+                                    virtual_stages=2)
+
+            def step():
+                chunks = [{n: params[f"blocks.{first + j * half + int(n.split('.')[0])}."
+                                     + n.split(".", 1)[1]]
+                           for n, _ in template.named_parameters()}
+                          for j in range(2)]
+                loss = lm_loss(head(pipe(pl.stack_stage_params(chunks),
+                                         embed(tokens))), tokens)
+                loss.backward()
+                return loss
+        else:  # 1f1b: the head as head_params, the embedding through dx
+            engine = pl.make_pipeline_1f1b(stage(blocks), head_loss_grad,
+                                           group, n_microbatches=PIPE_MICRO)
+
+            def step():
+                x = embed(tokens)
+                loss, g_stage, g_head, dx = engine(
+                    own, x.detach(), tokens,
+                    tuple(params[k].detach() for k in hp_names),
+                    collect_input_grads=True)
+                g_emb, g_pos = torch.autograd.grad(
+                    x, [params["tok_emb.weight"], params["pos_emb"]], dx)
+                for k, g in g_stage.items():
+                    own[k].grad = g
+                params["ln_f.weight"].grad = g_head[0]
+                params["ln_f.bias"].grad = g_head[1]
+                params["tok_emb.weight"].grad = g_head[2] + g_emb
+                params["pos_emb"].grad = g_pos
+                return loss
+        all_ms = []
+        for _ in range(PIPE_STEPS):  # the first step warms up
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches(fa)
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            all_ms.append((time.perf_counter() - t0) * 1e3)
+        runs[name] = {"loss": float(loss.detach()), "grads": grads_of(),
+                      "ms": statistics.median(all_ms[1:]), "all_ms": all_ms,
+                      "launches": dict(fa.LAUNCHES),
+                      "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        if profile:
+            model.zero_grad(set_to_none=True)
+            wall, busy, _ = _profile_window(torch, step,
+                                            f"{profile} {name} profile",
+                                            MMA_KERNELS)
+            runs[name]["profile"] = {"wall_ms": wall, "busy_ms": busy}
+        model.zero_grad(set_to_none=True)
+    return runs
+
+
+def _pipe_over_limit(torch, grads, ref):
+    """The largest ``|g - g_ref| / limit`` over the leaves (limit per
+    entry, ``PIPE_GRAD_TOL``), its leaf, and the max |g - g_ref|."""
+    rtol, atol = PIPE_GRAD_TOL
+    worst, leaf, diff = 0.0, None, 0.0
+    for k, g in grads.items():
+        r = ref[k].to(g.device).float()
+        d = (g.float() - r).abs()
+        ratio = float((d / (rtol * r.abs() + atol * r.abs().max())).max())
+        diff = max(diff, float(d.max()))
+        if ratio > worst:
+            worst, leaf = ratio, k
+    return worst, leaf, diff
+
+
+def _pipe_expected(count):
+    """K1/K2/K3 launches a step of ``count`` blocks a stage: each block
+    runs K1 once a microbatch forward (1F1B again in its recompute) and
+    K2 and K3 once a microbatch backward."""
+    one = count * PIPE_MICRO
+    return {"gpipe": {"fwd": one, "dq": one, "dkv": one},
+            "interleaved": {"fwd": one, "dq": one, "dkv": one},
+            "1f1b": {"fwd": 2 * one, "dq": one, "dkv": one}}
+
+
+def phase_pipeline(torch, np, comm, smi, tmp):
+    """Phase 16 (a) and (b): phase 7's LM with its blocks pipelined, the
+    embedding and tied head outside the conveyor. (a) World size 1 over
+    the one-rank NCCL group: one step each of GPipe, interleaved v 2 and
+    1F1B (trainable head, input grads) against the model without the
+    pipeline on the full batch: loss within ``PIPE_LOSS_TOL``, every
+    gradient entry within ``PIPE_GRAD_TOL``, K1-K3 launches a step the
+    rule's, step ms. (b) Two stages on the one card (two processes over
+    gloo, ``--pipe-child``): GPipe and 1F1B, each rank held to the
+    unpipelined model and compared with (a), the embedding and head
+    gradients equal on both ranks; each child also trains the hetero
+    twin."""
+    from chainermn_tpu_torch.models import TransformerLM, lm_loss
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    model = TransformerLM(seed=0, attention_fn=fa.flash_attention)
+    tokens = _pipe_tokens(torch, np, "cuda")
+    L = model.num_layers
+
+    def unpipelined():
+        loss = lm_loss(model(tokens), tokens)
+        loss.backward()
+        return loss
+
+    all_ms = []
+    for _ in range(PIPE_STEPS):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(fa)
+        t0 = time.perf_counter()
+        ref_loss = unpipelined()
+        torch.cuda.synchronize()
+        all_ms.append((time.perf_counter() - t0) * 1e3)
+    ref_ms = statistics.median(all_ms[1:])
+    ref_peak = torch.cuda.max_memory_allocated()
+    ref_launches = dict(fa.LAUNCHES)
+    ref = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    ref_loss = float(ref_loss.detach())
+    model.zero_grad(set_to_none=True)
+    wall, busy, _ = _profile_window(torch, unpipelined,
+                                    "pipeline (a) unpipelined profile",
+                                    MMA_KERNELS)
+    runs = _pipe_steps(torch, model, comm.group, tokens,
+                       ("gpipe", "interleaved", "1f1b"), 0, L,
+                       profile="pipeline (a)")
+    expected = _pipe_expected(L)
+    rows = {"reference": {"loss": ref_loss, "ms": ref_ms, "all_ms": all_ms,
+                          "launches": ref_launches,
+                          "peak_memory_bytes": ref_peak,
+                          "profile": {"wall_ms": wall, "busy_ms": busy}}}
+    for name, run in runs.items():
+        worst, leaf, diff = _pipe_over_limit(torch, run["grads"], ref)
+        rows[name] = {"loss": run["loss"],
+                      "loss_diff": abs(run["loss"] - ref_loss),
+                      "grad_over_limit": worst, "worst_leaf": leaf,
+                      "grad_max_abs_diff": diff, "ms": run["ms"],
+                      "all_ms": run["all_ms"], "profile": run["profile"],
+                      "launches": run["launches"],
+                      "expected_launches": expected[name],
+                      "peak_memory_bytes": run["peak_memory_bytes"]}
+    print("pipeline (a) summary", json.dumps(rows), flush=True)
+    for name in runs:
+        r = rows[name]
+        print(f"pipeline (a) {name}: world size 1, {L} blocks, B {PIPE_B} x "
+              f"T {PIPE_T} in {PIPE_MICRO} microbatches: loss "
+              f"{r['loss']:.6f} (unpipelined {ref_loss:.6f}), grads "
+              f"{r['grad_over_limit']:.3f} of their limit (worst "
+              f"{r['worst_leaf']}, max |diff| {r['grad_max_abs_diff']:.3e})"
+              f", step p50 {r['ms']:.2f} ms (unpipelined {ref_ms:.2f}), "
+              f"profiled step busy {r['profile']['busy_ms']:.2f} of "
+              f"{r['profile']['wall_ms']:.2f} ms (unpipelined {busy:.2f} of "
+              f"{wall:.2f}), K1/K2/K3 launches {r['launches']}, peak "
+              f"{r['peak_memory_bytes'] / 2**30:.3f} GiB (unpipelined "
+              f"{ref_peak / 2**30:.3f}); card {smi}", flush=True)
+    for name, r in rows.items():
+        if name == "reference":
+            continue
+        if r["loss_diff"] > PIPE_LOSS_TOL or not r["grad_over_limit"] <= 1:
+            raise AssertionError(f"pipeline (a) {name}: loss diff "
+                                 f"{r['loss_diff']}, grads "
+                                 f"{r['grad_over_limit']} of their limit at "
+                                 f"{r['worst_leaf']}")
+        if r["launches"] != r["expected_launches"]:
+            raise AssertionError(f"pipeline (a) {name}: K1-K3 launches "
+                                 f"{r['launches']} != "
+                                 f"{r['expected_launches']}")
+    # (b): the children hold themselves to the unpipelined model and to
+    # (a); they read both from here
+    torch.save({k: v.cpu() for k, v in ref.items()}, tmp / "ref.pt")
+    for name in ("gpipe", "1f1b"):
+        torch.save({k: v.cpu() for k, v in runs[name]["grads"].items()},
+                   tmp / f"a_{name}.pt")
+    (tmp / "a.json").write_text(json.dumps(
+        {"ref_loss": ref_loss,
+         **{n: runs[n]["loss"] for n in ("gpipe", "1f1b")}}))
+    del runs, ref, model
+    torch.cuda.empty_cache()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--pipe-child",
+         str(tmp), str(r)]) for r in range(PIPE_CARD_STAGES)]
+    deadline = time.monotonic() + PIPE_CHILD_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise AssertionError(f"pipeline (b) ranks exited with {codes}")
+    outs = [json.loads((tmp / f"pipe_out{r}.json").read_text())
+            for r in range(PIPE_CARD_STAGES)]
+    same = {}
+    for name in ("gpipe", "1f1b"):
+        eh = [torch.load(tmp / f"outer_{name}_{r}.pt")
+              for r in range(PIPE_CARD_STAGES)]
+        same[name] = all(torch.equal(eh[0][k], e[k]) for e in eh[1:]
+                         for k in PIPE_OUTER)
+    b = {"ranks": outs, "outer_grads_equal_on_every_rank": same}
+    print("pipeline (b) summary", json.dumps(b), flush=True)
+    for name in ("gpipe", "1f1b"):
+        print(f"pipeline (b) {name}: {PIPE_CARD_STAGES} stages on one card "
+              f"over gloo: per rank loss diff vs (a) "
+              f"{[o[name]['loss_diff_vs_a'] for o in outs]}, grads max "
+              f"|diff| vs (a) {[o[name]['grad_max_abs_diff_vs_a'] for o in outs]}"
+              f", {[o[name]['grad_over_limit'] for o in outs]} of their limit "
+              f"vs the unpipelined model, embedding/head grads equal on both "
+              f"ranks: {same[name]}; K1/K2/K3 launches "
+              f"{[o[name]['launches'] for o in outs]}, bytes sent a step "
+              f"{[o[name]['bytes_sent'] for o in outs]}, step ms "
+              f"{[round(o[name]['ms'], 2) for o in outs]}; card {smi}",
+              flush=True)
+    print(f"pipeline (c) hetero twin: {PIPE_CARD_STAGES} ranks on one card, "
+          f"{PIPE_TWIN_ITERATIONS} iterations: accuracy "
+          f"{[o['hetero_twin']['acc'] for o in outs]}, final loss "
+          f"{[o['hetero_twin']['loss'] for o in outs]}, "
+          f"{[round(o['hetero_twin']['seconds'], 2) for o in outs]} s",
+          flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"pipeline (b): the embedding/head gradients "
+                             f"differ between the ranks: {same}")
+    return rows, [{n: o[n]["launches"] for n in ("gpipe", "1f1b")}
+                  for o in outs]
+
+
+def _pipe_child(tmp, rank):
+    """One rank of phase 16 (b): stage ``rank`` of a gloo group of
+    ``PIPE_CARD_STAGES`` ranks on the one card, GPipe then 1F1B over its
+    half of phase 7's blocks, held to the unpipelined model's gradients
+    and compared with (a)'s; then the hetero twin over the same group.
+    Exits non-zero when a check fails."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch.examples.pipeline import train_pipeline_mlp
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    tmp = Path(tmp)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=PIPE_CARD_STAGES)
+    model = TransformerLM(seed=0, attention_fn=fa.flash_attention,
+                          device="cuda:0")
+    per = model.num_layers // PIPE_CARD_STAGES
+    tokens = _pipe_tokens(torch, np, "cuda:0")
+    sent = {"transfer": 0, "broadcast": 0}
+    keep = dist.batch_isend_irecv, dist.broadcast
+
+    def transfer(ops):
+        sent["transfer"] += sum(o.tensor.numel() * o.tensor.element_size()
+                                for o in ops if o.op is dist.isend)
+        return keep[0](ops)
+
+    def broadcast(t, src, group=None, **kw):
+        if src == dist.get_rank():
+            sent["broadcast"] += t.numel() * t.element_size()
+        return keep[1](t, src, group=group, **kw)
+
+    dist.batch_isend_irecv, dist.broadcast = transfer, broadcast
+    try:
+        runs = {}
+        for name in ("gpipe", "1f1b"):
+            for k in sent:
+                sent[k] = 0
+            runs[name] = _pipe_steps(torch, model, dist.group.WORLD, tokens,
+                                     (name,), rank * per, per)[name]
+            runs[name]["bytes_sent"] = sent["transfer"] // PIPE_STEPS
+            runs[name]["broadcast_bytes"] = sent["broadcast"] // PIPE_STEPS
+    finally:
+        dist.batch_isend_irecv, dist.broadcast = keep
+    ref = torch.load(tmp / "ref.pt")
+    a = json.loads((tmp / "a.json").read_text())
+    expected = _pipe_expected(per)
+    out = {"rank": rank}
+    failed = []
+    for name, run in runs.items():
+        mine = torch.load(tmp / f"a_{name}.pt")
+        worst, leaf, _ = _pipe_over_limit(torch, run["grads"], ref)
+        diff_a = max(float((g.float().cpu() - mine[k].float()).abs().max())
+                     for k, g in run["grads"].items())
+        out[name] = {"loss": run["loss"],
+                     "loss_diff_vs_a": abs(run["loss"] - a[name]),
+                     "loss_diff_vs_unpipelined": abs(run["loss"]
+                                                     - a["ref_loss"]),
+                     "grad_over_limit": worst, "worst_leaf": leaf,
+                     "grad_max_abs_diff_vs_a": diff_a,
+                     "bit_identical_to_a": diff_a == 0.0
+                     and run["loss"] == a[name],
+                     "launches": run["launches"],
+                     "expected_launches": expected[name],
+                     "bytes_sent": run["bytes_sent"],
+                     "broadcast_bytes": run["broadcast_bytes"],
+                     "ms": run["ms"], "all_ms": run["all_ms"],
+                     "peak_memory_bytes": run["peak_memory_bytes"]}
+        torch.save({k: run["grads"][k].cpu() for k in PIPE_OUTER},
+                   tmp / f"outer_{name}_{rank}.pt")
+        o = out[name]
+        if (o["loss_diff_vs_unpipelined"] > PIPE_LOSS_TOL
+                or not worst <= 1
+                or o["launches"] != o["expected_launches"]):
+            failed.append(name)
+    del runs, ref, model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    twin = train_pipeline_mlp.run(
+        ["--schedule", "hetero", "--iterations", str(PIPE_TWIN_ITERATIONS)],
+        group=dist.group.WORLD)
+    out["hetero_twin"] = {"acc": twin["accs"][-1], "loss": twin["losses"][-1],
+                          "seconds": time.perf_counter() - t0}
+    if not twin["accs"][-1] >= PIPE_TWIN_ACC:
+        failed.append("hetero_twin")
+    out["failed"] = failed
+    (tmp / f"pipe_out{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    if failed:
+        print(f"pipeline (b) rank {rank} failed: {failed}: "
+              f"{json.dumps(out)}", file=sys.stderr, flush=True)
+        sys.exit(1)
+
+
+def phase_pipeline_twin(torch, smi):
+    """Phase 16 (c): the pipeline twin at world size 1 on the card (over
+    the one-rank NCCL group), GPipe and 1F1B, at its defaults but
+    ``PIPE_TWIN_ITERATIONS`` iterations; the hetero schedule, which needs
+    two stages, ran in (b)'s ranks."""
+    from chainermn_tpu_torch.examples.pipeline import train_pipeline_mlp
+
+    rows = {}
+    for schedule in ("gpipe", "1f1b"):
+        t0 = time.perf_counter()
+        res = train_pipeline_mlp.run(
+            ["--schedule", schedule, "--iterations",
+             str(PIPE_TWIN_ITERATIONS)])
+        rows[schedule] = {"acc": res["accs"][-1], "loss": res["losses"][-1],
+                          "first_loss": res["losses"][0],
+                          "seconds": time.perf_counter() - t0}
+    print("pipeline (c) summary", json.dumps(rows), flush=True)
+    print(f"pipeline (c): the twin at world size 1, "
+          f"{PIPE_TWIN_ITERATIONS} iterations: " + ", ".join(
+              f"{k} loss {r['first_loss']:.4f} -> {r['loss']:.4f} acc "
+              f"{r['acc']:.4f} in {r['seconds']:.2f} s"
+              for k, r in rows.items()) + f"; card {smi}", flush=True)
+    bad = {k: r for k, r in rows.items() if not r["acc"] >= PIPE_TWIN_ACC}
+    if bad:
+        raise AssertionError(f"the pipeline twin did not learn: {bad}")
+    return rows
+
+
 # ---------------------------------------------------------------- main
 
 #: the bf16 kernels whose tensor-core instructions are counted: K1-K3
@@ -3388,6 +3881,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fsdp_") as tmp:
         phase_zero_fsdp(torch, np, comm, smi, tp_training, Path(tmp))
     print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
+    t16 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipe_") as tmp:
+        pipe_rows, pipe_ranks = phase_pipeline(torch, np, comm, smi,
+                                               Path(tmp))
+    phase_pipeline_twin(torch, smi)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
     import torch.distributed as dist
 
     dist.destroy_process_group()  # the training phases' one-rank group
@@ -3518,7 +4017,12 @@ def main() -> int:
                 "lm_training_phase7": flash_launches[key],
                 "mlm_encoder_phase11": encoder["launches"][key],
                 "tp1_training_phase15c": tp_training[
-                    "k1_k3_launches_tp_first_steps"][key]},
+                    "k1_k3_launches_tp_first_steps"][key],
+                "pipeline_step_phase16a": {
+                    e: pipe_rows[e]["launches"][key]
+                    for e in ("gpipe", "interleaved", "1f1b")},
+                "pipeline_step_per_rank_phase16b": [
+                    {e: r[e][key] for e in r} for r in pipe_ranks]},
             "max_abs_err": max(packed["max_abs_err"][e] for e in errs),
             "tolerance": packed["tolerance"],
             "ms": packed["ms"][key],
@@ -3555,5 +4059,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-child"]:  # phase 15 (b)'s ranks
         sys.path.insert(0, str(ROOT))
         _tp_child(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--pipe-child"]:  # phase 16 (b)'s ranks
+        sys.path.insert(0, str(ROOT))
+        _pipe_child(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
     sys.exit(main())

@@ -15,6 +15,7 @@ import chainermn_tpu_torch
 from chainermn_tpu_torch.communicators import create_communicator
 from chainermn_tpu_torch.examples.imagenet import train_imagenet
 from chainermn_tpu_torch.examples.mnist import train_mnist
+from chainermn_tpu_torch.examples.pipeline import train_pipeline_mlp
 from chainermn_tpu_torch.examples.tensor_parallel import (
     train_tp_transformer,
 )
@@ -22,6 +23,7 @@ from chainermn_tpu_torch.examples.transformer import train_transformer_lm
 from chainermn_tpu_torch.links import MultiNodeBatchNormalization
 from chainermn_tpu_torch.models import MLP, ResNet50, TransformerLM
 from chainermn_tpu_torch.ops import flash_attention as fa
+from chainermn_tpu_torch.parallel.mesh import make_mesh
 from chainermn_tpu_torch.serving import ServingEngine
 from chainermn_tpu_torch.training import Trainer, prefetch_to_device
 from torch_rank_workers import restore_excepthook  # noqa: F401
@@ -65,7 +67,9 @@ def test_every_port_module_imports_with_jax_blocked():
                  "links.multi_node_chain_list", "links.mnbn",
                  "examples.mnist.train_mnist_model_parallel",
                  "parallel.zero", "parallel.fsdp",
-                 "examples.tensor_parallel.train_tp_transformer"):
+                 "examples.tensor_parallel.train_tp_transformer",
+                 "parallel.mesh", "parallel.pipeline",
+                 "examples.pipeline.train_pipeline_mlp"):
         assert "chainermn_tpu_torch." + name in PORT_MODULES
     out = subprocess.run(
         [sys.executable, "-c", _BLOCK_AND_IMPORT, str(SMOKE), *PORT_MODULES],
@@ -112,6 +116,10 @@ def test_entry_points_raise_without_a_card_or_a_device(monkeypatch):
         train_imagenet.main(["--iterations", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_tp_transformer.main(["--iterations", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_pipeline_mlp.main(["--iterations", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(("data", "stage"))
     for make in (MLP, ResNet50, lambda: MultiNodeBatchNormalization(4)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
