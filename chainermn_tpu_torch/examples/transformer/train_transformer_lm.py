@@ -25,9 +25,19 @@ N tokens greedily on rank 0 from a two-row synthetic prompt with
 first runs :func:`~chainermn_tpu_torch.models.beam_search` with K beams),
 as the JAX example does; ``--mlm`` refuses both.
 
+``--sequence-parallel`` is the JAX example's long-context mode: ONE
+sequence (2 rows of ``--seq-len`` tokens) sharded over every rank, each
+rank on its own contiguous block with its blocks' global positions,
+attention through :func:`~chainermn_tpu_torch.parallel.ring_attention.
+ring_attention_local` (K1-K3 a live ring hop) or, with ``--window``,
+:func:`~chainermn_tpu_torch.parallel.local_attention.
+sliding_window_attention_local` (the predecessors' tails only); the
+gradients and the loss are averaged over the ranks in fp32, and AdamW
+steps the replicated weights. The other flags of the mode are the JAX
+example's: it ignores ``--packed``, ``--mlm`` and ``--batchsize``.
+
 Left for later, each refused with an error naming its ROADMAP item:
-``--sequence-parallel`` (queue 6.5), ``--local-sgd`` and
-``--error-feedback`` (queue 3.3).
+``--local-sgd`` and ``--error-feedback`` (queue 3.3).
 """
 
 from __future__ import annotations
@@ -57,7 +67,6 @@ from chainermn_tpu_torch.training import create_train_state, make_train_step
 VOCAB = 1024
 
 _LATER = {
-    "sequence_parallel": "ROADMAP queue 6.5 (ring/Ulysses/local attention)",
     "local_sgd": "ROADMAP queue 3.3 (LocalSGDOptimizer)",
     "error_feedback": "ROADMAP queue 3.3 (error feedback on the int8 wire)",
 }
@@ -144,8 +153,12 @@ def _parser():
     return p
 
 
-def main(argv=None):
-    """Train; returns the last step's metrics (0-dim tensors)."""
+def main(argv=None, *, group=None):
+    """Train; returns the last step's metrics (0-dim tensors).
+
+    ``group`` (``--sequence-parallel`` only): the process group the
+    sequence shards over, in place of the communicator's (ranks sharing
+    one card over gloo, which the communicators do not run)."""
     p = _parser()
     args = p.parse_args(argv)
     for flag, item in _LATER.items():
@@ -154,7 +167,13 @@ def main(argv=None):
     if args.mlm and (args.generate or args.beam):
         p.error("--mlm is an encoder: no autoregressive decode "
                 "(--generate/--beam)")
+    if group is not None and not args.sequence_parallel:
+        p.error("group= is the --sequence-parallel mode's")
     device = resolve_device(args.device)
+    compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    if group is not None:
+        return run_sequence_parallel(args, group, device, compute_dtype,
+                                     np.random.default_rng(0))
     comm = create_communicator(
         args.communicator or ("pure_nccl" if device.type == "cuda"
                               else "naive"),
@@ -163,8 +182,10 @@ def main(argv=None):
     global_except_hook._add_hook()
     if comm.rank == 0:
         print(f"communicator: {comm}")
-    compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     rng = np.random.default_rng(0)
+    if args.sequence_parallel:
+        return run_sequence_parallel(args, comm.group, device, compute_dtype,
+                                     rng)
     attention_fn = None
     if args.packed or args.window:
         attention_fn = functools.partial(flash_attention,
@@ -235,6 +256,84 @@ def main(argv=None):
     if comm.rank == 0:
         print(f"done ({mode})")
     return metrics
+
+
+def run_sequence_parallel(args, group, device, compute_dtype, rng):
+    """Long-context mode: ONE sequence sharded over the ranks of ``group``,
+    K/V streaming around the ring (or, with ``--window``, only the
+    predecessors' tails). Returns the last step's metrics, with
+    ``'losses'``, every iteration's loss."""
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch.parallel.collectives import _global
+    from chainermn_tpu_torch.parallel.local_attention import (
+        sliding_window_attention_local,
+    )
+    from chainermn_tpu_torch.parallel.ring_attention import (
+        ring_attention_local,
+    )
+
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if args.seq_len % n:
+        raise SystemExit(f"--seq-len must be divisible by the world size "
+                         f"{n}")
+    t_local = args.seq_len // n
+    if args.window:
+        def attn(q, k, v, *, causal, scale, **kw):
+            return sliding_window_attention_local(
+                q, k, v, group, window=args.window, scale=scale)
+    else:
+        def attn(q, k, v, *, causal, scale, **kw):
+            return ring_attention_local(q, k, v, group, causal=causal,
+                                        scale=scale)
+
+    model = TransformerLM(
+        vocab_size=VOCAB, num_layers=args.num_layers, d_model=args.d_model,
+        d_ff=4 * args.d_model, max_len=args.seq_len,
+        compute_dtype=compute_dtype, attention_fn=attn,
+        num_kv_heads=args.num_kv_heads, pos_encoding=args.pos_encoding,
+        seed=0, device=device)
+    params = list(model.parameters())
+    with torch.no_grad():
+        for p in params:  # rank 0's weights on every rank
+            dist.broadcast(p, src=_global(group, 0), group=group)
+    opt = torch.optim.AdamW(params, lr=args.lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    # the shard's GLOBAL positions serve both encodings: a learned table
+    # gathers its rows, rotary rotates by them
+    pos = r * t_local + torch.arange(t_local, device=device)
+    batch = 2
+    losses = []
+    t0 = time.perf_counter()
+    for it in range(args.iterations):
+        tokens = torch.from_numpy(synthetic_tokens(
+            rng, batch, args.seq_len)).to(device)
+        local = tokens[:, r * t_local:(r + 1) * t_local]
+        opt.zero_grad(set_to_none=True)
+        loss = lm_loss(model(local, positions=pos), local)
+        loss.backward()
+        with torch.no_grad():
+            # the fp32 means over the ranks (the JAX pmean), one buffer
+            flat = torch.cat([torch.zeros_like(p).reshape(-1)
+                              if p.grad is None else p.grad.reshape(-1)
+                              for p in params]
+                             + [loss.detach().float().reshape(1)])
+            dist.all_reduce(flat, group=group)
+            flat /= n
+            for p, g in zip(params, flat[:-1].split(
+                    [p.numel() for p in params])):
+                p.grad = g.view_as(p)
+        opt.step()
+        losses.append(flat[-1])
+        if r == 0 and ((it + 1) % 10 == 0 or it + 1 == args.iterations):
+            loss_v = float(losses[-1])
+            tps = batch * args.seq_len * (it + 1) / (time.perf_counter() - t0)
+            print(f"iter {it + 1}/{args.iterations} loss={loss_v:.4f} "
+                  f"({tps:,.0f} tok/s, seq {args.seq_len} over {n} shards"
+                  f"{f', window {args.window}' if args.window else ''})")
+    if r == 0:
+        print("done (sequence-parallel)")
+    return {"loss": losses[-1], "losses": torch.stack(losses)}
 
 
 def _decode_demo(args, model, rng, device):

@@ -48,6 +48,9 @@ from chainermn_tpu_torch.ops.attention import NEG_INF, _acc_dtype
 #: Launches of each CUDA kernel in this process (each wrapper adds one
 #: per launch and nowhere else; callers reset them before a counted run).
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
+#: Inputs the bf16 wrappers copied onto the kernels' 16-byte grid (a view
+#: whose base or strides are off it, :func:`_on_16_bytes`)
+OFF_GRID_COPIES = {"copies": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -386,9 +389,11 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, seg_q=None,
 def _on_16_bytes(t):
     """``t``, or a contiguous copy of it where its base or its batch,
     token or head stride is off the 16-byte grid on which the bf16
-    kernels copy rows (the model's own q/k/v views are on it)."""
+    kernels copy rows (the model's own q/k/v views are on it); each copy
+    adds one to ``OFF_GRID_COPIES``."""
     if t.data_ptr() % 16 or any(t.stride(i) * t.element_size() % 16
                                 for i in range(3)):
+        OFF_GRID_COPIES["copies"] += 1
         return t.clone(memory_format=torch.contiguous_format)
     return t
 

@@ -17,9 +17,15 @@ Left for later (ROADMAP queue 3.3, optimizer and reduction):
 ``error_feedback`` and ``reduction_schedule`` (the four schedules,
 ``'zero'`` among them, and ``'auto'``), which raise
 ``NotImplementedError``, and ``LocalSGDOptimizer`` / ``create_local_sgd``.
+
+:func:`inner_transform` unwraps a wrapper into the factory of its inner
+optimizer, which a :class:`~chainermn_tpu_torch.parallel.plan.
+ParallelPlan` builds over its own update groups.
 """
 
 from __future__ import annotations
+
+import inspect
 
 import torch
 
@@ -124,6 +130,59 @@ class MultiNodeOptimizer:
         return getattr(self.actual_optimizer, item)
 
 
+def inner_transform(optimizer):
+    """The plain optimizer factory a :class:`~chainermn_tpu_torch.parallel.
+    plan.ParallelPlan` composes: ``make_inner(params) -> Optimizer``.
+
+    A plan owns the whole reduction (its spec providers say which
+    collective each axis owes the step) and builds one inner optimizer
+    per update group over the tensors that group updates, so it takes a
+    factory, as :func:`~chainermn_tpu_torch.parallel.zero.
+    zero_shard_optimizer` does. A :class:`MultiNodeOptimizer` is unwrapped
+    into a factory of its inner optimizer's class with its defaults (the
+    JAX function returns the inner optax transform); wrappers whose
+    semantics live in the wrapper itself (double buffering's staleness
+    bank, error feedback, a compressed wire) are refused loudly rather
+    than silently dropped. A factory (any other callable) passes through;
+    a bare ``torch.optim.Optimizer`` instance is unwrapped like the
+    wrapper's inner one."""
+    if isinstance(optimizer, MultiNodeOptimizer):
+        if optimizer.double_buffering or getattr(optimizer,
+                                                 "error_feedback", False):
+            raise ValueError(
+                "a ParallelPlan composes its own reduction; "
+                "double_buffering/error_feedback live in the wrapper's "
+                "wire and cannot ride a plan-compiled step — pass the "
+                "plain inner optimizer")
+        if optimizer.compress_dtype is not None:
+            raise ValueError(
+                "a ParallelPlan reduces in full precision; the wrapper's "
+                f"compressed wire (allreduce_grad_dtype="
+                f"{str(optimizer.compress_dtype).replace('torch.', '')}) "
+                "would be silently dropped — pass the plain inner "
+                "optimizer, or keep this call site on the communicator path")
+        optimizer = optimizer.actual_optimizer
+    if isinstance(optimizer, torch.optim.Optimizer):
+        cls = type(optimizer)
+        # the defaults the constructor takes (AdamW keeps a
+        # ``decoupled_weight_decay`` default that its constructor fixes)
+        takes = inspect.signature(cls.__init__).parameters
+        defaults = {k: v for k, v in optimizer.defaults.items()
+                    if k in takes}
+
+        def make_inner(params):
+            return cls(params, **defaults)
+
+        make_inner.optimizer_class = cls
+        make_inner.defaults = defaults
+        return make_inner
+    if not callable(optimizer):
+        raise TypeError(f"a ParallelPlan takes an optimizer factory "
+                        f"make_inner(params) -> torch.optim.Optimizer, got "
+                        f"{type(optimizer).__name__}")
+    return optimizer
+
+
 def create_multi_node_optimizer(actual_optimizer: torch.optim.Optimizer,
                                 communicator: CommunicatorBase, *,
                                 double_buffering: bool = False,
@@ -139,4 +198,5 @@ def create_multi_node_optimizer(actual_optimizer: torch.optim.Optimizer,
         reduction_schedule=reduction_schedule)
 
 
-__all__ = ["MultiNodeOptimizer", "create_multi_node_optimizer"]
+__all__ = ["MultiNodeOptimizer", "create_multi_node_optimizer",
+           "inner_transform"]

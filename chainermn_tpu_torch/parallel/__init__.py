@@ -3,11 +3,13 @@
 over a process group (:mod:`.collectives`), the tensor-parallel layers
 (:mod:`.tensor`), ZeRO optimizer-state sharding (:mod:`.zero`), FSDP
 parameter and state sharding on DTensors (:mod:`.fsdp`), rank meshes
-(:mod:`.mesh`) and the pipeline engines, GPipe (plain, interleaved,
-heterogeneous) and 1F1B (:mod:`.pipeline`). The rest of the JAX
-package's ``parallel/`` (the plan and its spec providers, ring/Ulysses/
-local attention, MoE, the composition and cost model, the async host
-plane) is ROADMAP queue 1, items 6.4-6.8."""
+(:mod:`.mesh`), the pipeline engines, GPipe (plain, interleaved,
+heterogeneous) and 1F1B (:mod:`.pipeline`), the ParallelPlan and its
+spec layer (:mod:`.plan`, :mod:`.plan_specs`), and sequence parallelism:
+ring attention (:mod:`.ring_attention`), Ulysses (:mod:`.ulysses`) and
+sliding-window attention (:mod:`.local_attention`). The rest of the JAX
+package's ``parallel/`` (MoE, the composition and cost model, the async
+host plane) is ROADMAP queue 1, items 6.6-6.8."""
 
 from chainermn_tpu_torch.parallel.collectives import (
     allgather,
@@ -28,6 +30,9 @@ from chainermn_tpu_torch.parallel.fsdp import (
     fsdp_shardings,
     make_fsdp_train_step,
 )
+from chainermn_tpu_torch.parallel.local_attention import (
+    sliding_window_attention_local,
+)
 from chainermn_tpu_torch.parallel.mesh import (
     MeshTopology,
     best_mesh_shape,
@@ -46,6 +51,21 @@ from chainermn_tpu_torch.parallel.pipeline import (
     stack_stage_params,
     unscale_replicated_grads,
 )
+from chainermn_tpu_torch.parallel.plan import (
+    ParallelPlan,
+    PipelinePlanSpec,
+    PlanTrainState,
+)
+from chainermn_tpu_torch.parallel.plan_specs import (
+    CANONICAL_AXES,
+    AxisSpec,
+    moe_plan_axis,
+)
+from chainermn_tpu_torch.parallel.ring_attention import (
+    make_ring_attention,
+    ring_attention_local,
+    seq_ring_attention_local,
+)
 from chainermn_tpu_torch.parallel.tensor import (
     column_parallel_dense,
     copy_to_tp,
@@ -56,23 +76,41 @@ from chainermn_tpu_torch.parallel.tensor import (
     stack_tp_params,
     tp_attention,
     tp_mlp,
+    tp_plan_axis,
     tp_slice,
+)
+from chainermn_tpu_torch.parallel.ulysses import (
+    make_ulysses_attention,
+    ulysses_attention_local,
 )
 from chainermn_tpu_torch.parallel.zero import (
     ZeroShardOptimizer,
+    zero_gather_updates,
+    zero_grad_scatter,
+    zero_param_chunk,
+    zero_plan_axis,
     zero_shard_optimizer,
+    zero_stacked_init,
+    zero_state_specs,
 )
 
-__all__ = ["MeshTopology", "ZeroShardOptimizer", "allgather", "allreduce",
-           "alltoall", "axes_bound", "axis_index", "axis_size_of", "bcast",
-           "best_mesh_shape", "column_parallel_dense", "copy_to_tp",
-           "create_fsdp_train_state", "fsdp_shardings", "gather",
-           "gather_from_tp", "make_fsdp_train_step", "make_mesh",
-           "make_pipeline", "make_pipeline_1f1b", "make_pipeline_hetero",
+__all__ = ["AxisSpec", "CANONICAL_AXES", "MeshTopology", "ParallelPlan",
+           "PipelinePlanSpec", "PlanTrainState", "ZeroShardOptimizer",
+           "allgather", "allreduce", "alltoall", "axes_bound", "axis_index",
+           "axis_size_of", "bcast", "best_mesh_shape",
+           "column_parallel_dense", "copy_to_tp", "create_fsdp_train_state",
+           "fsdp_shardings", "gather", "gather_from_tp",
+           "make_fsdp_train_step", "make_mesh", "make_pipeline",
+           "make_pipeline_1f1b", "make_pipeline_hetero",
+           "make_ring_attention", "make_ulysses_attention", "moe_plan_axis",
            "pipe_plan_axis", "pipeline_1f1b_local", "pipeline_hetero_local",
            "pipeline_local", "pipeline_total_ticks", "ppermute",
-           "reduce_from_tp", "reduce_scatter", "row_parallel_dense",
-           "scatter", "shard_qkv_columns", "shift",
+           "reduce_from_tp", "reduce_scatter", "ring_attention_local",
+           "row_parallel_dense", "scatter", "seq_ring_attention_local",
+           "shard_qkv_columns", "shift", "sliding_window_attention_local",
            "stack_interleaved_stage_params", "stack_stage_params",
-           "stack_tp_params", "tp_attention", "tp_mlp", "tp_slice",
-           "unscale_replicated_grads", "zero_shard_optimizer"]
+           "stack_tp_params", "tp_attention", "tp_mlp", "tp_plan_axis",
+           "tp_slice", "ulysses_attention_local", "unscale_replicated_grads",
+           "zero_gather_updates", "zero_grad_scatter", "zero_param_chunk",
+           "zero_plan_axis", "zero_shard_optimizer", "zero_stacked_init",
+           "zero_state_specs"]

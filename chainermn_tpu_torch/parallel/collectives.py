@@ -215,29 +215,39 @@ def _stage_through_host(t, group) -> bool:
 
 
 def _permute(t, group, perm):
-    if _stage_through_host(t, group):
-        return _permute_direct(t.cpu(), group, perm).to(t.device)
-    return _permute_direct(t, group, perm)
+    return _permute_all([t], group, perm)[0]
 
 
-def _permute_direct(t, group, perm):
+def _permute_all(ts, group, perm):
+    """:func:`_permute` of every tensor of ``ts`` in ONE
+    ``batch_isend_irecv`` (a ring hop's K/V and its segment ids go
+    together)."""
+    staged = [_stage_through_host(t, group) for t in ts]
+    outs = _permute_direct([t.cpu() if s else t for t, s in zip(ts, staged)],
+                           group, perm)
+    return [o.to(t.device) if s else o for o, t, s in zip(outs, ts, staged)]
+
+
+def _permute_direct(ts, group, perm):
     me = dist.get_rank(group)
-    t = t.contiguous()
-    out = None
+    ts = [t.contiguous() for t in ts]
+    outs = [None] * len(ts)
     ops = []
     for src, dst in perm:
         if src == me and dst == me:
-            out = t.clone()
+            outs = [t.clone() for t in ts]
         elif src == me:
-            ops.append(dist.P2POp(dist.isend, t, _global(group, dst), group))
+            ops += [dist.P2POp(dist.isend, t, _global(group, dst), group)
+                    for t in ts]
         elif dst == me:
-            out = torch.empty_like(t)
-            ops.append(dist.P2POp(dist.irecv, out, _global(group, src),
-                                  group))
+            outs = [torch.empty_like(t) for t in ts]
+            ops += [dist.P2POp(dist.irecv, o, _global(group, src), group)
+                    for o in outs]
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-    return torch.zeros_like(t) if out is None else out
+    return [torch.zeros_like(t) if o is None else o
+            for o, t in zip(outs, ts)]
 
 
 def _all_to_all(t, group, split_axis, concat_axis, tiled):

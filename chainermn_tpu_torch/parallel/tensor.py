@@ -20,10 +20,9 @@ Two identity/collective adjoint pairs do all the gradient bookkeeping
 Weights keep the JAX layout ``[d_in, d_out]`` (``x @ w``), so a JAX
 shard carries over as it is; :func:`stack_tp_params` and
 :func:`shard_qkv_columns` cut a full weight into the ``[n, ...]`` stack
-of per-rank shards (rank ``i`` takes ``stack[i]``).
-
-Left for later: ``tp_plan_axis``, the spec provider of the
-``ParallelPlan`` (ROADMAP queue 1, item 6.4).
+of per-rank shards (rank ``i`` takes ``stack[i]``). :func:`tp_plan_axis`
+is the ``model`` axis's spec provider of the
+:class:`~chainermn_tpu_torch.parallel.plan.ParallelPlan`.
 """
 
 from __future__ import annotations
@@ -35,6 +34,17 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from chainermn_tpu_torch.parallel import collectives as C
+
+
+def tp_plan_axis(axis_name: str = "model") -> dict:
+    """Spec-provider descriptor of the ``model`` axis for the
+    :class:`~chainermn_tpu_torch.parallel.plan.ParallelPlan`:
+    tensor-parallel parameter leaves stack a leading ``[n, ...]`` shard dim
+    over ``axis_name`` in the global view (the :func:`stack_tp_params`
+    layout; each rank holds its slice), and the axis owes the step one
+    all-reduce per column-to-row pair, forward and its mirror backward."""
+    return {"name": axis_name, "stacked": True, "state_stacked": False,
+            "collectives": ("all-reduce",)}
 
 
 # ---------------------------------------------------------------------------
@@ -210,4 +220,5 @@ def tp_attention(x: torch.Tensor, wq_local: torch.Tensor,
 
 __all__ = ["column_parallel_dense", "copy_to_tp", "gather_from_tp",
            "reduce_from_tp", "row_parallel_dense", "shard_qkv_columns",
-           "stack_tp_params", "tp_attention", "tp_mlp", "tp_slice"]
+           "stack_tp_params", "tp_attention", "tp_mlp", "tp_plan_axis",
+           "tp_slice"]

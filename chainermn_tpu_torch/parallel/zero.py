@@ -41,13 +41,14 @@ The wrapper reduces the gradients itself (``handles_cross_rank_sync``),
 so :func:`~chainermn_tpu_torch.training.make_train_step` runs it without
 another reduction.
 
-Left for later: ``zero_plan_axis`` and ``zero_stacked_init``, the
-``ParallelPlan``'s surface (ROADMAP queue 1, item 6.4), ``compress_dtype``
-(the compressed wire applied to the scatter, with the other wires of
-ROADMAP queue 1, item 3.2), and the multi-axis group (``axis_name`` as a tuple of mesh axes, the flattened product the
-``'zero'`` reduction schedule builds on, queue 3.3). ``zero_state_specs``
-has a DTensor counterpart: the placement of each state leaf over a 1-D
-device mesh of the group.
+:func:`zero_plan_axis` and :func:`zero_stacked_init` are the ZeRO axis's
+surface of the :class:`~chainermn_tpu_torch.parallel.plan.ParallelPlan`.
+Left for later: ``compress_dtype`` (the compressed wire applied to the
+scatter, with the other wires of ROADMAP queue 1, item 3.2) and the
+multi-axis group (``axis_name`` as a tuple of mesh axes, the flattened
+product the ``'zero'`` reduction schedule builds on, queue 3.3).
+``zero_state_specs`` has a DTensor counterpart: the placement of each
+state leaf over a 1-D device mesh of the group.
 """
 
 from __future__ import annotations
@@ -61,21 +62,18 @@ import torch.nn.functional as F
 from chainermn_tpu_torch.parallel.collectives import as_group
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item 6.4: the "
-        "ParallelPlan)")
-
-
 def _shard_len(size: int, n: int) -> int:
     """The ceil-padded row length (JAX ``two_level_shard_len``)."""
     return -(-size // n)
 
 
 def _chunk_rows(x: torch.Tensor, n: int) -> torch.Tensor:
-    """``x`` flattened and zero-padded into ``n`` equal rows ``[n, c]``."""
+    """``x`` flattened and zero-padded into ``n`` equal rows ``[n, c]``
+    (a view of ``x`` when its size divides by ``n``)."""
     flat = x.reshape(-1)
     c = _shard_len(flat.numel(), n)
+    if n * c == flat.numel():
+        return flat.view(n, c)
     return F.pad(flat, (0, n * c - flat.numel())).reshape(n, c)
 
 
@@ -91,15 +89,22 @@ def _group_of(group):
     return g, dist.get_world_size(g), dist.get_rank(g)
 
 
-def zero_grad_scatter(g: torch.Tensor, group=None, *,
+def zero_grad_scatter(g: torch.Tensor, group=None, *, extra_group=None,
                       total: Optional[int] = None) -> torch.Tensor:
     """This rank's MEAN gradient chunk ``[c]``: one reduce-scatter of
-    ``g``'s rows over ``group``, divided by ``total`` (default: the group
-    size)."""
+    ``g``'s rows over ``group`` plus, when the step has more data-parallel
+    ranks, one all-reduce of the chunk over ``extra_group`` (JAX
+    ``extra_axes``), divided by ``total`` (default: the product of the two
+    groups' sizes)."""
     grp, n, _ = _group_of(group)
     rows = _chunk_rows(g, n).contiguous()
     part = rows.new_empty(rows.shape[1:])
     dist.reduce_scatter_tensor(part, rows.reshape(-1), group=grp)
+    if extra_group is not None:
+        extra = as_group(extra_group)
+        dist.all_reduce(part, group=extra)
+        if total is None:
+            total = n * dist.get_world_size(extra)
     return (part / (n if total is None else total)).to(g.dtype)
 
 
@@ -135,25 +140,68 @@ def zero_state_specs(optimizer) -> dict:
             for i, s in inner.state_dict()["state"].items()}
 
 
-def zero_plan_axis(axis_name: str = "zero"):
-    raise _later("zero_plan_axis (the ZeRO axis of the ParallelPlan)")
+def zero_plan_axis(axis_name: str = "zero") -> dict:
+    """Spec-provider descriptor of the ``zero`` axis for the
+    :class:`~chainermn_tpu_torch.parallel.plan.ParallelPlan`: the axis
+    shards the OPTIMIZER STATE (parameters stay replicated over it: it is
+    a data-parallel axis whose state is chunked), and owes the step one
+    reduce-scatter and one all-gather of the parameters' chunks."""
+    return {"name": axis_name, "stacked": False, "state_stacked": True,
+            "collectives": ("reduce-scatter", "all-gather")}
 
 
-def zero_stacked_init(inner, leaves, n: int):
-    raise _later("zero_stacked_init (the plan's stacked ZeRO state)")
+def _chunk_buckets(leaves: list, n: int, rank: int):
+    """``(chunks, buckets)``: ``chunks[i]`` is row ``rank`` of leaf
+    ``i``'s ``_chunk_rows`` layout as a Parameter that views one flat
+    buffer per (dtype, device) of the leaves; ``buckets`` lists, per
+    buffer, ``(leaf indices, chunk lengths, flat buffer)``."""
+    by_kind: dict = {}
+    for i, p in enumerate(leaves):
+        by_kind.setdefault((p.dtype, p.device), []).append(i)
+    chunks = [None] * len(leaves)
+    buckets = []
+    with torch.no_grad():
+        for idx in by_kind.values():
+            lens = [_shard_len(leaves[i].numel(), n) for i in idx]
+            flat = torch.cat([_chunk_rows(leaves[i].detach(), n)[rank]
+                              for i in idx])
+            for i, view in zip(idx, flat.split(lens)):
+                chunks[i] = torch.nn.Parameter(view)
+            buckets.append((idx, lens, flat))
+    return chunks, buckets
+
+
+def zero_stacked_init(make_inner: Callable[[list], torch.optim.Optimizer],
+                      leaves, n: int, rank: int):
+    """The ZeRO state over ``leaves`` for the rank at index ``rank`` of a
+    zero axis of ``n``: ``(chunks, optimizer)``, where ``chunks[i]`` is
+    row ``rank`` of leaf ``i``'s JAX ``_chunk_rows`` layout (flattened,
+    zero-padded to ``n * ceil(size / n)``), a view of one flat buffer per
+    dtype (so one collective moves every chunk), and ``optimizer =
+    make_inner(chunks)``. The state the optimizer keeps for ``chunks[i]``
+    is row ``rank`` of the JAX ``jax.vmap(inner.init)(rows)`` state's
+    ``[n, ...]`` leaf. :class:`ZeroShardOptimizer` (and through it the
+    plan's ``zero`` groups) lays its chunks out this way."""
+    chunks, _ = _chunk_buckets(list(leaves), n, rank)
+    return chunks, make_inner(chunks)
 
 
 class ZeroShardOptimizer:
     """ZeRO-1 over ``group``: the inner optimizer holds this rank's chunk
     of every parameter (``zero_param_chunk``) and its state; ``step``
-    reduce-scatters the gradient means onto the chunks, steps the inner
-    optimizer and all-gathers the updated chunks into the parameters.
+    reduce-scatters the gradient means onto the chunks
+    (:func:`zero_grad_scatter`), steps the inner optimizer and
+    all-gathers the updated chunks into the parameters
+    (:func:`zero_gather_updates`).
 
     The chunks of the parameters of one dtype are views of one flat
-    buffer, so that each of the two collectives moves every leaf at
-    once. A parameter without a gradient reduces zeros, as the JAX step
-    gives every leaf a gradient; a parameter written since the last
-    step (a load, an outside edit) hands its new values to its chunk.
+    buffer (:func:`zero_stacked_init`'s layout), so that each of the two
+    collectives moves every leaf at once. A parameter without a gradient
+    reduces zeros, as the JAX step gives every leaf a gradient; a
+    parameter written since the last step (a load, an outside edit) hands
+    its new values to its chunk. ``extra_group``, the other data-parallel
+    ranks of a plan, adds one all-reduce of the chunk after the scatter
+    (the mean then divides by both groups' ranks).
     ``param_groups`` lists the full parameters (what
     :func:`~chainermn_tpu_torch.training.create_train_state` checks);
     ``actual_optimizer`` is the inner one, over the chunks, and its
@@ -164,7 +212,7 @@ class ZeroShardOptimizer:
 
     def __init__(self, make_inner: Callable[[list], torch.optim.Optimizer],
                  params: Iterable[torch.Tensor], group=None, *,
-                 compress_dtype=None) -> None:
+                 extra_group=None, compress_dtype=None) -> None:
         if compress_dtype is not None:
             raise NotImplementedError(
                 "zero_shard_optimizer(compress_dtype=) is not ported yet "
@@ -173,20 +221,9 @@ class ZeroShardOptimizer:
         if not self._params:
             raise ValueError("ZeroShardOptimizer got no parameters")
         self.group, self.n, self.rank = _group_of(group)
-        by_kind: dict = {}
-        for i, p in enumerate(self._params):
-            by_kind.setdefault((p.dtype, p.device), []).append(i)
-        self._chunks = [None] * len(self._params)
-        self._buckets = []  # (leaf indices, chunk lengths, flat chunks)
-        with torch.no_grad():
-            for idx in by_kind.values():
-                lens = [_shard_len(self._params[i].numel(), self.n)
-                        for i in idx]
-                flat = torch.cat([zero_param_chunk(self._params[i].detach(),
-                                                   self.group) for i in idx])
-                for i, view in zip(idx, flat.split(lens)):
-                    self._chunks[i] = torch.nn.Parameter(view)
-                self._buckets.append((idx, lens, flat))
+        self.extra_group = extra_group
+        self._chunks, self._buckets = _chunk_buckets(self._params, self.n,
+                                                     self.rank)
         self._seen = [self._mark(p) for p in self._params]
         self.actual_optimizer = make_inner(self._chunks)
 
@@ -198,6 +235,11 @@ class ZeroShardOptimizer:
     @property
     def param_groups(self) -> list:
         return [{"params": self._params}]
+
+    @property
+    def state(self):
+        """The inner optimizer's per-chunk state."""
+        return self.actual_optimizer.state
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         for p in self._params:
@@ -214,24 +256,26 @@ class ZeroShardOptimizer:
                 p = self._params[i]
                 if self._mark(p) != self._seen[i]:
                     self._chunks[i].copy_(zero_param_chunk(p, self.group))
+            # every leaf's rows side by side: ``[n, sum c]`` is its own
+            # ``_chunk_rows`` layout, so one scatter serves the bucket
             rows = torch.cat([_chunk_rows(
                 torch.zeros_like(p) if p.grad is None else p.grad, n)
                 for p in (self._params[i] for i in idx)], dim=1)
-            part = flat.new_empty(flat.shape)
-            dist.reduce_scatter_tensor(part, rows.reshape(-1),
-                                       group=self.group)
+            part = zero_grad_scatter(rows, self.group,
+                                     extra_group=self.extra_group)
             del rows
-            part /= n
             for i, g in zip(idx, part.split(lens)):
                 self._chunks[i].grad = g
         self.actual_optimizer.step()
         for idx, lens, flat in self._buckets:
-            full = flat.new_empty(n * flat.numel())
-            dist.all_gather_into_tensor(full, flat, group=self.group)
-            for i, rows in zip(idx, full.view(n, -1).split(lens, dim=1)):
+            full = zero_gather_updates(
+                flat, torch.empty((n, flat.numel()), dtype=flat.dtype,
+                                  device="meta"), self.group)
+            for i, rows in zip(idx, full.split(lens, dim=1)):
                 p = self._params[i]
                 p.copy_(_unchunk(rows, p.shape, p.dtype))
                 self._seen[i] = self._mark(p)
+                self._chunks[i].grad = None
 
     def state_dict(self) -> dict:
         return self.actual_optimizer.state_dict()

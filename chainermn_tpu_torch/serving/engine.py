@@ -318,7 +318,7 @@ class ServingEngine:
         if mesh is not None and prefill_seq_parallel != "off":
             raise _not_ported(
                 f"prefill_seq_parallel={prefill_seq_parallel!r} with mesh=",
-                "sequence-parallel prefill, which needs 6.5")
+                "sequence-parallel prefill, item 7")
         if spec_tokens != 0:
             raise _not_ported(f"spec_tokens={spec_tokens!r}",
                               "speculative decoding")

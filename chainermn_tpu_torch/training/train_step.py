@@ -13,8 +13,9 @@ A :class:`TrainState` is what the checkpointer saves and restores
 (:mod:`chainermn_tpu_torch.extensions.checkpoint`): the module's and the
 optimizer's ``state_dict`` and the step.
 
-Left for later: ``plan=``, ``param_specs`` and ``pipeline`` (ROADMAP queue
-6, parallelism library) and the error-feedback state (queue 3.3).
+``make_train_step(plan=...)`` delegates to the
+:class:`~chainermn_tpu_torch.parallel.plan.ParallelPlan`'s composed step.
+Left for later: the error-feedback state (ROADMAP queue 3.3).
 """
 
 from __future__ import annotations
@@ -74,11 +75,6 @@ def normalize_loss_fn(loss_fn: Callable) -> Callable:
     return _loss_with_aux
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 6, parallelism library)")
-
-
 def _split(batch, n: int):
     """``n`` microbatches of every tensor leaf of ``batch`` (dim 0)."""
     if isinstance(batch, torch.Tensor):
@@ -95,9 +91,10 @@ def _split(batch, n: int):
     raise TypeError(f"cannot split a batch leaf of type {type(batch)}")
 
 
-def make_train_step(loss_fn: Callable, optimizer, comm: CommunicatorBase,
-                    *, accum_steps: int = 1, plan=None, param_specs=None,
-                    pipeline=None):
+def make_train_step(loss_fn: Callable, optimizer,
+                    comm: CommunicatorBase = None, *, accum_steps: int = 1,
+                    plan=None, param_specs=None, pipeline=None,
+                    axis_name=None, batch_spec=None):
     """Build the data-parallel train step.
 
     ``loss_fn(model, batch)`` returns the LOCAL-batch mean loss (or one of
@@ -109,12 +106,36 @@ def make_train_step(loss_fn: Callable, optimizer, comm: CommunicatorBase,
     ``accum_steps`` splits the batch into microbatches along dim 0, each
     backward adding ``grad / accum_steps``, and reduces once.
 
+    ``plan``: a :class:`~chainermn_tpu_torch.parallel.plan.ParallelPlan`
+    — the step is the plan's composed step
+    (:meth:`~chainermn_tpu_torch.parallel.plan.ParallelPlan.
+    compile_train_step`: ``loss_fn(params, batch)`` on the collapsed
+    param tree, this rank's share of the batch, state from
+    ``plan.create_train_state``); ``optimizer`` is a factory
+    ``make_inner(params)`` or a wrapper that
+    :func:`~chainermn_tpu_torch.optimizers.inner_transform` unwraps;
+    ``param_specs`` marks model/pipe-stacked leaves and ``pipeline``
+    passes a pipe plan's ``PipelinePlanSpec``. ``accum_steps`` does not
+    apply there (nor do the JAX ``axis_name``/``batch_spec``).
+
     Returns ``step(state, batch) -> (state, metrics)``; ``metrics`` maps
     ``'loss'`` and the loss function's metrics to 0-dim fp32 tensors,
     averaged over the ranks and over the microbatches.
     """
-    if plan is not None or param_specs is not None or pipeline is not None:
-        raise _later("plan=/param_specs=/pipeline= (the ParallelPlan path)")
+    if plan is not None:
+        if accum_steps != 1 or axis_name is not None or batch_spec is not None:
+            raise ValueError(
+                "plan= owns the batch/axis layout: axis_name, batch_spec "
+                "and accum_steps do not apply to a plan-compiled step")
+        return plan.compile_train_step(loss_fn, optimizer,
+                                       param_specs=param_specs,
+                                       pipeline=pipeline)
+    if param_specs is not None or pipeline is not None:
+        raise ValueError("param_specs/pipeline only apply to the plan= path")
+    if axis_name is not None or batch_spec is not None:
+        raise ValueError("axis_name/batch_spec have no meaning on the "
+                         "communicator path: each rank passes its own "
+                         "share of the batch")
     if comm is None:
         raise ValueError("pass a communicator (or plan=)")
     if accum_steps < 1:

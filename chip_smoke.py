@@ -221,6 +221,28 @@ script exits non-zero without its final ``ok`` line:
     at least ``PIPE_TWIN_ACC``); a failing rank fails the phase; (c) the
     pipeline twin at world size 1, GPipe and 1F1B, ``PIPE_TWIN_ITERATIONS``
     iterations, accuracy at least ``PIPE_TWIN_ACC``.
+17. (run after phase 16) The ParallelPlan and sequence parallelism on
+    phase 7's LM (B ``SEQ_B`` x T ``SEQ_T``, plain causal): (a) world size
+    1 over the one-rank NCCL group: (1) ``make_train_step(plan=
+    ParallelPlan({'data': 1, 'zero': 1}))``, ``SEQ_PLAN_STEPS`` AdamW
+    steps against phase 7's communicator-path step on the same batches
+    (losses within 1e-5 relative, forecast bit-identical; K1/K2/K3 6/6/6
+    a step; the step keeps its state tensors); (2) ``ParallelPlan({'seq':
+    1})`` through ``seq_attention('ring')`` and ``('ulysses')``, one SGD
+    step, loss and gradients against the plain model within
+    ``SEQ1_GRAD_TOL``; (b) ``SEQ_RANKS`` processes on the one card
+    (``python3 chip_smoke.py --seq-child DIR RANK``, gloo): gloo's
+    all-to-all over CUDA tensors checked; (1) ``ParallelPlan({'seq':
+    2})`` through the ring and Ulysses, each rank's loss and gradients
+    against (a)'s plain values (``SEQ_LOSS_TOL``, ``SEQ_GRAD_TOL``),
+    K1/K2/K3 launches per rank by the rule (ring rank r: 6 (r + 1);
+    Ulysses: 6), bytes sent a step equal to the count from the shapes;
+    (2) the sliding window (W ``SEQ_WINDOW``) and (3) the zigzag ring,
+    forward and backward, against the plain call within
+    ``SEQ_KERNEL_TOL``, their launches, bytes and host copies of off-grid
+    views; (c) the twin's ``--sequence-parallel`` at 2 ranks, ring and
+    ``--window``, ``SEQ_TWIN_ITERATIONS`` iterations: finite losses that
+    fall. A failing rank fails the phase.
 
 The ``kernels`` JSON and the card's name and power limit come on the two
 lines before the last; the last line is ``{"ok": true, "device": {...}}``.
@@ -228,12 +250,14 @@ lines before the last; the last line is ``{"ok": true, "device": {...}}``.
 ``paged_flash_decode_stacked``'s phase 14 (a)'s.
 K1-K3's ``launches`` are phase 7's (the LM training path); their
 ``launches_by_path`` add phase 11's encoder run, phase 15 (c)'s TP 1
-training and phase 16's pipelined steps ((a) by engine, (b) by rank);
+training, phase 16's pipelined steps ((a) by engine, (b) by rank) and
+phase 17's plan and sequence-parallel steps ((a), and (b) by rank);
 K4's add phase 15 (a)'s TP 1 serving and each rank's of (b).
 
 ``python3 chip_smoke.py --drill-child DIR MODE`` is phase 12's child
-process, ``--tp-child DIR RANK`` phase 15 (b)'s and ``--pipe-child DIR
-RANK`` phase 16 (b)'s, not checks of their own.
+process, ``--tp-child DIR RANK`` phase 15 (b)'s, ``--pipe-child DIR
+RANK`` phase 16 (b)'s and ``--seq-child DIR RANK`` phase 17 (b)'s, not
+checks of their own.
 """
 
 from __future__ import annotations
@@ -3414,10 +3438,11 @@ def _pipe_steps(torch, model, group, tokens, engines, first, count,
     return runs
 
 
-def _pipe_over_limit(torch, grads, ref):
-    """The largest ``|g - g_ref| / limit`` over the leaves (limit per
-    entry, ``PIPE_GRAD_TOL``), its leaf, and the max |g - g_ref|."""
-    rtol, atol = PIPE_GRAD_TOL
+def _over_limit(grads, ref, tol):
+    """The largest ``|g - g_ref| / (rtol |g_ref| + atol max |g_ref|)`` over
+    the leaves (``tol = (rtol, atol)``, the limit per entry, atol scaled by
+    each leaf's largest entry), its leaf, and the max |g - g_ref|."""
+    rtol, atol = tol
     worst, leaf, diff = 0.0, None, 0.0
     for k, g in grads.items():
         r = ref[k].to(g.device).float()
@@ -3491,7 +3516,7 @@ def phase_pipeline(torch, np, comm, smi, tmp):
                           "peak_memory_bytes": ref_peak,
                           "profile": {"wall_ms": wall, "busy_ms": busy}}}
     for name, run in runs.items():
-        worst, leaf, diff = _pipe_over_limit(torch, run["grads"], ref)
+        worst, leaf, diff = _over_limit(run["grads"], ref, PIPE_GRAD_TOL)
         rows[name] = {"loss": run["loss"],
                       "loss_diff": abs(run["loss"] - ref_loss),
                       "grad_over_limit": worst, "worst_leaf": leaf,
@@ -3641,7 +3666,7 @@ def _pipe_child(tmp, rank):
     failed = []
     for name, run in runs.items():
         mine = torch.load(tmp / f"a_{name}.pt")
-        worst, leaf, _ = _pipe_over_limit(torch, run["grads"], ref)
+        worst, leaf, _ = _over_limit(run["grads"], ref, PIPE_GRAD_TOL)
         diff_a = max(float((g.float().cpu() - mine[k].float()).abs().max())
                      for k, g in run["grads"].items())
         out[name] = {"loss": run["loss"],
@@ -3710,6 +3735,568 @@ def phase_pipeline_twin(torch, smi):
     if bad:
         raise AssertionError(f"the pipeline twin did not learn: {bad}")
     return rows
+
+
+# ---------------------------------------------------------------- phase 17
+
+#: phase 17: phase 7's LM (6 layers, d 512, 8 heads, vocab 32000, bf16,
+#: seeded) over B 8 x T 2048 plain causal; (a) at world size 1 over the
+#: one-rank NCCL group, (b) over SEQ_RANKS ranks on the one card (gloo)
+SEQ_B, SEQ_T = 8, 2048
+SEQ_PLAN_STEPS = 3
+SEQ_RANKS = 2
+SEQ_CHILD_TIMEOUT_S = 300
+SEQ_WINDOW = 256
+#: (c) the twin's iterations at 2 ranks (batch 2 x SEQ_T tokens)
+SEQ_TWIN_ITERATIONS = 10
+#: (a) 2: the plan's seq step at size 1 against the plain model, each
+#: gradient entry |g - g_ref| <= rtol |g_ref| + atol max |g_ref| of its
+#: leaf. Written before the first run. At one rank the ring runs K1-K3
+#: once a layer on the diagonal block, the merge of one partial with the
+#: empty one is exact (its weights are exp(0) = 1 and 0), and the all-to-
+#: alls of Ulysses move nothing, so the gradient is the plain model's
+#: bit for bit; the step reads it back as p0 - p1 of SGD at lr 1, whose
+#: fp32 subtraction rounds at 2^-24 of |p0| (<= 0.2): far under 1e-3 of
+#: a leaf's largest gradient.
+SEQ1_GRAD_TOL = (1e-3, 1e-3)
+#: (b) 1: two seq ranks against (a)'s world-size-1 plain values. Written
+#: before the first run. The ring's rank 1 merges two bf16 partial
+#: outputs in fp32 where the plain kernel sums one pass, so each
+#: attention output moves by a bf16 ulp or two; through 6 layers that is
+#: the pipeline's case (PIPE_GRAD_TOL's reasoning), so the same limits.
+SEQ_LOSS_TOL = 2e-3
+SEQ_GRAD_TOL = (0.03, 0.03)
+#: (b) 2-3: the window and zigzag rings' outputs and gradients against a
+#: plain fp32 attention (einsum, masked softmax, autograd; no kernel) of
+#: the whole sequence on the same card tensors, row by row: the largest
+#: |diff| of a (b, t, h) row over the norm of its plain row, or over the
+#: RMS of the plain rows' norms where the row is smaller (dq's first rows
+#: are near zero). Written before the first run of this form: through
+#: the kernels' plain version on the CPU (B 1, T 2048, 8 heads, W 256 and
+#: full causal, bf16 inputs) the kernels' rounding rules give O 0.0030,
+#: dq 0.048, dk 0.0064, dv 0.0034 of this scale, and a window off by one
+#: (W 255 or 257) O 0.65 and 1.18, dq 0.56 and 2.06; so a limit of 0.1.
+SEQ_KERNEL_TOL = 0.1
+
+
+def _seq_batch(torch, np, device):
+    """Phase 17's batch: tokens [SEQ_B, SEQ_T] and their next tokens (the
+    last position's target is the row's first token), so the mean loss
+    over the positions is the same whatever the sequence sharding."""
+    rng = np.random.default_rng(17)
+    tokens = torch.from_numpy(rng.integers(0, 32000, size=(SEQ_B, SEQ_T))
+                              ).to(device)
+    return tokens, torch.roll(tokens, -1, dims=1)
+
+
+def _seq_loss(torch, model, pos=None):
+    """``loss_fn(params, (tokens, targets))`` over ``model`` through
+    ``functional_call``: the mean next-token cross-entropy of the shard,
+    at the shard's global positions ``pos``."""
+    import torch.nn.functional as F
+    from torch.func import functional_call
+
+    def loss_fn(p, batch):
+        tokens, targets = batch
+        kw = {} if pos is None else {"positions": pos}
+        logits = functional_call(model, p, (tokens,), kw)
+        return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                               targets.reshape(-1))
+
+    return loss_fn
+
+
+def _params_of(model):
+    return {k: v.detach() for k, v in model.named_parameters()}
+
+
+def _sgd_grads(torch, plan, model, loss_fn, batch):
+    """One plan step of SGD at lr 1 from ``model``'s weights: (the
+    metrics' loss, the gradients as p0 - p1, K1-K3 launches, step ms)."""
+    import functools
+
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    params = _params_of(model)
+    make = functools.partial(torch.optim.SGD, lr=1.0)
+    state = plan.create_train_state(params, make)
+    step = plan.compile_train_step(loss_fn, make, params)
+    p0 = {k: v.detach().clone() for k, v in state.params.items()}
+    torch.cuda.synchronize()
+    _reset_launches(fa)
+    t0 = time.perf_counter()
+    state, m = step(state, plan.local_batch(batch))
+    loss = float(m["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fa.LAUNCHES)
+    grads = {k: p0[k] - state.params[k].detach() for k in p0}
+    return loss, grads, launches, ms
+
+
+def phase_seq_plan(torch, np, comm, smi, tmp):
+    """Phase 17 (a) at world size 1 over the one-rank NCCL group: (1)
+    ``make_train_step(plan=ParallelPlan({'data': 1, 'zero': 1}))``, 3
+    AdamW steps against phase 7's communicator-path step on the same
+    batches, K1-K3 launches a step; (2) ``ParallelPlan({'seq': 1})``
+    through the ring and Ulysses against the plain model: the loss and
+    every gradient entry within ``SEQ1_GRAD_TOL``. Leaves the plain
+    model's loss and gradients (and (2)'s) in ``tmp`` for (b)."""
+    import functools
+
+    from chainermn_tpu_torch.models import TransformerLM, lm_loss
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
+    from chainermn_tpu_torch.parallel.plan import ParallelPlan
+    from chainermn_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+
+    adamw = dict(lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    rng = np.random.default_rng(7)
+    batches = [torch.from_numpy(rng.integers(0, 32000, size=(SEQ_B, SEQ_T))
+                                ).cuda() for _ in range(SEQ_PLAN_STEPS)]
+    runs = {}
+    for path in ("communicator", "plan"):
+        model = TransformerLM(seed=0, attention_fn=fa.flash_attention)
+        if path == "communicator":
+            opt = create_multi_node_optimizer(
+                torch.optim.AdamW(model.parameters(), **adamw), comm)
+            state = create_train_state(model, opt, comm)
+            step = make_train_step(lambda m_, t: lm_loss(m_(t), t), opt,
+                                   comm)
+        else:
+            plan = ParallelPlan({"data": 1, "zero": 1})
+            make = functools.partial(torch.optim.AdamW, **adamw)
+            params = _params_of(model)
+            state = plan.create_train_state(params, make)
+            step = make_train_step(
+                lambda p, t: lm_loss(
+                    torch.func.functional_call(model, p, (t,)), t),
+                make, plan=plan)
+            held = [id(t) for t in state.params.values()]
+        losses, launches, ms = [], [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            _reset_launches(fa)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(dict(fa.LAUNCHES))
+        weights = (dict(model.named_parameters()) if path == "communicator"
+                   else state.params)
+        runs[path] = {"losses": losses, "launches": launches, "ms": ms,
+                      "weights": {k: v.detach().clone()
+                                  for k, v in weights.items()}}
+        # where the step's time goes: two profiled steps more (after the
+        # weights are kept), each window's wall, busy and host self time
+        runs[path]["profiles"], runs[path]["host_ops"] = [], []
+        for _ in range(2):
+            got = {}
+
+            def one(state=state, batch=batches[0]):
+                step(state, batch)
+
+            wall, busy, kernels = _profile_window(
+                torch, one, f"seq plan (a) 1 {path} profile",
+                ("flash_",), host_ops=got)
+            runs[path]["profiles"].append(
+                {"wall_ms": wall, "busy_ms": busy,
+                 "device_ops": sum(kc[1] for kc in kernels),
+                 "host_self_ms": sum(t for t, _ in got.values())})
+            runs[path]["host_ops"].append(got)
+        if path == "plan":
+            runs[path]["same_tensors"] = held == [
+                id(t) for t in state.params.values()]
+            runs[path]["describe"] = plan.describe()
+        del model, state, step
+    c, p = runs["communicator"], runs["plan"]
+    diff = max(float((p["weights"][k] - c["weights"][k]).abs().max())
+               for k in c["weights"])
+    expected = {"fwd": 6, "dq": 6, "dkv": 6}
+
+    def mean_op(run, key):
+        return sum(w.get(key, (0.0, 0))[0] for w in run["host_ops"]) / 2
+
+    keys = set().union(*p["host_ops"], *c["host_ops"])
+    extra = sorted(((mean_op(p, k) - mean_op(c, k), k) for k in keys),
+                   reverse=True)
+    a1 = {"losses_communicator": c["losses"], "losses_plan": p["losses"],
+          "bit_identical": c["losses"] == p["losses"] and diff == 0.0,
+          "weights_max_abs_diff": diff, "launches_plan": p["launches"],
+          "launches_communicator": c["launches"],
+          "expected_launches": expected, "ms_plan": p["ms"],
+          "ms_communicator": c["ms"], "same_tensors": p["same_tensors"],
+          "describe": p["describe"], "profiles_plan": p["profiles"],
+          "profiles_communicator": c["profiles"],
+          "plan_extra_host_ms": sum(d for d, _ in extra),
+          "plan_extra_host_top": [
+              {"op": k, "extra_ms": d,
+               "plan_calls": p["host_ops"][0].get(k, (0, 0))[1],
+               "communicator_calls": c["host_ops"][0].get(k, (0, 0))[1]}
+              for d, k in extra[:12]]}
+    print("seq plan (a) 1 summary", json.dumps(a1), flush=True)
+    print(f"seq plan (a) 1: make_train_step(plan=ParallelPlan({{'data': 1, "
+          f"'zero': 1}})) {SEQ_PLAN_STEPS} AdamW steps, B {SEQ_B} x T "
+          f"{SEQ_T}: losses {p['losses']} (communicator path "
+          f"{c['losses']}), bit-identical {a1['bit_identical']}, weights "
+          f"max |diff| {diff:.3e}; K1/K2/K3 launches a step "
+          f"{p['launches'][-1]}; step ms {[round(x, 2) for x in p['ms']]} "
+          f"(communicator path {[round(x, 2) for x in c['ms']]}); card "
+          f"{smi}", flush=True)
+    print(f"seq plan (a) 1 profile: wall / device busy / host self ms / "
+          f"device ops of a profiled step, plan "
+          f"{[(round(w['wall_ms'], 3), round(w['busy_ms'], 3), round(w['host_self_ms'], 3), w['device_ops']) for w in p['profiles']]}"
+          f", communicator path "
+          f"{[(round(w['wall_ms'], 3), round(w['busy_ms'], 3), round(w['host_self_ms'], 3), w['device_ops']) for w in c['profiles']]}"
+          f"; the plan adds {a1['plan_extra_host_ms']:.3f} ms of host self "
+          f"time a step (mean of two windows each), by op: " + "; ".join(
+              f"{h['op'][:60]} +{h['extra_ms']:.3f} ms ({h['plan_calls']} "
+              f"vs {h['communicator_calls']} calls)"
+              for h in a1["plan_extra_host_top"]), flush=True)
+    # forecast and measured: the same gradients and the same element-wise
+    # AdamW, so the losses and every weight agree bit for bit
+    if p["losses"] != c["losses"] or diff != 0.0:
+        raise AssertionError(f"seq plan (a) 1: the plan's losses "
+                             f"{p['losses']} and weights (max |diff| "
+                             f"{diff}) are not the communicator path's "
+                             f"{c['losses']} bit for bit")
+    if any(ln != expected for ln in p["launches"]) \
+            or not p["same_tensors"]:
+        raise AssertionError(f"seq plan (a) 1: launches {p['launches']} "
+                             f"(expected {expected} a step) or a step made "
+                             "new state tensors")
+    del runs, c, p
+
+    # (2): the plain model's loss and gradients at world size 1, then the
+    # seq plan at size 1 through each impl
+    batch = _seq_batch(torch, np, "cuda")
+    model = TransformerLM(seed=0, attention_fn=fa.flash_attention)
+    params = {k: v.requires_grad_() for k, v in _params_of(model).items()}
+    _reset_launches(fa)
+    loss = _seq_loss(torch, model)(params, batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    ref = {k: g.detach() for k, g in zip(params, grads)}
+    ref_loss = float(loss.detach())
+    ref_launches = dict(fa.LAUNCHES)
+    del model, params, grads, loss
+    rows = {"plain": {"loss": ref_loss, "launches": ref_launches}}
+    saved = {"plain": {k: v.cpu() for k, v in ref.items()}}
+    for impl in ("ring", "ulysses"):
+        plan = ParallelPlan({"seq": 1})
+        attn_fn, rec = plan.seq_attention(heads=8, t_local=SEQ_T, impl=impl)
+        model = TransformerLM(seed=0, attention_fn=attn_fn)
+        loss, g, launches, ms = _sgd_grads(torch, plan, model,
+                                           _seq_loss(torch, model), batch)
+        worst, leaf, d = _over_limit(g, ref, SEQ1_GRAD_TOL)
+        rows[impl] = {"loss": loss, "loss_diff": abs(loss - ref_loss),
+                      "grad_over_limit": worst, "worst_leaf": leaf,
+                      "grad_max_abs_diff": d, "launches": launches,
+                      "ms": ms, "record": rec,
+                      "collectives": plan.describe()["collectives"]}
+        saved[impl] = {k: v.cpu() for k, v in g.items()}
+        del model, g
+    torch.save(saved, tmp / "seq_a.pt")
+    (tmp / "seq_a.json").write_text(json.dumps(
+        {k: r["loss"] for k, r in rows.items()}))
+    print("seq plan (a) 2 summary", json.dumps(rows), flush=True)
+    for impl in ("ring", "ulysses"):
+        r = rows[impl]
+        print(f"seq plan (a) 2 {impl}: ParallelPlan({{'seq': 1}}), "
+              f"B {SEQ_B} x T {SEQ_T}: loss {r['loss']:.6f} (plain "
+              f"{ref_loss:.6f}), grads {r['grad_over_limit']:.3e} of their "
+              f"limit (worst {r['worst_leaf']}, max |diff| "
+              f"{r['grad_max_abs_diff']:.3e}), K1/K2/K3 launches "
+              f"{r['launches']} (plain {ref_launches}), step "
+              f"{r['ms']:.2f} ms; card {smi}", flush=True)
+        if r["loss_diff"] > 1e-5 * abs(ref_loss) \
+                or not r["grad_over_limit"] <= 1 \
+                or r["launches"] != ref_launches:
+            raise AssertionError(f"seq plan (a) 2 {impl}: {r}")
+    return a1, rows
+
+
+def _seq_expected_bytes(impl, b, t_local, hq, hkv, d, layers, n):
+    """Bytes a rank sends a step by the shapes (bf16 activations, fp32 K/V
+    gradient accumulators): the ring's K/V pair n - 1 hops forward and
+    n - 1 backward, the accumulators n hops; Ulysses' all-to-alls (q, k,
+    v in and the output out, forward; their cotangents backward), each
+    sending (n - 1)/n of its buffer."""
+    kv = 2 * b * t_local * hkv * d
+    if impl == "ring":
+        return layers * ((n - 1) * kv * 2 * 2 + n * kv * 4)
+    per = (2 * b * t_local * hq * d + 2 * b * t_local * hkv * d) * 2
+    return layers * 2 * per * (n - 1) // n
+
+
+def _seq_child(tmp, rank):
+    """One rank of phase 17 (b) and (c): rank ``rank`` of a gloo group of
+    ``SEQ_RANKS`` on the one card. (b) 1: ``ParallelPlan({'seq': 2})``
+    through the ring and Ulysses, one SGD step (lr 1) of phase 7's LM
+    over this rank's half of the sequence, held to (a)'s world-size-1
+    plain model; (b) 2: the sliding window (W ``SEQ_WINDOW``) and (b) 3:
+    the zigzag ring, forward and backward at the kernel level, against the
+    plain call at world size 1; (c): the twin's ``--sequence-parallel``,
+    ring and window. Exits non-zero when a check fails."""
+    import functools
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch.examples.transformer import (
+        train_transformer_lm,
+    )
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.parallel import ring_attention as ra
+    from chainermn_tpu_torch.parallel.local_attention import (
+        sliding_window_attention_local,
+    )
+    from chainermn_tpu_torch.parallel.plan import ParallelPlan
+
+    tmp = Path(tmp)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/seq_store",
+                            rank=rank, world_size=SEQ_RANKS)
+    n = SEQ_RANKS
+    out = {"rank": rank}
+    failed = []
+    # gloo's all-to-all over CUDA tensors (Ulysses' reshard), checked
+    # before Ulysses leans on it
+    probe = torch.arange(4 * n, device="cuda:0", dtype=torch.float32
+                         ) + 100 * rank
+    got = torch.empty_like(probe)
+    dist.all_to_all_single(got, probe)
+    want = torch.cat([torch.arange(4 * rank, 4 * rank + 4,
+                                   dtype=torch.float32) + 100 * s
+                      for s in range(n)]).cuda()
+    out["gloo_all_to_all_cuda"] = bool(torch.equal(got, want))
+    if not out["gloo_all_to_all_cuda"]:
+        failed.append("gloo_all_to_all_cuda")
+
+    a_grads = torch.load(tmp / "seq_a.pt")
+    a_loss = json.loads((tmp / "seq_a.json").read_text())
+    batch = _seq_batch(torch, np, "cuda:0")
+    # the attention's bytes (ring hops, Ulysses' all-to-alls) and, apart,
+    # the buffers the step all-reduces (the seq mean of the gradients and
+    # the metrics; how many bytes that puts on the wire is gloo's choice)
+    sent = {"bytes": 0, "all_reduce": 0}
+    keep = dist.batch_isend_irecv, dist.all_to_all_single, dist.all_reduce
+
+    def transfer(ops):
+        sent["bytes"] += sum(o.tensor.numel() * o.tensor.element_size()
+                             for o in ops if o.op is dist.isend)
+        return keep[0](ops)
+
+    def all_to_all(output, input, *args, **kw):
+        sent["bytes"] += input.numel() * input.element_size() * (n - 1) // n
+        return keep[1](output, input, *args, **kw)
+
+    def all_reduce(tensor, *args, **kw):
+        sent["all_reduce"] += tensor.numel() * tensor.element_size()
+        return keep[2](tensor, *args, **kw)
+
+    t_local = SEQ_T // n
+    for impl in ("ring", "ulysses"):
+        plan = ParallelPlan({"seq": n}, device="cuda:0")
+        attn_fn, _ = plan.seq_attention(heads=8, t_local=t_local, impl=impl)
+        model = TransformerLM(seed=0, attention_fn=attn_fn, device="cuda:0")
+        loss_fn = _seq_loss(torch, model, plan.seq_local_positions(t_local))
+        sent["bytes"] = sent["all_reduce"] = 0
+        (dist.batch_isend_irecv, dist.all_to_all_single,
+         dist.all_reduce) = transfer, all_to_all, all_reduce
+        try:
+            loss, g, launches, ms = _sgd_grads(torch, plan, model, loss_fn,
+                                               batch)
+        finally:
+            (dist.batch_isend_irecv, dist.all_to_all_single,
+             dist.all_reduce) = keep
+        L = model.num_layers
+        each = L * (rank + 1) if impl == "ring" else L
+        expected = {"fwd": each, "dq": each, "dkv": each}
+        want_bytes = _seq_expected_bytes(impl, SEQ_B, t_local, 8, 8, 64, L,
+                                         n)
+        # one buffer of every gradient, and the loss (4 bytes)
+        want_ar = sum(v.numel() * v.element_size()
+                      for v in model.parameters()) + 4
+        worst, leaf, d = _over_limit(g, a_grads["plain"], SEQ_GRAD_TOL)
+        diff_a = max(float((g[k].float().cpu() - a_grads[impl][k].float()
+                            ).abs().max()) for k in g)
+        out[impl] = {"loss": loss, "loss_diff": abs(loss - a_loss["plain"]),
+                     "loss_diff_vs_a": abs(loss - a_loss[impl]),
+                     "grad_over_limit": worst, "worst_leaf": leaf,
+                     "grad_max_abs_diff": d,
+                     "grad_max_abs_diff_vs_a": diff_a,
+                     "launches": launches, "expected_launches": expected,
+                     "attention_bytes": sent["bytes"],
+                     "expected_attention_bytes": want_bytes,
+                     "all_reduce_bytes": sent["all_reduce"],
+                     "expected_all_reduce_bytes": want_ar, "ms": ms}
+        if (out[impl]["loss_diff"] > SEQ_LOSS_TOL or not worst <= 1
+                or launches != expected or sent["bytes"] != want_bytes
+                or sent["all_reduce"] != want_ar):
+            failed.append(impl)
+        del model, g
+        torch.cuda.empty_cache()
+
+    # (b) 2 and 3: the kernels' level, one generator for every rank
+    gen = torch.Generator(device="cuda:0").manual_seed(17)
+    q, k, v = (torch.randn(SEQ_B, SEQ_T, 8, 64, device="cuda:0",
+                           generator=gen).bfloat16() for _ in range(3))
+
+    def grads_of(fn, *xs):
+        xs = [x.detach().clone().requires_grad_() for x in xs]
+        o = fn(*xs)
+        g = torch.autograd.grad((o.float() ** 2).sum(), xs)
+        return o.detach(), g
+
+    def plain(a, b_, c, window=None):
+        """fp32 causal attention over the whole sequence, no kernel."""
+        s_ = torch.einsum("bqhd,bkhd->bhqk", a.float(), b_.float()) * 64 ** -0.5
+        i = torch.arange(a.shape[1], device=a.device)
+        vis = i[:, None] >= i[None, :]
+        if window is not None:
+            vis &= i[:, None] - i[None, :] < window
+        s_ = s_.masked_fill(~vis, float("-inf"))
+        return torch.einsum("bhqk,bkhd->bqhd", s_.softmax(-1), c.float())
+
+    def held(got, want):
+        """SEQ_KERNEL_TOL's measure: the largest row |diff| over its row's
+        norm, or over the RMS of the rows' norms where that is larger."""
+        d = (got.float() - want.float()).norm(dim=-1)
+        r = want.float().norm(dim=-1)
+        return float((d / r.clamp_min(float(r.square().mean().sqrt()))
+                      ).max())
+
+    lo, hi = rank * t_local, (rank + 1) * t_local
+    for case in ("window", "zigzag"):
+        if case == "window":
+            ref_o, ref_g = grads_of(functools.partial(
+                plain, window=SEQ_WINDOW), q, k, v)
+            shard = (lambda x: x[:, lo:hi])
+
+            def dist_fn(a, b_, c):
+                return sliding_window_attention_local(a, b_, c,
+                                                      window=SEQ_WINDOW)
+        else:
+            ref_o, ref_g = grads_of(plain, q, k, v)
+
+            def shard(x):
+                return ra.to_zigzag(x, n)[:, lo:hi]
+
+            def dist_fn(a, b_, c):
+                return ra.ring_attention_local(a, b_, c, causal=True,
+                                               layout="zigzag")
+        _reset_launches(fa)
+        copies = fa.OFF_GRID_COPIES["copies"]
+        sent["bytes"] = 0
+        dist.batch_isend_irecv = transfer
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o, g = grads_of(dist_fn, *(shard(x) for x in (q, k, v)))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            dist.batch_isend_irecv = keep[0]
+        errs = {"O": held(o, shard(ref_o)),
+                **{name: held(gi, shard(ri)) for name, gi, ri in
+                   zip(("dq", "dk", "dv"), g, ref_g)}}
+        out[case] = {"row_err": errs, "launches": dict(fa.LAUNCHES),
+                     "off_grid_copies": fa.OFF_GRID_COPIES["copies"] - copies,
+                     "bytes_sent": sent["bytes"], "ms": ms}
+        if max(errs.values()) > SEQ_KERNEL_TOL:
+            failed.append(case)
+    # zigzag: each rank runs 1 + 3 + (n - 1 - 1) ... = n + 2 block calls of
+    # K1 forward and of K2/K3 backward (past: 1, diag: 3, future: 1)
+    if out["zigzag"]["launches"] != {"fwd": n + 2, "dq": n + 2,
+                                     "dkv": n + 2}:
+        failed.append("zigzag_launches")
+    if out["window"]["launches"] != {"fwd": 1, "dq": 1, "dkv": 1}:
+        failed.append("window_launches")
+    del q, k, v, ref_o, ref_g
+    torch.cuda.empty_cache()
+
+    # (c) the twin's sequence-parallel mode, ring and window
+    out["twin"] = {}
+    for name, extra in (("ring", []), ("window", ["--window",
+                                                  str(SEQ_WINDOW)])):
+        t0 = time.perf_counter()
+        m = train_transformer_lm.main(
+            ["--device", "cuda:0", "--sequence-parallel", "--seq-len",
+             str(SEQ_T), "--iterations", str(SEQ_TWIN_ITERATIONS)] + extra,
+            group=dist.group.WORLD)
+        losses = [float(x) for x in m["losses"]]
+        out["twin"][name] = {"losses": losses,
+                             "seconds": time.perf_counter() - t0}
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            failed.append(f"twin_{name}")
+    out["failed"] = failed
+    (tmp / f"seq_out{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    if failed:
+        print(f"seq plan (b) rank {rank} failed: {failed}: "
+              f"{json.dumps(out)}", file=sys.stderr, flush=True)
+        sys.exit(1)
+
+
+def phase_seq_ranks(torch, smi, tmp):
+    """Phase 17 (b) and (c): ``SEQ_RANKS`` processes on the one card
+    (``python3 chip_smoke.py --seq-child DIR RANK``), reading (a)'s
+    values from ``tmp``; a failing rank fails the phase."""
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--seq-child",
+         str(tmp), str(r)]) for r in range(SEQ_RANKS)]
+    deadline = time.monotonic() + SEQ_CHILD_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    outs = [json.loads((tmp / f"seq_out{r}.json").read_text())
+            for r in range(SEQ_RANKS) if (tmp / f"seq_out{r}.json").exists()]
+    print("seq plan (b) summary", json.dumps(outs), flush=True)
+    if any(codes) or len(outs) != SEQ_RANKS:
+        raise AssertionError(f"seq plan (b) ranks exited with {codes}")
+    for impl in ("ring", "ulysses"):
+        print(f"seq plan (b) 1 {impl}: ParallelPlan({{'seq': {SEQ_RANKS}}}) "
+              f"on one card over gloo, B {SEQ_B} x T {SEQ_T}: per rank loss "
+              f"{[round(o[impl]['loss'], 6) for o in outs]} (diff vs the "
+              f"plain model {[o[impl]['loss_diff'] for o in outs]}), grads "
+              f"{[round(o[impl]['grad_over_limit'], 4) for o in outs]} of "
+              f"their limit, max |diff| vs (a) {impl} "
+              f"{[o[impl]['grad_max_abs_diff_vs_a'] for o in outs]}; "
+              f"K1/K2/K3 launches {[o[impl]['launches'] for o in outs]}; "
+              f"attention bytes sent a step "
+              f"{[o[impl]['attention_bytes'] for o in outs]} (by the shapes "
+              f"{outs[0][impl]['expected_attention_bytes']}), all-reduced "
+              f"buffer bytes {[o[impl]['all_reduce_bytes'] for o in outs]} "
+              f"(the gradients and the loss "
+              f"{outs[0][impl]['expected_all_reduce_bytes']}); step ms "
+              f"over gloo {[round(o[impl]['ms'], 1) for o in outs]}; card "
+              f"{smi}", flush=True)
+    for case in ("window", "zigzag"):
+        print(f"seq plan (b) {case}: [{SEQ_B}, {SEQ_T}, 8, 64] bf16 over "
+              f"{SEQ_RANKS} ranks against plain fp32 attention: row |diff| "
+              f"over the row's scale {[o[case]['row_err'] for o in outs]} "
+              f"(limit {SEQ_KERNEL_TOL}), launches "
+              f"{[o[case]['launches'] for o in outs]}, host copies of "
+              f"off-grid views {[o[case]['off_grid_copies'] for o in outs]}"
+              f", bytes sent {[o[case]['bytes_sent'] for o in outs]}; card "
+              f"{smi}", flush=True)
+    for name in ("ring", "window"):
+        t = outs[0]["twin"][name]
+        print(f"seq plan (c) twin --sequence-parallel {name}: losses "
+              f"{[round(x, 4) for x in t['losses']]} in "
+              f"{t['seconds']:.1f} s", flush=True)
+    return outs
 
 
 # ---------------------------------------------------------------- main
@@ -3887,6 +4474,11 @@ def main() -> int:
                                                Path(tmp))
     phase_pipeline_twin(torch, smi)
     print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
+    t17 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seq_") as tmp:
+        seq_a1, seq_a2 = phase_seq_plan(torch, np, comm, smi, Path(tmp))
+        seq_ranks = phase_seq_ranks(torch, smi, Path(tmp))
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
     import torch.distributed as dist
 
     dist.destroy_process_group()  # the training phases' one-rank group
@@ -4022,7 +4614,17 @@ def main() -> int:
                     e: pipe_rows[e]["launches"][key]
                     for e in ("gpipe", "interleaved", "1f1b")},
                 "pipeline_step_per_rank_phase16b": [
-                    {e: r[e][key] for e in r} for r in pipe_ranks]},
+                    {e: r[e][key] for e in r} for r in pipe_ranks],
+                "plan_step_phase17a": seq_a1["launches_plan"][-1][key],
+                "seq1_plan_step_phase17a": {
+                    i: seq_a2[i]["launches"][key]
+                    for i in ("ring", "ulysses")},
+                "seq2_plan_step_per_rank_phase17b": [
+                    {i: o[i]["launches"][key] for i in ("ring", "ulysses")}
+                    for o in seq_ranks],
+                "window_zigzag_per_rank_phase17b": [
+                    {c: o[c]["launches"][key] for c in ("window", "zigzag")}
+                    for o in seq_ranks]},
             "max_abs_err": max(packed["max_abs_err"][e] for e in errs),
             "tolerance": packed["tolerance"],
             "ms": packed["ms"][key],
@@ -4063,5 +4665,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--pipe-child"]:  # phase 16 (b)'s ranks
         sys.path.insert(0, str(ROOT))
         _pipe_child(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--seq-child"]:  # phase 17 (b)'s ranks
+        sys.path.insert(0, str(ROOT))
+        _seq_child(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
     sys.exit(main())

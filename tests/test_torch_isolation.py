@@ -24,6 +24,7 @@ from chainermn_tpu_torch.links import MultiNodeBatchNormalization
 from chainermn_tpu_torch.models import MLP, ResNet50, TransformerLM
 from chainermn_tpu_torch.ops import flash_attention as fa
 from chainermn_tpu_torch.parallel.mesh import make_mesh
+from chainermn_tpu_torch.parallel.plan import ParallelPlan
 from chainermn_tpu_torch.serving import ServingEngine
 from chainermn_tpu_torch.training import Trainer, prefetch_to_device
 from torch_rank_workers import restore_excepthook  # noqa: F401
@@ -69,7 +70,10 @@ def test_every_port_module_imports_with_jax_blocked():
                  "parallel.zero", "parallel.fsdp",
                  "examples.tensor_parallel.train_tp_transformer",
                  "parallel.mesh", "parallel.pipeline",
-                 "examples.pipeline.train_pipeline_mlp"):
+                 "examples.pipeline.train_pipeline_mlp",
+                 "parallel.plan_specs", "parallel.plan",
+                 "parallel.ring_attention", "parallel.ulysses",
+                 "parallel.local_attention"):
         assert "chainermn_tpu_torch." + name in PORT_MODULES
     out = subprocess.run(
         [sys.executable, "-c", _BLOCK_AND_IMPORT, str(SMOKE), *PORT_MODULES],
@@ -120,6 +124,8 @@ def test_entry_points_raise_without_a_card_or_a_device(monkeypatch):
         train_pipeline_mlp.main(["--iterations", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh(("data", "stage"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ParallelPlan({"data": 1})
     for make in (MLP, ResNet50, lambda: MultiNodeBatchNormalization(4)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

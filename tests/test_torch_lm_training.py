@@ -226,8 +226,11 @@ def test_left_out_options_raise():
     _, _, tm = _pair()
     comm = create_communicator("naive")
     adamw = torch.optim.AdamW(tm.parameters())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 6"):
-        make_train_step(_port_loss, adamw, comm, plan=object())
+    # plan= is the ParallelPlan path (tests/test_torch_plan.py), which
+    # refuses the communicator path's knobs
+    with pytest.raises(ValueError, match="accum_steps"):
+        make_train_step(_port_loss, adamw, comm, plan=object(),
+                        accum_steps=2)
     for kw in (dict(error_feedback=True), dict(reduction_schedule="flat")):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 3.3"):
             create_multi_node_optimizer(adamw, comm, **kw)

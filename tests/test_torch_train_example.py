@@ -25,8 +25,7 @@ def test_example_twin_trains_to_a_finite_loss(mode, capsys):
             else "done (data-parallel)") in out
 
 
-@pytest.mark.parametrize("flag", [["--sequence-parallel"], ["--local-sgd", "4"],
-                                  ["--error-feedback"]])
+@pytest.mark.parametrize("flag", [["--local-sgd", "4"], ["--error-feedback"]])
 def test_left_out_flags_exit_naming_their_roadmap_item(flag, capsys):
     with pytest.raises(SystemExit):
         train_transformer_lm.main(TINY + flag)

@@ -227,8 +227,11 @@ def test_zero_compressed_wire_is_left_for_later():
 
 
 def test_zero_plan_surface_is_left_for_the_plan():
-    with pytest.raises(NotImplementedError, match="6.4"):
-        zero_plan_axis()
+    """The plan's ZeRO surface is ported: the provider descriptor is the
+    JAX package's (tests/test_torch_plan.py drives it)."""
+    from chainermn_tpu.parallel.zero import zero_plan_axis as jax_axis
+
+    assert zero_plan_axis() == jax_axis()
 
 
 def _placement_of_spec(spec):
