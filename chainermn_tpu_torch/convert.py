@@ -10,14 +10,15 @@ Conv kernels ``[H, W, in, out]`` (HWIO) become ``[out, in, H, W]`` (OIHW),
 and BatchNorm's ``batch_stats`` become the module's running-statistics
 buffers. Converted so far: the Transformer LM, the MLP, the ResNets,
 the functional chains of a ``MultiNodeChainList`` (their weights keep
-the ``x @ w`` layout), a run of Transformer blocks and a rank's slice of
-a pipeline's stacked stage parameters; the ViT converter lands with its
-model.
+the ``x @ w`` layout), a run of Transformer blocks (dense or MoE: the
+``moe_*`` leaves keep JAX's layout), a rank's slice of a pipeline's
+stacked stage parameters and of a ``make_expert_params`` stack; the ViT
+converter lands with its model.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -36,8 +37,9 @@ def lm_state_from_flax(params: Mapping) -> dict:
     Names: ``tok_emb/embedding`` (also the tied head), ``pos_emb``
     (learned positions only), per ``block_i``: ``LayerNorm_0``/``_1``
     ``{scale, bias}``, ``qkv/kernel``, ``proj/kernel``,
-    ``ff_up/{kernel, bias}``, ``ff_down/{kernel, bias}``; the top-level
-    ``LayerNorm_0`` is the final norm."""
+    ``ff_up/{kernel, bias}``, ``ff_down/{kernel, bias}`` or, in an MoE
+    block, ``moe_router``, ``moe_w_up``, ``moe_b_up``, ``moe_w_down`` and
+    ``moe_b_down``; the top-level ``LayerNorm_0`` is the final norm."""
     p = params.get("params", params)
     state = {"tok_emb.weight": _t(p["tok_emb"]["embedding"]),
              "ln_f.weight": _t(p["LayerNorm_0"]["scale"]),
@@ -64,10 +66,40 @@ def blocks_state_from_flax(blocks, prefix: str = "") -> dict:
             state[pre + name + ".weight"] = _t(b[ln]["scale"])
             state[pre + name + ".bias"] = _t(b[ln]["bias"])
         for name in ("qkv", "proj", "ff_up", "ff_down"):
+            if name not in b:  # an MoE block has no ff_up/ff_down
+                continue
             state[pre + name + ".weight"] = _t(b[name]["kernel"]).T.contiguous()
             if "bias" in b[name]:
                 state[pre + name + ".bias"] = _t(b[name]["bias"])
+        for name in MOE_LEAVES:
+            if name in b:  # [D, E] and [E, ...]: JAX's layout, untransposed
+                state[pre + name] = _t(b[name])
     return state
+
+
+#: an MoE block's leaves, in the port's names and JAX's layout
+MOE_LEAVES = ("moe_router", "moe_w_up", "moe_b_up", "moe_w_down",
+              "moe_b_down")
+
+
+def expert_params_from_stack(stacked, rank: Optional[int] = None,
+                             n_ranks: int = 1):
+    """A JAX ``make_expert_params`` stack (a pytree of numpy arrays with
+    a leading ``[E, ...]`` expert dim) as fp32 tensors: the whole stack,
+    or with ``rank`` the ``[E / n_ranks, ...]`` slice of experts ``[rank
+    * E / n_ranks, (rank + 1) * E / n_ranks)`` that rank ``rank`` of an
+    expert group of ``n_ranks`` owns (what ``P('expert')`` hands it)."""
+    def leaf(a):
+        a = np.asarray(a)
+        if rank is None:
+            return _t(a)
+        if a.shape[0] % n_ranks:
+            raise ValueError(f"{a.shape[0]} experts do not divide over "
+                             f"{n_ranks} ranks")
+        e = a.shape[0] // n_ranks
+        return _t(a[rank * e:(rank + 1) * e])
+
+    return pytree.tree_map(leaf, stacked)
 
 
 def stage_params_from_stack(stacked, rank: int,

@@ -39,8 +39,20 @@ all-reduce per column→row pair, two per layer (:meth:`TransformerLM.
 clone` cuts a full model down to such a shard; :func:`~chainermn_tpu_torch.
 serving.engine.shard_lm_params` gives the weights).
 
-Left for later: MoE (also under tensor parallelism, ROADMAP queue 1, item
-6.6), LoRA adapters, ``sow_kv``.
+Mixture of experts (``n_experts > 0``): every block's dense FFN becomes
+``n_experts`` expert MLPs behind a top-1 router (the ``moe_router``,
+``moe_w_up``, ``moe_b_up``, ``moe_w_down`` and ``moe_b_down`` leaves,
+the expert leaves stacking a leading ``[E, ...]`` dim), in two forms:
+with ``expert_axis`` None every expert is evaluated and a one-hot times
+the gate combines them (the reference form: training, ``generate`` and
+the engine without a mesh); with ``expert_axis`` a process group (the
+serving engine's TP group) the ownership-split form routes this rank's
+slice of the token rows through :func:`~chainermn_tpu_torch.parallel.
+moe.moe_layer_local` to the experts' owners and back, and one all-reduce
+re-replicates the rows.
+
+Left for later: LoRA adapters and MoE with them (ROADMAP queue 1, item
+7), ``sow_kv``.
 """
 
 from __future__ import annotations
@@ -66,6 +78,8 @@ from chainermn_tpu_torch.ops.paged_decode import (
     paged_flash_decode,
 )
 from chainermn_tpu_torch.ops.paged_kv import paged_lookup, paged_update
+from chainermn_tpu_torch.parallel import collectives as C
+from chainermn_tpu_torch.parallel.moe import moe_layer_local
 from chainermn_tpu_torch.parallel.tensor import copy_to_tp, reduce_from_tp
 from chainermn_tpu_torch.utils import prng
 
@@ -148,7 +162,14 @@ class TransformerBlock(nn.Module):
     ``qkv`` and ``ff_up``, and the outputs of ``proj`` and ``ff_down``
     in :func:`~chainermn_tpu_torch.parallel.tensor.reduce_from_tp`: one
     all-reduce per column→row pair. ``ff_down``'s bias rides inside the
-    reduce, so the shard holds ``bias / n``."""
+    reduce, so the shard holds ``bias / n``.
+
+    ``n_experts > 0`` replaces ``ff_up``/``ff_down`` by the MoE leaves
+    (:meth:`_moe_ffn`); the MoE branch takes no ``copy_to_tp``/
+    ``reduce_from_tp`` pair, so under ``tp_group`` alone every rank runs
+    the dense MoE form on full expert leaves. ``expert_axis`` (a process
+    group) selects the ownership-split form, whose expert leaves hold
+    ``moe_experts_local`` (default ``n_experts``) experts."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int, *,
                  compute_dtype=torch.bfloat16,
@@ -158,6 +179,9 @@ class TransformerBlock(nn.Module):
                  decode_attend_impl: str = "xla", causal: bool = True,
                  dropout_rate: float = 0.0, kv_layout: str = "paged",
                  head_dim: Optional[int] = None, tp_group=None,
+                 n_experts: int = 0, expert_axis=None,
+                 moe_dispatch_impl: str = "auto",
+                 moe_experts_local: Optional[int] = None,
                  device=None) -> None:
         super().__init__()
         if decode_attend_impl not in DECODE_ATTEND_IMPLS:
@@ -197,8 +221,25 @@ class TransformerBlock(nn.Module):
         self.proj = nn.Linear(num_heads * self.head_dim, d_model, bias=False,
                               device=device)
         self.ln2 = LayerNorm(d_model, **dt)
-        self.ff_up = nn.Linear(d_model, d_ff, device=device)
-        self.ff_down = nn.Linear(d_ff, d_model, device=device)
+        #: the global expert count (0: the dense FFN)
+        self.n_experts = n_experts
+        #: the ownership-split form's process group (None: the dense form)
+        self.expert_axis = expert_axis
+        self.moe_dispatch_impl = moe_dispatch_impl
+        if n_experts > 0:
+            e = moe_experts_local or n_experts
+            f32 = dict(dtype=torch.float32, device=device)
+            self.moe_router = nn.Parameter(torch.empty(d_model, n_experts,
+                                                       **f32))
+            self.moe_w_up = nn.Parameter(torch.empty(e, d_model, d_ff,
+                                                     **f32))
+            self.moe_b_up = nn.Parameter(torch.empty(e, d_ff, **f32))
+            self.moe_w_down = nn.Parameter(torch.empty(e, d_ff, d_model,
+                                                       **f32))
+            self.moe_b_down = nn.Parameter(torch.empty(e, d_model, **f32))
+        else:
+            self.ff_up = nn.Linear(d_model, d_ff, device=device)
+            self.ff_down = nn.Linear(d_ff, d_model, device=device)
 
     def _decode_attend(self, qh, kh_new, vh_new, cache):
         """One-token attention against the legacy dense ring of
@@ -307,6 +348,61 @@ class TransformerBlock(nn.Module):
         o = torch.einsum("btngl,blnd->btngd", w, vals.float())
         return o.reshape(B, T, self.num_heads, self.head_dim).to(dt)
 
+    def _moe_ffn(self, h):
+        """Top-1 mixture-of-experts FFN of the normed rows ``h`` ``[B, T,
+        D]`` (the JAX ``_moe_ffn``). Routing is per row, so the same code
+        serves training, prefill and the decode tick.
+
+        The router product runs in fp32 (``h`` promoted to the fp32
+        router's dtype, as JAX promotes it): bf16 logits would pick other
+        experts. With ``expert_axis`` None every expert runs and a one-hot
+        times the gate combines them, in the compute dtype; rows never
+        couple, so the engine's streams equal ``generate``'s. With
+        ``expert_axis`` set: the rows padded to a multiple of the group
+        size ``n``, this rank's slice routed through
+        :func:`~chainermn_tpu_torch.parallel.moe.moe_layer_local` (no-drop
+        capacity: serving drops nothing; two all-to-alls), scattered into
+        a zero buffer, and ONE all-reduce over the group re-replicates
+        them (the MoE counterpart of ``ff_down``'s reduce). The expert
+        MLP there runs in the queues' promoted dtype, as JAX's does."""
+        cd = self.compute_dtype
+        router = self.moe_router
+        w_up, b_up = self.moe_w_up, self.moe_b_up
+        w_down, b_down = self.moe_w_down, self.moe_b_down
+        rt = torch.promote_types(h.dtype, router.dtype)
+        if self.expert_axis is None:
+            e_eff = w_up.shape[0]
+            logits = h.to(rt) @ router[:, :e_eff].to(rt)
+            probs = torch.softmax(logits, dim=-1)
+            gate, idx = probs.max(-1).values, torch.argmax(probs, dim=-1)
+            up = (torch.einsum("...d,edf->...ef", h, w_up.to(cd))
+                  + b_up.to(cd))
+            down = (torch.einsum("...ef,efd->...ed",
+                                 F.gelu(up, approximate="tanh"),
+                                 w_down.to(cd)) + b_down.to(cd))
+            combine = (F.one_hot(idx, e_eff).to(down.dtype)
+                       * gate.to(down.dtype)[..., None])
+            return torch.einsum("...ed,...e->...d", down, combine)
+
+        group = C.as_group(self.expert_axis)
+        n, r = C.axis_size_of(group), C.axis_index(group)
+        eps = w_up.shape[0]  # this rank's experts, not n_experts
+        B, T, D = h.shape
+        rows = B * T
+        own = -(-rows // n)
+        hr = F.pad(h.reshape(rows, D), (0, 0, 0, own * n - rows))
+        mine = hr[r * own:(r + 1) * own]
+        eparams = (w_up.to(cd), b_up.to(cd), w_down.to(cd), b_down.to(cd))
+        if eps == 1:
+            eparams = tuple(leaf[0] for leaf in eparams)
+        out = moe_layer_local(mine, router, _expert_mlp, eparams, group,
+                              capacity_factor=None,
+                              dispatch_impl=self.moe_dispatch_impl,
+                              experts_per_shard=eps)
+        full = F.pad(out, (0, 0, r * own, (n - 1 - r) * own))
+        full = C.allreduce(full, group)  # the one re-replicating reduce
+        return full[:rows].reshape(B, T, D)
+
     def _dropout(self, h, mask):
         """flax ``nn.Dropout``: kept entries scaled by 1/(1 - rate), the
         rest 0; ``mask`` (bool, True = keep) is None outside training."""
@@ -366,6 +462,8 @@ class TransformerBlock(nn.Module):
             o = reduce_from_tp(o, self.tp_group)
         x = x + self._dropout(o, m_attn)
         h = self.ln2(x)
+        if self.n_experts > 0:
+            return x + self._dropout(self._moe_ffn(h), m_ffn)
         if tp:
             h = copy_to_tp(h, self.tp_group)
         h = F.gelu(_dense(self.ff_up, h, dt), approximate="tanh")
@@ -373,6 +471,15 @@ class TransformerBlock(nn.Module):
         if tp:  # the FFN pair's: ff_down's bias / n sums back to the bias
             h = reduce_from_tp(h, self.tp_group)
         return x + self._dropout(h, m_ffn)
+
+
+def _expert_mlp(p, xq):
+    """One expert's MLP on its queue rows, in the promoted dtype of the
+    rows and the weights (JAX's ``xq @ wu`` promotion)."""
+    wu, bu, wd, bd = p
+    t = torch.promote_types(xq.dtype, wu.dtype)
+    h = F.gelu(xq.to(t) @ wu.to(t) + bu.to(t), approximate="tanh")
+    return h @ wd.to(t) + bd.to(t)
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
@@ -433,10 +540,20 @@ class TransformerLM(nn.Module):
     stashed (``preserve_rng_state=False``), since no block draws from
     them.
 
+    ``n_experts > 0`` makes every block's FFN a top-1 mixture of experts
+    (see :class:`TransformerBlock`): ``n_experts`` is the GLOBAL count,
+    ``expert_axis`` the ownership-split form's process group (the serving
+    engine's TP group), ``moe_dispatch_impl`` that form's queue build
+    (``'sort'``/``'einsum'``; ``'auto'`` raises there, ROADMAP item 8, and
+    is never resolved by the dense form), and ``moe_experts_local`` the
+    leading dim of this model's expert leaves (default ``n_experts``).
+
     Weights are drawn from a ``torch.Generator`` seeded with ``seed``
     (the flax initialisers' scales: embedding ``1/sqrt(d_model)``, dense
-    kernels ``1/sqrt(fan_in)``, learned positions 0.02), or loaded from a
-    flax tree with :func:`chainermn_tpu_torch.convert.lm_state_from_flax`.
+    kernels ``1/sqrt(fan_in)``, learned positions 0.02; the MoE router
+    normal(0.02), its expert kernels truncated normal at the fan-in scale,
+    biases 0), or loaded from a flax tree with
+    :func:`chainermn_tpu_torch.convert.lm_state_from_flax`.
     ``device=None`` means the CUDA card and raises without one.
     """
 
@@ -454,6 +571,9 @@ class TransformerLM(nn.Module):
                  kv_layout: str = "paged",
                  decode_cache_len: Optional[int] = None,
                  head_dim: Optional[int] = None, tp_group=None,
+                 n_experts: int = 0, expert_axis=None,
+                 moe_dispatch_impl: str = "auto",
+                 moe_experts_local: Optional[int] = None,
                  device=None) -> None:
         super().__init__()
         if not 0.0 <= dropout_rate < 1.0:
@@ -491,6 +611,10 @@ class TransformerLM(nn.Module):
         #: parallelism); ``num_heads``, ``num_kv_heads`` and ``d_ff`` are
         #: then this rank's
         self.tp_group = tp_group
+        self.n_experts = n_experts
+        self.expert_axis = expert_axis
+        self.moe_dispatch_impl = moe_dispatch_impl
+        self.moe_experts_local = moe_experts_local
         self.head_dim = head_dim or d_model // num_heads
         self.kv_heads = num_kv_heads or num_heads
         self.tok_emb = nn.Embedding(vocab_size, d_model, device=device)
@@ -513,7 +637,10 @@ class TransformerLM(nn.Module):
             window=self.window, decode_attend_impl=self.decode_attend_impl,
             causal=self.causal, dropout_rate=self.dropout_rate,
             kv_layout=self.kv_layout, head_dim=self.head_dim,
-            tp_group=self.tp_group, device=device)
+            tp_group=self.tp_group, n_experts=self.n_experts,
+            expert_axis=self.expert_axis,
+            moe_dispatch_impl=self.moe_dispatch_impl,
+            moe_experts_local=self.moe_experts_local, device=device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -526,10 +653,22 @@ class TransformerLM(nn.Module):
         if self.pos_emb is not None:
             normal(self.pos_emb, 0.02)
         for blk in self.blocks:
-            for lin in (blk.qkv, blk.proj, blk.ff_up, blk.ff_down):
+            moe = blk.n_experts > 0
+            for lin in ((blk.qkv, blk.proj) if moe else
+                        (blk.qkv, blk.proj, blk.ff_up, blk.ff_down)):
                 normal(lin.weight, lin.in_features ** -0.5)
                 if lin.bias is not None:
                     lin.bias.zero_()
+            if moe:
+                normal(blk.moe_router, 0.02)
+                for w in (blk.moe_w_up, blk.moe_w_down):
+                    # flax variance_scaling(1, fan_in, truncated_normal)
+                    std = w.shape[-2] ** -0.5 / .87962566103423978
+                    t = torch.empty(w.shape)
+                    torch.nn.init.trunc_normal_(t, generator=generator)
+                    w.copy_(t * std)
+                blk.moe_b_up.zero_()
+                blk.moe_b_down.zero_()
             for ln in (blk.ln1, blk.ln2):
                 ln.weight.fill_(1.0)
                 ln.bias.zero_()
@@ -537,35 +676,37 @@ class TransformerLM(nn.Module):
         self.ln_f.bias.zero_()
 
     _DECODE_FIELDS = ("decode_attend_impl", "kv_layout", "decode_cache_len")
-    _SHARD_FIELDS = ("num_heads", "num_kv_heads", "d_ff", "head_dim")
+    _SHARD_FIELDS = ("num_heads", "num_kv_heads", "d_ff", "head_dim",
+                     "moe_experts_local")
+    _MOE_FIELDS = ("expert_axis", "moe_dispatch_impl")
+    #: a block's layers that a shard of other widths holds anew (the MoE
+    #: router is replicated: it stays the same tensor)
+    _SHARDED = ("qkv", "proj", "ff_up", "ff_down")
+    _SHARDED_MOE = ("moe_w_up", "moe_b_up", "moe_w_down", "moe_b_down")
 
     def clone(self, **overrides) -> "TransformerLM":
         """A view of this model with fields changed (flax ``Module.clone``'s
         role), leaving the caller's model untouched.
 
         The decode fields (``decode_attend_impl``, ``kv_layout``,
-        ``decode_cache_len``) and ``tp_group`` keep the SAME parameter
+        ``decode_cache_len``), ``tp_group`` and the MoE form
+        (``expert_axis``, ``moe_dispatch_impl``) keep the SAME parameter
         tensors: the serving engine serves through such a clone. The
         local widths of a tensor-parallel shard (``num_heads``,
-        ``num_kv_heads``, ``d_ff``, ``head_dim``, with ``tp_group``) give
-        every block new, UNINITIALISED ``qkv``/``proj``/``ff_up``/
-        ``ff_down`` layers of the shard's shapes, for the caller to load
-        a shard into (:func:`~chainermn_tpu_torch.serving.engine.
-        tp_local_model` does); the replicated leaves (embeddings, norms, the
-        tied head) stay the same tensors. The MoE fields raise (ROADMAP
-        queue 1, item 6.6)."""
-        moe = {"expert_axis", "moe_experts_local"} & set(overrides)
-        if moe:
-            raise NotImplementedError(
-                f"{sorted(moe)} (MoE blocks, also under tensor parallelism) "
-                "are not ported yet (ROADMAP queue 1, item 6.6: moe.py)")
-        unknown = set(overrides) - set(self._DECODE_FIELDS) - set(
-            self._SHARD_FIELDS) - {"tp_group"}
+        ``num_kv_heads``, ``d_ff``, ``head_dim``, with ``tp_group``) and
+        an expert slice (``moe_experts_local``) give every block new,
+        UNINITIALISED ``qkv``/``proj`` layers and ``ff_up``/``ff_down``
+        layers or expert leaves (``moe_w_up``, ``moe_b_up``,
+        ``moe_w_down``, ``moe_b_down``) of the shard's shapes, for the
+        caller to load a shard into (:func:`~chainermn_tpu_torch.serving.
+        engine.tp_local_model` does); the replicated leaves (embeddings,
+        norms, the MoE router, the tied head) stay the same tensors."""
+        fields = (self._DECODE_FIELDS + self._SHARD_FIELDS + self._MOE_FIELDS
+                  + ("tp_group",))
+        unknown = set(overrides) - set(fields)
         if unknown:
             raise ValueError(
-                f"clone() takes {', '.join(self._DECODE_FIELDS)}, "
-                f"{', '.join(self._SHARD_FIELDS)} and tp_group, got "
-                f"{sorted(unknown)}")
+                f"clone() takes {', '.join(fields)}, got {sorted(unknown)}")
         impl = overrides.get("decode_attend_impl", self.decode_attend_impl)
         if impl not in DECODE_ATTEND_IMPLS:
             raise ValueError(f"decode_attend_impl must be 'xla' or 'fused', "
@@ -590,9 +731,16 @@ class TransformerLM(nn.Module):
             for old in self.blocks:
                 with torch.device("meta"):
                     b = new._block(None)
-                for name in ("qkv", "proj", "ff_up", "ff_down"):
-                    setattr(b, name, getattr(b, name).to_empty(device=device))
+                for name in self._SHARDED + self._SHARDED_MOE:
+                    if name in b._modules:
+                        setattr(b, name,
+                                getattr(b, name).to_empty(device=device))
+                    elif name in b._parameters:
+                        setattr(b, name, nn.Parameter(torch.empty_like(
+                            getattr(b, name), device=device)))
                 b.ln1, b.ln2 = old.ln1, old.ln2
+                if b.n_experts > 0:
+                    b.moe_router = old.moe_router
                 blocks.append(b)
             new.blocks = nn.ModuleList(blocks)
         else:
@@ -601,6 +749,8 @@ class TransformerLM(nn.Module):
                 b.decode_attend_impl = impl
                 b.kv_layout = layout
                 b.tp_group = new.tp_group
+                b.expert_axis = new.expert_axis
+                b.moe_dispatch_impl = new.moe_dispatch_impl
         return new
 
     def forward(self, tokens, *, segment_ids=None, positions=None,

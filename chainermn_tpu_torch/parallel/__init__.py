@@ -5,11 +5,12 @@ over a process group (:mod:`.collectives`), the tensor-parallel layers
 parameter and state sharding on DTensors (:mod:`.fsdp`), rank meshes
 (:mod:`.mesh`), the pipeline engines, GPipe (plain, interleaved,
 heterogeneous) and 1F1B (:mod:`.pipeline`), the ParallelPlan and its
-spec layer (:mod:`.plan`, :mod:`.plan_specs`), and sequence parallelism:
+spec layer (:mod:`.plan`, :mod:`.plan_specs`), sequence parallelism:
 ring attention (:mod:`.ring_attention`), Ulysses (:mod:`.ulysses`) and
-sliding-window attention (:mod:`.local_attention`). The rest of the JAX
-package's ``parallel/`` (MoE, the composition and cost model, the async
-host plane) is ROADMAP queue 1, items 6.6-6.8."""
+sliding-window attention (:mod:`.local_attention`), and expert
+parallelism (:mod:`.moe`). The rest of the JAX package's ``parallel/``
+(the composition and cost model, the async host plane) is ROADMAP queue
+1, items 6.7-6.8."""
 
 from chainermn_tpu_torch.parallel.collectives import (
     allgather,
@@ -37,6 +38,21 @@ from chainermn_tpu_torch.parallel.mesh import (
     MeshTopology,
     best_mesh_shape,
     make_mesh,
+)
+from chainermn_tpu_torch.parallel.moe import (
+    dispatch_einsum,
+    dispatch_sort,
+    load_balancing_loss,
+    make_expert_params,
+    moe_capacity,
+    moe_layer_local,
+    record_moe_dispatch,
+    resolve_dispatch_impl,
+    resolve_expert_parallel,
+    route_slots,
+    routing_stats,
+    top1_route,
+    topk_route,
 )
 from chainermn_tpu_torch.parallel.pipeline import (
     make_pipeline,
@@ -99,18 +115,21 @@ __all__ = ["AxisSpec", "CANONICAL_AXES", "MeshTopology", "ParallelPlan",
            "allgather", "allreduce", "alltoall", "axes_bound", "axis_index",
            "axis_size_of", "bcast", "best_mesh_shape",
            "column_parallel_dense", "copy_to_tp", "create_fsdp_train_state",
-           "fsdp_shardings", "gather", "gather_from_tp",
+           "dispatch_einsum", "dispatch_sort", "fsdp_shardings", "gather",
+           "gather_from_tp", "load_balancing_loss", "make_expert_params",
            "make_fsdp_train_step", "make_mesh", "make_pipeline",
            "make_pipeline_1f1b", "make_pipeline_hetero",
-           "make_ring_attention", "make_ulysses_attention", "moe_plan_axis",
-           "pipe_plan_axis", "pipeline_1f1b_local", "pipeline_hetero_local",
-           "pipeline_local", "pipeline_total_ticks", "ppermute",
-           "reduce_from_tp", "reduce_scatter", "ring_attention_local",
+           "make_ring_attention", "make_ulysses_attention", "moe_capacity",
+           "moe_layer_local", "moe_plan_axis", "pipe_plan_axis",
+           "pipeline_1f1b_local", "pipeline_hetero_local", "pipeline_local", "pipeline_total_ticks", "ppermute",
+           "record_moe_dispatch", "reduce_from_tp", "reduce_scatter",
+           "resolve_dispatch_impl", "resolve_expert_parallel",
+           "ring_attention_local", "route_slots", "routing_stats",
            "row_parallel_dense", "scatter", "seq_ring_attention_local",
            "shard_qkv_columns", "shift", "sliding_window_attention_local",
            "stack_interleaved_stage_params", "stack_stage_params",
-           "stack_tp_params", "tp_attention", "tp_mlp", "tp_plan_axis",
-           "tp_slice", "ulysses_attention_local", "unscale_replicated_grads",
+           "stack_tp_params", "top1_route", "topk_route", "tp_attention",
+           "tp_mlp", "tp_plan_axis", "tp_slice", "ulysses_attention_local", "unscale_replicated_grads",
            "zero_gather_updates", "zero_grad_scatter", "zero_param_chunk",
            "zero_plan_axis", "zero_shard_optimizer", "zero_stacked_init",
            "zero_state_specs"]

@@ -30,7 +30,15 @@ leaf, making the collectives the providers owe:
 - ``seq``: sequence parallelism: the batch's sequence dim shards over
   it, attention routes through the ring or Ulysses
   (:meth:`ParallelPlan.seq_attention`), and gradients take one mean over
-  the axis before the dp reduction.
+  the axis before the dp reduction;
+- ``expert``: MoE expert parallelism (:mod:`chainermn_tpu_torch.parallel.
+  moe`): expert leaves stack ``[n, ...]`` shards (``P('expert')``), the
+  batch's rows shard over it after the dp axes, and tokens ride exactly
+  two all-to-alls a MoE layer a pass (:meth:`ParallelPlan.moe_layer`).
+  An expert leaf's gradient takes no all-reduce (the all-to-all's
+  backward already brought every rank's cotangents to its owner) and is
+  divided by the axis size; every other leaf takes the mean over the
+  axis, fused into the dp all-reduce.
 
 ``zero_stacked_groups=True`` chunks the STACKED groups' optimizer state
 over the ``zero`` axis too (their dp mean becomes the zero chain:
@@ -55,9 +63,9 @@ tensor objects and allocates no new state. JAX's jit-cache pin has no
 counterpart.
 
 Left for later, each raising ``NotImplementedError`` naming its ROADMAP
-item: the ``expert`` axis and :meth:`ParallelPlan.moe_layer` (queue 1,
-item 6.6), ``grad_reduction=`` (6.7: ``composition.py``) and
-``seq_attention(impl='auto')`` (item 8: the tuning registry).
+item: ``grad_reduction=`` (6.7: ``composition.py``), and
+``seq_attention(impl='auto')`` and ``moe_layer(impl='auto')`` (item 8:
+the tuning registry).
 """
 
 from __future__ import annotations
@@ -216,9 +224,6 @@ class ParallelPlan:
             ordered = [a for a in _ps.CANONICAL_AXES if a in names]
             _ps.resolve_axes(dict.fromkeys(names, 1))  # name validation
             sizes = dict(zip(ordered, best_mesh_shape(n, len(ordered))))
-        if "expert" in sizes:
-            raise _later("the plan's 'expert' axis (MoE expert parallelism)",
-                         "6.6")
         self.axes: dict = _ps.resolve_axes(sizes)
         shape = tuple(s.size for s in self.axes.values())
         if math.prod(shape) != n:
@@ -253,13 +258,15 @@ class ParallelPlan:
         #: step reduces over together (made here: every rank makes every
         #: group, in one order, as torch.distributed requires)
         self._groups = {(a,): self.mesh.get_group(a) for a in self.axes}
-        for combo in dict.fromkeys((self.dp_axes,
-                                    self.dp_axes + self._seq_axes)):
+        dp, sq, ex = self.dp_axes, self._seq_axes, self._expert_axes
+        for combo in dict.fromkeys((dp, dp + sq, dp + ex, dp + sq + ex)):
             if len(combo) > 1:
                 self._groups[combo] = self._new_group(combo)
-        #: decision records the plan resolved (``seq_attn_impl``)
+        #: decision records the plan resolved (``seq_attn_impl``,
+        #: ``moe_dispatch``)
         self.decisions: list = []
         self._seq_impl: Optional[str] = None
+        self._moe_impl: Optional[str] = None
 
     def _new_group(self, axes: tuple):
         """The process group over ``axes`` through this rank (the ranks
@@ -291,8 +298,8 @@ class ParallelPlan:
 
     def group(self, *axes: str):
         """The process group of one axis (or of several, made when the
-        plan was: the dp axes, and the dp axes with ``seq``) through this
-        rank."""
+        plan was: the dp axes, and the dp axes with ``seq``, ``expert`` or
+        both) through this rank."""
         key = tuple(axes)
         if key not in self._groups:
             raise ValueError(f"this plan has no process group over {key}; "
@@ -304,6 +311,16 @@ class ParallelPlan:
         return ("seq",) if "seq" in self.axes else ()
 
     @property
+    def _expert_axes(self) -> tuple:
+        return ("expert",) if "expert" in self.axes else ()
+
+    @property
+    def _row_axes(self) -> tuple:
+        """The axes the batch's rows shard over: the dp axes, then
+        ``expert``."""
+        return self.dp_axes + self._expert_axes
+
+    @property
     def dp_axes(self) -> tuple:
         """Axes the batch rows shard (and gradients reduce) over."""
         return tuple(a for a in ("data", "zero") if a in self.axes)
@@ -313,21 +330,23 @@ class ParallelPlan:
         return math.prod(self.axis_size(a) for a in self.dp_axes) or 1
 
     def batch_spec(self) -> P:
-        """Batch sharding: dim 0 over the dp axes and, with a ``seq`` axis,
-        dim 1 (the sequence) over it."""
+        """Batch sharding: dim 0 over the dp axes (and ``expert``, which
+        shards tokens by batch row too) and, with a ``seq`` axis, dim 1
+        (the sequence) over it."""
+        rows = self._row_axes
         if "seq" in self.axes:
-            return P(self.dp_axes if self.dp_axes else None, "seq")
-        return P(self.dp_axes) if self.dp_axes else P()
+            return P(rows if rows else None, "seq")
+        return P(rows) if rows else P()
 
     def local_batch(self, batch: PyTree) -> PyTree:
         """This rank's share of a GLOBAL batch (every tensor or array leaf
-        cut by :meth:`batch_spec`: its rows over the dp axes, data-major,
-        and its sequence over ``seq``), as each device's shard of the JAX
-        plan's batch."""
+        cut by :meth:`batch_spec`: its rows over the dp axes and
+        ``expert``, major to minor in that order, and its sequence over
+        ``seq``), as each device's shard of the JAX plan's batch."""
         row = 0
-        for a in self.dp_axes:
+        for a in self._row_axes:
             row = row * self.axis_size(a) + self.axis_index(a)
-        nrow = self.dp_size
+        nrow = math.prod(self.axis_size(a) for a in self._row_axes)
 
         def cut(x):
             if not isinstance(x, (torch.Tensor, np.ndarray)):
@@ -335,7 +354,8 @@ class ParallelPlan:
             if nrow > 1:
                 if x.shape[0] % nrow:
                     raise ValueError(f"batch dim {x.shape[0]} not divisible "
-                                     f"by the dp size {nrow}")
+                                     f"by the row-shard count {nrow} (the "
+                                     f"dp axes and expert)")
                 b = x.shape[0] // nrow
                 x = x[row * b:(row + 1) * b]
             if "seq" in self.axes:
@@ -359,6 +379,8 @@ class ParallelPlan:
             out["zero_stacked_groups"] = True
         if self._seq_impl is not None:
             out["seq_attn_impl"] = self._seq_impl
+        if self._moe_impl is not None:
+            out["moe_dispatch_impl"] = self._moe_impl
         return out
 
     # -- the seq axis's attention router ------------------------------------
@@ -433,9 +455,65 @@ class ParallelPlan:
                                                **kw)
         return attn_fn, record
 
-    def moe_layer(self, **kwargs):
-        raise _later("ParallelPlan.moe_layer (the expert axis's MoE router)",
-                     "6.6")
+    # -- the expert axis's MoE router ---------------------------------------
+
+    def moe_layer(self, *, tokens_local: int, d_model: int,
+                  experts_per_shard: int = 1,
+                  capacity_factor: Optional[float] = 1.25, k: int = 1,
+                  impl: str = "auto", dtype=None):
+        """Resolve the ``moe_dispatch`` decision for the ``expert`` axis
+        and return ``(moe_fn, record)``: ``moe_fn(x, router_w, expert_fn,
+        expert_params) -> (out, aux)`` runs :func:`~chainermn_tpu_torch.
+        parallel.moe.moe_layer_local` over ``plan.group('expert')`` with
+        ``return_stats=True``, its stats reduced over the dp axes and
+        ``expert`` (every axis the token dim shards over). ``aux`` holds
+        the layout-invariant ``load_balance`` loss and the float32
+        ``expert_load`` ``[E]``, ``dropped``, ``padded`` and ``capacity``.
+
+        ``impl`` is ``'sort'`` or ``'einsum'``; ``'auto'`` (the tuning
+        registry) is ROADMAP item 8. The record ``{'name':
+        'moe_dispatch', 'key', 'winner', 'source': 'explicit'}`` is
+        appended to ``plan.decisions`` and :meth:`describe` names the
+        winner."""
+        from chainermn_tpu_torch.parallel.moe import moe_layer_local
+
+        if "expert" not in self.axes:
+            raise ValueError("moe_layer needs an 'expert' plan axis")
+        n = self.axis_size("expert")
+        e_global = n * int(experts_per_shard)
+        if k > e_global:
+            raise ValueError(
+                f"moe_layer k={k} exceeds n_experts={e_global} "
+                f"({n} shards x {experts_per_shard} experts/shard)")
+        if impl == "auto":
+            raise _later("moe_layer(impl='auto') (the moe_dispatch decision "
+                         "through the tuning registry)", "8")
+        if impl not in ("sort", "einsum"):
+            raise ValueError(f"moe_dispatch impl must be 'sort', 'einsum' or "
+                             f"'auto', got {impl!r}")
+        kind = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else self.device.type)
+        dt = str(dtype if dtype is not None else torch.float32)
+        record = {"name": "moe_dispatch",
+                  "key": f"{kind}|{max(1, int(tokens_local))}x{e_global}x"
+                         f"{int(d_model)}|{dt.replace('torch.', '')}",
+                  "winner": impl, "source": "explicit"}
+        self.decisions.append(record)
+        self._moe_impl = impl
+        group = self.group("expert")
+        # the token dim shards over every row axis, so the stats reduce
+        # over all of them: over 'expert' alone the aux loss would be a
+        # mean of per-data-shard values under expert x data
+        stats = self.group(*self._row_axes)
+
+        def moe_fn(x, router_w, expert_fn, expert_params):
+            return moe_layer_local(
+                x, router_w, expert_fn, expert_params, group,
+                capacity_factor=capacity_factor, k=k, dispatch_impl=impl,
+                experts_per_shard=experts_per_shard, return_stats=True,
+                stats_axes=stats)
+
+        return moe_fn, record
 
     # -- specs --------------------------------------------------------------
 
@@ -759,15 +837,40 @@ class _PlanStep:
             # dp reduction
             grads = _mean_packed(grads, plan.group("seq"),
                                  plan.axis_size("seq"))
+        # the expert shards also each computed the mean loss of their OWN
+        # tokens. An expert leaf's gradient already gathered every shard's
+        # cotangents through the all-to-all's backward (an all-reduce would
+        # mix different experts): it is only divided by the axis size. Every
+        # other leaf takes the mean over 'expert': fused into the dp
+        # all-reduce below for the plain groups, on its own before a
+        # zero-chained group's reduce-scatter
+        expert = {i for i, s in enumerate(flat_s) if "expert" in tuple(s)}
+        n_exp = plan.axis_size("expert")
+        ex = plan._expert_axes
+        for i in expert:
+            grads[i] = grads[i] / n_exp
+        chained = [i for grp, idx in groups.items()
+                   if plan._zero_chained(grp) for i in idx
+                   if i not in expert]
+        if ex and chained:
+            reduced = _mean_packed([grads[i] for i in chained],
+                                   plan.group("expert"), n_exp)
+            for i, g in zip(chained, reduced):
+                grads[i] = g
         # the plain groups (replicated, and stacked without
-        # zero_stacked_groups): the dp mean, one all-reduce for all
+        # zero_stacked_groups): the dp mean (with the expert mean), one
+        # all-reduce for all
         plain = [i for grp, idx in groups.items()
                  if not plan._zero_chained(grp) for i in idx]
-        if plan.dp_axes and plain:
-            reduced = _mean_packed([grads[i] for i in plain],
-                                   plan.group(*plan.dp_axes), plan.dp_size)
-            for i, g in zip(plain, reduced):
-                grads[i] = g
+        for axes, idx in ((plan.dp_axes + ex,
+                           [i for i in plain if i not in expert]),
+                          (plan.dp_axes, [i for i in plain if i in expert])):
+            if axes and idx:
+                n = math.prod(plan.axis_size(a) for a in axes)
+                reduced = _mean_packed([grads[i] for i in idx],
+                                       plan.group(*axes), n)
+                for i, g in zip(idx, reduced):
+                    grads[i] = g
         with torch.no_grad():
             # each group's optimizer: the inner one over the leaves, or the
             # ZeroShardOptimizer of a zero-chained group
@@ -778,20 +881,19 @@ class _PlanStep:
                 for i in idx:
                     flat_p[i].grad = None
         names = ["loss", *metrics]
-        vals = torch.stack([torch.as_tensor(v).detach().float().reshape(())
-                            .to(plan.device)
-                            for v in (loss, *metrics.values())])
-        red = plan.dp_axes + plan._seq_axes
+        # every metric rides one packed mean (the MoE stats are vectors)
+        vals = [torch.as_tensor(v).detach().float().to(plan.device)
+                for v in (loss, *metrics.values())]
+        red = plan.dp_axes + plan._seq_axes + plan._expert_axes
         if red:
             n = math.prod(plan.axis_size(a) for a in red)
-            vals = _mean_packed([vals], plan.group(*red), n)[0]
+            vals = _mean_packed(vals, plan.group(*red), n)
             if pytree.tree_leaves(model_state):
                 leaves, spec = pytree.tree_flatten(model_state)
                 model_state = pytree.tree_unflatten(
                     _mean_packed([t.detach().float() for t in leaves],
                                  plan.group(*red), n), spec)
         return (state._replace(step=state.step + 1, model_state=model_state),
-                dict(zip(names, vals.unbind())))
-
+                dict(zip(names, vals)))
 
 __all__ = ["ParallelPlan", "PipelinePlanSpec", "PlanTrainState"]

@@ -7,7 +7,8 @@ mesh axis, and which collectives it owes the step), and this module turns
 those descriptors plus the user's per-leaf spec tree into the update
 groups one plan step composes.
 
-Provider contract (``{tensor,zero,pipeline}.{tp,zero,pipe}_plan_axis``):
+Provider contract (``{tensor,zero,pipeline}.{tp,zero,pipe}_plan_axis``,
+:func:`seq_plan_axis` and :func:`moe_plan_axis`):
 
 - ``name``: the mesh axis name;
 - ``stacked``: parameter leaves sharded by this axis stack a leading
@@ -81,8 +82,14 @@ def seq_plan_axis(impl: str = "ring", axis_name: str = "seq") -> dict:
 
 
 def moe_plan_axis(axis_name: str = "expert") -> dict:
-    """Descriptor of the ``expert`` axis (a descriptor only: the plan's
-    expert axis and ``moe_layer`` are ROADMAP queue 1, item 6.6)."""
+    """Descriptor of the ``expert`` axis (:mod:`chainermn_tpu_torch.
+    parallel.moe`): expert leaves STACK a leading ``[n, ...]`` shard dim
+    (``P('expert')``, the :func:`~chainermn_tpu_torch.parallel.moe.
+    make_expert_params` layout), the batch's rows shard over the axis too,
+    and it owes the step two all-to-alls a MoE layer a pass (dispatch and
+    combine; their backward is again an all-to-all each) plus the one
+    gradient all-reduce that makes the non-expert leaves' gradients the
+    global token mean. Expert leaves take no collective over the axis."""
     return {"name": axis_name, "stacked": True, "state_stacked": False,
             "collectives": ("all-to-all", "all-reduce")}
 

@@ -33,7 +33,11 @@ array (counterpart of ``chainermn_tpu/serving/engine.py::ServingEngine``).
   forward makes two all-reduces per layer and no other collective; the
   logits after the last reduce are the same on every rank, and so are
   the schedulers' decisions and the streams, provided every rank is
-  handed the same requests in the same order.
+  handed the same requests in the same order. An MoE model
+  (``n_experts > 0``) keeps the full ``d_ff``; its experts live on the
+  TP ranks (rank ``r`` owns experts ``[r E/n, (r+1) E/n)``), each rank
+  routes its slice of the rows to their owners (two all-to-alls a layer)
+  and the MoE combine's all-reduce takes the place of ``ff_down``'s.
 
 Token-stream guarantee, as in the JAX package: a request's stream equals
 the sequential :func:`~chainermn_tpu_torch.models.transformer.generate`
@@ -96,15 +100,20 @@ _ROW_SHARDED = ("proj", "ff_down")  # the JAX kernel's rows: columns here
 
 def _tp_layer(name: str):
     """``(layer, leaf)`` of a block leaf (``blocks.{i}.{layer}.{leaf}``),
-    or None for the replicated leaves outside the blocks."""
+    ``(leaf, None)`` of an MoE leaf (``blocks.{i}.moe_*``), or None for
+    the replicated leaves outside the blocks."""
     parts = name.split(".")
     if len(parts) == 4 and parts[0] == "blocks":
-        if "moe_" in parts[2]:
-            raise NotImplementedError(
-                f"sharding the MoE leaf {name!r} is not ported yet (ROADMAP "
-                "queue 1, item 6.6: moe.py)")
         return parts[2], parts[3]
+    if len(parts) == 3 and parts[0] == "blocks" and parts[2].startswith(
+            "moe_"):
+        return parts[2], None
     return None
+
+
+def _expert_leaf(layer) -> bool:
+    """An expert-stacked MoE leaf (sliced by expert; the router is not)."""
+    return bool(layer) and layer.startswith("moe_") and layer != "moe_router"
 
 
 def _stack_leaf(name: str, leaf, n: int, heads: int, kv_heads: int,
@@ -113,8 +122,14 @@ def _stack_leaf(name: str, leaf, n: int, heads: int, kv_heads: int,
     state: ``qkv`` by heads, ``ff_up`` by its output rows, ``proj`` and
     ``ff_down`` by their input columns (``nn.Linear.weight`` is ``[out,
     in]``, the flax kernel ``[in, out]``), ``ff_down``'s bias divided by
-    ``n``, every other leaf tiled."""
+    ``n``, the MoE expert leaves by their leading expert dim, every other
+    leaf (the MoE router too) tiled."""
     layer, kind = _tp_layer(name) or (None, None)
+    if _expert_leaf(layer):
+        if leaf.shape[0] % n:
+            raise ValueError(f"n_experts={leaf.shape[0]} must divide the "
+                             f"model-axis size {n} (leaf {name})")
+        return stack_tp_params(leaf, n, 0)
     if layer == "qkv" and kind == "weight":
         return shard_qkv_columns(leaf.t(), heads, kv_heads, head_dim,
                                  n).transpose(1, 2)
@@ -128,11 +143,19 @@ def _stack_leaf(name: str, leaf, n: int, heads: int, kv_heads: int,
 
 
 def _tp_check(model, n: int) -> None:
-    """The JAX engine's divisibility check of a tensor-parallel mesh."""
-    if model.num_heads % n or model.kv_heads % n or model.d_ff % n:
+    """The JAX engine's divisibility check of a tensor-parallel mesh: the
+    heads and kv heads, and ``d_ff`` unless the model is MoE (its experts
+    shard by expert, so ``n_experts`` must divide instead)."""
+    moe = model.n_experts > 0
+    if model.num_heads % n or model.kv_heads % n or (
+            not moe and model.d_ff % n):
         raise ValueError(
             f"heads={model.num_heads}/kv={model.kv_heads}/d_ff={model.d_ff} "
             f"must divide the model-axis size {n}")
+    if moe and model.n_experts % n:
+        raise ValueError(
+            f"n_experts={model.n_experts} must divide the model-axis size "
+            f"{n} — expert shards live on the TP mesh")
 
 
 def shard_lm_params(model, state, n: int) -> dict:
@@ -149,9 +172,11 @@ def shard_lm_params(model, state, n: int) -> dict:
     and ``ff_down`` weights split along their input dim (the kernel's
     rows), ``ff_up``'s weight and bias along the output dim, ``ff_down``'s
     bias stored as ``bias / n`` so the row-parallel all-reduce
-    reassembles it (exactly, for ``n`` a power of two), and every other
-    leaf (embeddings, norms, learned positions) tiled. ``model`` gives
-    the full widths."""
+    reassembles it (exactly, for ``n`` a power of two), the MoE expert
+    leaves (``moe_w_up``, ``moe_b_up``, ``moe_w_down``, ``moe_b_down``)
+    sliced on their leading ``E`` dim (shard ``i`` owns experts ``[i E/n,
+    (i+1) E/n)``), and every other leaf (embeddings, norms, learned
+    positions, the MoE router) tiled. ``model`` gives the full widths."""
     heads, kv, hd = model.num_heads, model.kv_heads, model.head_dim
     return {name: _stack_leaf(name, leaf, n, heads, kv, hd).contiguous()
             for name, leaf in state.items()}
@@ -166,7 +191,9 @@ def unshard_lm_params(model, stacked) -> dict:
     for name, leaf in stacked.items():
         n = leaf.shape[0]
         layer, kind = _tp_layer(name) or (None, None)
-        if layer == "qkv" and kind == "weight":
+        if _expert_leaf(layer):  # [n, E/n, ...] -> [E, ...]
+            out[name] = leaf.reshape(-1, *leaf.shape[2:])
+        elif layer == "qkv" and kind == "weight":
             ql, kl = heads // n * hd, kv // n * hd
             out[name] = torch.cat(
                 [leaf[:, :ql].reshape(-1, leaf.shape[-1]),
@@ -188,16 +215,22 @@ def tp_local_model(model, group, **clone_kw):
     ``group`` (a process group or communicator): a clone at ``Hq / n``
     heads, ``Hkv / n`` kv heads and ``d_ff / n`` with ``tp_group=group``
     and this rank's weights loaded, sharing ``model``'s replicated
-    leaves. ``clone_kw`` are more :meth:`TransformerLM.clone` fields.
+    leaves. An MoE model keeps the full ``d_ff`` and holds this rank's
+    ``E / n`` experts, with ``expert_axis=group`` (the ownership-split
+    form). ``clone_kw`` are more :meth:`TransformerLM.clone` fields.
     Raises the JAX engine's ``ValueError`` when a width does not divide
     the group size."""
     g = as_group(group)
     n, r = dist.get_world_size(g), dist.get_rank(g)
     _tp_check(model, n)
+    moe = model.n_experts > 0
+    if moe:
+        clone_kw = dict(expert_axis=group,
+                        moe_experts_local=model.n_experts // n, **clone_kw)
     local = model.clone(num_heads=model.num_heads // n,
                         num_kv_heads=model.kv_heads // n,
-                        d_ff=model.d_ff // n, head_dim=model.head_dim,
-                        tp_group=group, **clone_kw)
+                        d_ff=model.d_ff if moe else model.d_ff // n,
+                        head_dim=model.head_dim, tp_group=group, **clone_kw)
     heads, kv, hd = model.num_heads, model.kv_heads, model.head_dim
     mine = local.state_dict(keep_vars=True)
     with torch.no_grad():
@@ -270,8 +303,10 @@ class ServingEngine:
         tensor-parallel decode over its ranks, each serving through its
         shard of ``model`` (:func:`tp_local_model`). Every rank builds the
         engine over the same weights and serves the same requests. Heads,
-        kv heads and ``d_ff`` must divide its size; an NCCL group must
-        hold one card per rank.
+        kv heads and ``d_ff`` must divide its size (an MoE model: heads,
+        kv heads and ``n_experts``, whose experts live on its ranks, with
+        ``moe_dispatch_impl`` ``'sort'`` or ``'einsum'``); an NCCL group
+        must hold one card per rank.
       device: where the caches live; ``None`` means the CUDA card and
         raises without one. Must be the model's device.
 
@@ -394,6 +429,15 @@ class ServingEngine:
         else:
             self.tp_size = dist.get_world_size(self.mesh)
             _tp_check(model, self.tp_size)
+            if model.n_experts > 0:  # the ownership-split form dispatches
+                from chainermn_tpu_torch.parallel.moe import (
+                    resolve_dispatch_impl,
+                )
+
+                resolve_dispatch_impl(-(-num_slots // self.tp_size),
+                                      model.n_experts, model.d_model,
+                                      model.compute_dtype,
+                                      model.moe_dispatch_impl)
             _check_nccl_devices(self.mesh, self.device)
             self._decode_model = tp_local_model(model, mesh, **clone_kw)
         if dense:
@@ -524,6 +568,15 @@ class ServingEngine:
         return (self.decode_impl,
                 self._alloc.block_size if self._alloc is not None else None,
                 self.max_len, axis_sig)
+
+    def expert_signature(self) -> Optional[tuple]:
+        """MoE residency signature: None for a dense model, else
+        ``(n_experts, experts_per_shard)`` with the experts this engine's
+        mesh hosts on each rank (all of them without a mesh)."""
+        n_experts = self._decode_model.n_experts
+        if n_experts <= 0:
+            return None
+        return (n_experts, n_experts // self.tp_size)
 
     def _admit_common(self, prompt, seed=None):
         """Validate the prompt and reserve a slot (paged: plus the pool

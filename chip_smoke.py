@@ -243,6 +243,33 @@ script exits non-zero without its final ``ok`` line:
     views; (c) the twin's ``--sequence-parallel`` at 2 ranks, ring and
     ``--window``, ``SEQ_TWIN_ITERATIONS`` iterations: finite losses that
     fall. A failing rank fails the phase.
+18. (run after phase 17) Mixture of experts: phase 7's LM with
+    ``MOE_EXPERTS`` experts in every block (d_ff 2048 an expert, bf16,
+    seeded). (a) world size 1 over the one-rank NCCL group: step 1's loss
+    and every gradient (the dense MoE form, flash attention) against the
+    fp32 model with the plain attention on the same weights
+    (``MOE_GRAD_TOL``, ``MOE_LOSS_TOL``), then ``MOE_TRAIN_STEPS`` AdamW
+    steps on phase 7's packed batches: finite, falling losses, K1/K2/K3
+    6/6/6 a step, step p50 and peak memory; (b) ``ParallelPlan({'expert':
+    1})`` with ``moe_layer(experts_per_shard=8)``, ``'sort'`` and
+    ``'einsum'``, a residual MoE MLP over 4096 tokens x d 512 in bf16
+    (no-drop, TF32 off): the impls' step-1 losses bit-identical, 2
+    all-to-alls forward and 2 backward a step, the stats (no drop, the
+    loads summing to the tokens); (d) phase 3's traffic on the MoE model:
+    K4's launches by phase 3's rule, tokens/s, TTFT and token ms; fp32
+    streams against ``generate`` and the TP 1 engine (``mesh=``, the
+    ownership-split form) against the plain engine on 8 requests of 16
+    tokens (fp32 equal or parted at a true near-tie, bf16 tokens equal
+    reported; every TP 1 tick 12 all-reduces, 12 all-to-alls and 6 K4
+    launches); (c) ``MOE_RANKS`` processes on the one card (``python3
+    chip_smoke.py --moe-child DIR RANK``, gloo): gloo's all-to-all of CUDA
+    queues; ``ParallelPlan({'expert': 2})`` at 4 experts a rank held to
+    (b) (``MOE_RANK_LOSS_TOL``, ``MOE_RANK_GRAD_TOL``), its all-to-alls and
+    bytes sent a step to the count from the shapes; MoE serving at TP 2
+    against TP 1 (fp32 equal or a near-tie, bf16 tokens equal reported,
+    the tick's calls, each rank's K4 launches); (e) the MoE twin at 2
+    ranks there and at world size 1 here, ``MOE_TWIN_ITERATIONS``
+    iterations: finite losses, accuracy rising.
 
 The ``kernels`` JSON and the card's name and power limit come on the two
 lines before the last; the last line is ``{"ok": true, "device": {...}}``.
@@ -250,14 +277,15 @@ lines before the last; the last line is ``{"ok": true, "device": {...}}``.
 ``paged_flash_decode_stacked``'s phase 14 (a)'s.
 K1-K3's ``launches`` are phase 7's (the LM training path); their
 ``launches_by_path`` add phase 11's encoder run, phase 15 (c)'s TP 1
-training, phase 16's pipelined steps ((a) by engine, (b) by rank) and
-phase 17's plan and sequence-parallel steps ((a), and (b) by rank);
-K4's add phase 15 (a)'s TP 1 serving and each rank's of (b).
+training, phase 16's pipelined steps ((a) by engine, (b) by rank),
+phase 17's plan and sequence-parallel steps ((a), and (b) by rank) and
+phase 18 (a)'s MoE LM step; K4's add phase 15 (a)'s TP 1 serving, each
+rank's of (b), phase 18 (d)'s MoE serving and each rank's of 18 (c).
 
 ``python3 chip_smoke.py --drill-child DIR MODE`` is phase 12's child
 process, ``--tp-child DIR RANK`` phase 15 (b)'s, ``--pipe-child DIR
-RANK`` phase 16 (b)'s and ``--seq-child DIR RANK`` phase 17 (b)'s, not
-checks of their own.
+RANK`` phase 16 (b)'s, ``--seq-child DIR RANK`` phase 17 (b)'s and
+``--moe-child DIR RANK`` phase 18 (c)'s, not checks of their own.
 """
 
 from __future__ import annotations
@@ -4299,6 +4327,723 @@ def phase_seq_ranks(torch, smi, tmp):
     return outs
 
 
+# ---------------------------------------------------------------- phase 18
+
+#: phase 18: phase 7's LM with a top-1 mixture of MOE_EXPERTS experts in
+#: every block (d_ff 2048 an expert), bf16, seeded
+MOE_EXPERTS = 8
+MOE_TRAIN_STEPS = 10
+MOE_TRAIN_WARMUP = 2
+#: (b)/(c): the residual MoE MLP step (tokens x d, d_ff an expert) and
+#: its SGD steps
+MOE_MLP_TOKENS, MOE_MLP_D, MOE_MLP_FF = 4096, 512, 2048
+MOE_MLP_STEPS = 3
+MOE_MLP_LR = 0.1
+MOE_RANKS = 2
+MOE_CHILD_TIMEOUT_S = 300
+MOE_TWIN_ITERATIONS = 50
+#: (a) step 1 of the bf16 model (flash kernels) against the fp32 model
+#: with the plain attention on the same weights and batch. Written before
+#: the first run. bf16 rounds every activation and weight to 8 mantissa
+#: bits (2^-9 relative) where fp32 keeps 24; through 6 blocks, the tied
+#: head over 32000 classes and the router's choice (a token whose top-2
+#: router logits sit within the bf16 rounding of h goes to another
+#: expert: a few of 16,384 a layer, each moving its expert's gradient by
+#: about 1/16,384 of its sum), a gradient entry moves by a few percent of
+#: its leaf's largest; each entry is held to |g - g_ref| <= 0.1 |g_ref| +
+#: 0.1 max |g_ref| of its leaf, and the loss to 1e-2 relative. On the
+#: card the fp32 model's own router sent 81-274 of a block's 16,384
+#: tokens to another expert than the bf16 run's did, and each moved its
+#: whole contribution to the gradients of that block's router and ln2
+#: (1.34 and 1.30 of this limit): so the fp32 runs route every token as
+#: the bf16 run did, and the tokens routed elsewhere are counted. fp32
+#: through K1-K3's fp32 kernels, routed alike, is held to the plain
+#: attention at phase 8's limits (GRAD_EQ_TOL, LOSS_EQ_TOL).
+MOE_GRAD_TOL = (0.1, 0.1)
+MOE_LOSS_TOL = 1e-2
+#: (c) 1: two expert ranks against (b)'s world-size-1 step (no-drop
+#: capacity, so both layouts route every token to the same expert).
+#: Written before the first run. The ranks' GEMMs run on half the rows
+#: and their experts' queues on other shapes, so cuBLAS may round other
+#: partial products: the pipeline's case (PIPE_GRAD_TOL's reasoning),
+#: the same limits.
+MOE_RANK_LOSS_TOL = 2e-3
+MOE_RANK_GRAD_TOL = (0.03, 0.03)
+
+
+def _moe_mlp_params(torch):
+    """(b)'s seeded fp32 weights in the plan's global view at world size
+    1: ``w_in`` [d, d], the router [d, E], and the experts' ``w1`` [1, E,
+    d, ff] and ``w2`` [1, E, ff, d] (one expert rank of E experts)."""
+    g = torch.Generator().manual_seed(18)
+    d, ff, e = MOE_MLP_D, MOE_MLP_FF, MOE_EXPERTS
+
+    def draw(*shape, scale):
+        return torch.randn(shape, generator=g) * scale
+
+    return {"w_in": draw(d, d, scale=d ** -0.5),
+            "router": draw(d, e, scale=0.02),
+            "experts": {"w1": draw(1, e, d, ff, scale=d ** -0.5),
+                        "w2": draw(1, e, ff, d, scale=ff ** -0.5)}}
+
+
+def _moe_mlp_batch(torch, device):
+    g = torch.Generator().manual_seed(19)
+    x = torch.randn(MOE_MLP_TOKENS, MOE_MLP_D, generator=g)
+    y = torch.randn(MOE_MLP_TOKENS, MOE_MLP_D, generator=g)
+    return x.to(device, torch.bfloat16), y.to(device)
+
+
+def _bf16_expert(p, x):
+    """One expert's MLP in bf16 (its queue rows arrive in the router's
+    fp32, as the dispatch promotes them)."""
+    import torch
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    return F.gelu(x.to(bf) @ p["w1"].to(bf), approximate="tanh") \
+        @ p["w2"].to(bf)
+
+
+def _moe_mlp_loss(torch, moe_fn):
+    """The residual MoE MLP's loss: ``h = x @ w_in`` (bf16), ``h + moe(h)``
+    against ``y``, plus 0.01 of the aux loss; the stats as metrics."""
+    def loss_fn(p, batch):
+        x, y = batch
+        h = x @ p["w_in"].to(torch.bfloat16)
+        out, aux = moe_fn(h, p["router"], _bf16_expert, p["experts"])
+        loss = ((h.float() + out - y) ** 2).mean() \
+            + 0.01 * aux["load_balance"]
+        return loss, ({"dropped": aux["dropped"],
+                       "expert_load": aux["expert_load"]}, ())
+
+    return loss_fn
+
+
+def _moe_mlp_steps(torch, plan, impl, params, batch, steps):
+    """``steps`` SGD steps of the MoE MLP through ``plan``'s expert axis
+    at ``impl``: (losses, the first step's gradients as (p0 - p1) / lr on
+    the CPU, its torch.distributed calls, the last step's metrics, step
+    ms)."""
+    import functools
+
+    from chainermn_tpu_torch.parallel.plan_specs import P
+
+    specs = {"w_in": P(), "router": P(), "experts": P("expert")}
+    e_local = MOE_EXPERTS // plan.axis_size("expert")
+    moe_fn, record = plan.moe_layer(
+        tokens_local=MOE_MLP_TOKENS // plan.axis_size("expert"),
+        d_model=MOE_MLP_D, experts_per_shard=e_local, capacity_factor=None,
+        impl=impl, dtype=torch.bfloat16)
+    sgd = functools.partial(torch.optim.SGD, lr=MOE_MLP_LR)
+    state = plan.create_train_state(params, sgd, param_specs=specs)
+    step = plan.compile_train_step(_moe_mlp_loss(torch, moe_fn), sgd, params,
+                                   param_specs=specs)
+    flat = lambda tree: dict(_leaves_of(tree))  # noqa: E731
+    p0 = {k: v.detach().clone() for k, v in flat(state.params).items()}
+    losses, ms, calls, grads = [], [], None, None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _CountedDist() as c:
+            state, m = step(state, plan.local_batch(batch))
+            losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            calls = {k: v for k, v in c.items() if v}
+            grads = {k: ((p0[k] - v.detach()) / MOE_MLP_LR).float().cpu()
+                     for k, v in flat(state.params).items()}
+    metrics = {"dropped": float(m["dropped"]),
+               "expert_load": [float(v) for v in m["expert_load"]]}
+    return losses, grads, calls, metrics, ms, record
+
+
+def _leaves_of(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves_of(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _moe_a2a_bytes(tokens_local, n):
+    """Bytes a rank sends a step through the four all-to-alls of (c)'s
+    MoE MLP (no-drop queues [E, tokens_local, d]): the dispatch's fp32
+    queues (the router's dtype; its backward sends their fp32
+    cotangents) and the bf16 expert outputs (and their cotangents), each
+    call sending (n - 1)/n of its buffer."""
+    per = MOE_EXPERTS * tokens_local * MOE_MLP_D
+    return 2 * (per * 4 + per * 2) * (n - 1) // n
+
+
+def _moe_model(torch, dtype, **kw):
+    from chainermn_tpu_torch.models import TransformerLM
+
+    return TransformerLM(seed=0, compute_dtype=dtype, n_experts=MOE_EXPERTS,
+                         **kw)
+
+
+def _routed_as(torch, blk, idx):
+    """``blk``'s dense MoE form with every token sent to the expert
+    ``idx`` names (``[tokens]``), the gate its softmax probability: the
+    block's ``_moe_ffn`` with the choice given instead of taken."""
+    import torch.nn.functional as F
+
+    def ffn(h):
+        cd = blk.compute_dtype
+        e = blk.moe_w_up.shape[0]
+        probs = torch.softmax(h.float() @ blk.moe_router, dim=-1)
+        pick = idx.reshape(h.shape[:-1])
+        gate = probs.gather(-1, pick[..., None])[..., 0]
+        up = (torch.einsum("...d,edf->...ef", h, blk.moe_w_up.to(cd))
+              + blk.moe_b_up.to(cd))
+        down = (torch.einsum("...ef,efd->...ed", F.gelu(
+            up, approximate="tanh"), blk.moe_w_down.to(cd))
+            + blk.moe_b_down.to(cd))
+        combine = (F.one_hot(pick, e).to(down.dtype)
+                   * gate.to(down.dtype)[..., None])
+        return torch.einsum("...ed,...e->...d", down, combine)
+
+    return ffn
+
+
+def _moe_step1(torch, model, batch, route=None):
+    """Step 1 of ``model`` on ``batch``: the loss, every parameter's fp32
+    gradient and, per block, the expert each token's own router picks
+    (its logits in fp32 from the block's normed rows, as ``_moe_ffn``
+    takes them). ``route``, per block the experts of another run, makes
+    every block send each token there instead (:func:`_routed_as`). The
+    model is dropped."""
+    picks = {}
+    if route is not None:
+        for blk, idx in zip(model.blocks, route):
+            blk._moe_ffn = _routed_as(torch, blk, idx)
+
+    def hook(blk):
+        def record(_, __, h):
+            # the first call: a recomputed block (remat) routes again
+            if blk not in picks:
+                logits = h.detach().float() @ blk.moe_router.detach()
+                picks[blk] = logits.argmax(-1).reshape(-1)
+        return record
+
+    handles = [b.ln2.register_forward_hook(hook(b)) for b in model.blocks]
+    params = dict(model.named_parameters())
+    loss = _packed_loss(model, batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    for h in handles:
+        h.remove()
+    return (float(loss.detach()), {k: g.float() for k, g in
+                                   zip(params, grads)},
+            [picks[b] for b in model.blocks])
+
+
+def phase_moe(torch, np, comm, smi, tmp):
+    """Phase 18 (a), (b) and (d) at world size 1 over the one-rank NCCL
+    group; leaves (b)'s gradients and (d)'s TP 1 streams in ``tmp`` for
+    (c)'s ranks."""
+    import functools
+
+    from chainermn_tpu_torch.examples.transformer.train_transformer_lm \
+        import pack_documents
+    from chainermn_tpu_torch.models import generate
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.ops import paged_decode as pd
+    from chainermn_tpu_torch.ops.attention import attention
+    from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
+    from chainermn_tpu_torch.parallel.plan import ParallelPlan
+    from chainermn_tpu_torch.serving import ServingEngine
+    from chainermn_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    rows = {}
+    # (a) training: step 1's loss and gradients against fp32 first
+    rng = np.random.default_rng(0)  # phase 7's batches
+    batches = [tuple(torch.from_numpy(x).cuda()
+                     for x in pack_documents(rng, 8, 2048))
+               for _ in range(MOE_TRAIN_STEPS)]
+    model = _moe_model(torch, torch.bfloat16,
+                       attention_fn=fa.flash_attention)
+    loss_bf16, got, routes = _moe_step1(torch, model, batches[0])
+    tokens = batches[0][0].numel()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the plain version recomputes each block in its backward (remat):
+    # the same gradients, without fp32 [B, H, T, T] scores of 6 blocks
+    # alive at once. Both fp32 runs route every token to the expert the
+    # bf16 run chose (their own choices are counted apart)
+    ref_loss, ref, ref_routes = _moe_step1(torch, _moe_model(
+        torch, torch.float32, attention_fn=functools.partial(
+            attention, impl="xla"), remat=True, remat_policy="nothing"),
+        batches[0], routes)
+    f32_loss, f32, _ = _moe_step1(torch, _moe_model(
+        torch, torch.float32, attention_fn=fa.flash_attention), batches[0],
+        routes)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    worst, leaf, diff = _over_limit(got, ref, MOE_GRAD_TOL)
+    f32_errs = {k: float((f32[k] - ref[k]).abs().max()
+                         / ref[k].abs().max()) for k in ref}
+    f32_worst = max(f32_errs, key=f32_errs.get)
+    rerouted = [int((x != y).sum()) for x, y in zip(routes, ref_routes)]
+    del got, ref, f32
+    torch.cuda.empty_cache()
+    opt = create_multi_node_optimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4), comm)
+    state = create_train_state(model, opt, comm)
+    step = make_train_step(_packed_loss, opt, comm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, launches = [], [], []
+    for batch in batches:
+        _reset_launches(fa)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(dict(fa.LAUNCHES))
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: model.num_layers for k in ("fwd", "dq", "dkv")}
+
+    def one_step():
+        nonlocal state
+        state, m = step(state, batches[-1])
+        float(m["loss"])
+
+    # where the MoE step's time goes: one more step, profiled
+    wall, busy, kernels = _profile_window(
+        torch, one_step, "moe (a) profile",
+        ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
+         "flash_dkv_mma_kernel", "gemm"))
+    rows["a"] = {
+        "losses": losses, "step_ms": step_ms,
+        "step_ms_p50": statistics.median(step_ms[MOE_TRAIN_WARMUP:]),
+        "tokens_per_s": batches[0][0].numel()
+        / (statistics.median(step_ms[MOE_TRAIN_WARMUP:]) / 1e3),
+        "peak_memory_bytes": peak, "launches_per_step": launches,
+        "step1_loss_bf16": loss_bf16, "step1_loss_fp32_plain": ref_loss,
+        "loss_rel_diff": abs(loss_bf16 - ref_loss) / abs(ref_loss),
+        "grad_over_limit": worst, "worst_leaf": leaf,
+        "grad_max_abs_diff": diff,
+        "tokens_fp32_routes_elsewhere_by_layer": rerouted,
+        "step1_loss_fp32_flash": f32_loss,
+        "fp32_flash_loss_rel_diff": abs(f32_loss - ref_loss) / abs(ref_loss),
+        "fp32_flash_grad_err": f32_errs[f32_worst],
+        "fp32_flash_worst_leaf": f32_worst, "expected_launches": want,
+        "profiled_step": {"wall_ms": wall, "busy_ms": busy,
+                          "device_ops": sum(kc[1] for kc in kernels)}}
+    del state, step, opt, model, batches
+    torch.cuda.empty_cache()
+    a = rows["a"]
+    print("moe (a) summary", json.dumps(a), flush=True)
+    print(f"moe (a): the LM with {MOE_EXPERTS} experts a block, bf16, B 8 x "
+          f"T 2048 packed, {MOE_TRAIN_STEPS} AdamW steps: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, step p50 "
+          f"{a['step_ms_p50']:.3f} ms ({a['tokens_per_s']:,.0f} tokens/s), "
+          f"peak memory {peak / 2**30:.3f} GiB, K1/K2/K3 launches a step "
+          f"{launches[-1]} (expected {want}); step 1 against the fp32 model "
+          f"with plain attention, routed as the bf16 run routed: loss "
+          f"{loss_bf16:.6f} vs {ref_loss:.6f} (rel "
+          f"{a['loss_rel_diff']:.3e}, limit {MOE_LOSS_TOL}), grads "
+          f"{worst:.3e} of their limit (worst {leaf}, max |diff| "
+          f"{diff:.3e}); tokens the fp32 model's own router sends to "
+          f"another expert, by block, {rerouted} of {tokens}; fp32 through "
+          f"K1-K3's fp32 kernels, routed alike: loss rel "
+          f"{a['fp32_flash_loss_rel_diff']:.3e} (limit {LOSS_EQ_TOL}), max "
+          f"grad err / max |grad| {a['fp32_flash_grad_err']:.3e} "
+          f"({f32_worst}, limit {GRAD_EQ_TOL}); card {smi}", flush=True)
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"moe (a): losses not finite and falling: "
+                             f"{losses}")
+    if any(ln != want for ln in launches):
+        raise AssertionError(f"moe (a): K1/K2/K3 launches {launches}, "
+                             f"expected {want} a step")
+    if a["loss_rel_diff"] > MOE_LOSS_TOL or not worst <= 1:
+        raise AssertionError(f"moe (a): step 1 against fp32: loss rel diff "
+                             f"{a['loss_rel_diff']}, grads {worst} of their "
+                             f"limit ({leaf})")
+    if (a["fp32_flash_loss_rel_diff"] > LOSS_EQ_TOL
+            or a["fp32_flash_grad_err"] > GRAD_EQ_TOL):
+        raise AssertionError(f"moe (a): fp32 through the kernels against the "
+                             f"plain attention: loss rel "
+                             f"{a['fp32_flash_loss_rel_diff']}, grad err "
+                             f"{a['fp32_flash_grad_err']} ({f32_worst})")
+
+    # (b) the plan's expert axis at world size 1, both impls
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = _moe_mlp_params(torch)
+    batch = _moe_mlp_batch(torch, "cuda")
+    b = {}
+    for impl in ("sort", "einsum"):
+        plan = ParallelPlan({"expert": 1})
+        losses, grads, calls, metrics, ms, record = _moe_mlp_steps(
+            torch, plan, impl, params, batch, MOE_MLP_STEPS)
+        b[impl] = {"losses": losses, "calls_step1": calls,
+                   "metrics": metrics, "step_ms": ms, "record": record,
+                   "describe": plan.describe()}
+        if impl == "sort":
+            torch.save(grads, tmp / "moe_b_grads.pt")
+            (tmp / "moe_b.json").write_text(json.dumps(
+                {"loss": losses[0]}))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    b["step1_bit_identical"] = b["sort"]["losses"][0] \
+        == b["einsum"]["losses"][0]
+    b["max_rel_loss_diff"] = max(abs(s - e) / abs(e) for s, e in zip(
+        b["sort"]["losses"], b["einsum"]["losses"]))
+    rows["b"] = b
+    print("moe (b) summary", json.dumps(b), flush=True)
+    for impl in ("sort", "einsum"):
+        r = b[impl]
+        print(f"moe (b) {impl}: ParallelPlan({{'expert': 1}}), "
+              f"{MOE_EXPERTS} experts, {MOE_MLP_TOKENS} tokens x d "
+              f"{MOE_MLP_D} bf16, no-drop: losses {r['losses']}, step 1's "
+              f"torch.distributed calls {r['calls_step1']}, dropped "
+              f"{r['metrics']['dropped']}, expert load "
+              f"{r['metrics']['expert_load']} (sum "
+              f"{sum(r['metrics']['expert_load'])}), step ms "
+              f"{[round(x, 2) for x in r['step_ms']]}; card {smi}",
+              flush=True)
+    print(f"moe (b): sort vs einsum step 1 bit-identical "
+          f"{b['step1_bit_identical']}, max relative loss diff "
+          f"{b['max_rel_loss_diff']:.3e}", flush=True)
+    for impl in ("sort", "einsum"):
+        r = b[impl]
+        if r["calls_step1"].get("all_to_all_single") != 4:
+            raise AssertionError(f"moe (b) {impl}: {r['calls_step1']}: not "
+                                 "2 all-to-alls forward and 2 backward")
+        if r["metrics"]["dropped"] != 0 or sum(
+                r["metrics"]["expert_load"]) != MOE_MLP_TOKENS:
+            raise AssertionError(f"moe (b) {impl}: stats {r['metrics']}")
+    if not b["step1_bit_identical"] or b["max_rel_loss_diff"] > 1e-5:
+        raise AssertionError(f"moe (b): the impls' losses differ: "
+                             f"{b['sort']['losses']} vs "
+                             f"{b['einsum']['losses']}")
+
+    # (d) serving at world size 1: phase 3's traffic
+    model = _moe_model(torch, torch.bfloat16)
+    engine = ServingEngine(model, num_slots=16, max_len=2048,
+                           kv_block_size=64, decode_attend_impl="fused")
+    reqs = _requests(np, 24, 0, model.vocab_size)
+    _serve(engine, _requests(np, 2, 1, model.vocab_size))  # warm-up
+    torch.cuda.synchronize()
+    pd.reset_launches()
+    t0 = time.perf_counter()
+    streams, sched = _serve(engine, reqs)
+    wall = time.perf_counter() - t0
+    summary = sched.summary()
+    launches, routes = pd.LAUNCHES, dict(pd.ROUTE_LAUNCHES)
+    want_routes = {"split": model.num_layers * summary["decode_steps"],
+                   "mma": model.num_layers * summary["prefills"], "rows": 0}
+    del engine, model
+    d = {"requests": len(reqs), "wall_s": wall, "k4_launches": launches,
+         "route_launches": routes, "expected_routes": want_routes,
+         **{k: summary[k] for k in (
+             "tokens_per_sec", "ttft_ms_p50", "ttft_ms_p99", "token_ms_p50",
+             "token_ms_p99", "prefills", "decode_steps")}}
+    # fp32 streams against generate, and the TP 1 engine (the ownership-
+    # split form) against the plain engine, on the cut traffic
+    cut = _tp_requests(np, 32000)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m32 = _moe_model(torch, torch.float32)
+    plain32, _ = _serve(ServingEngine(
+        m32, num_slots=16, max_len=2048, kv_block_size=64,
+        decode_attend_impl="fused"), cut)
+    width = max(len(p) for p, _ in cut) + TP_CARD_NEW_TOKENS
+    prompt = torch.zeros(len(cut), width, dtype=torch.long, device="cuda")
+    for i, (p, _) in enumerate(cut):
+        prompt[i, :len(p)] = torch.tensor(p)
+    out = generate(m32, prompt[:, :max(len(p) for p, _ in cut)], width)
+    gen = [out[i, len(p):len(p) + TP_CARD_NEW_TOKENS].tolist()
+           for i, (p, _) in enumerate(cut)]
+    d["fp32_generate_parts"] = _near_tie_parts(torch, m32, cut, gen,
+                                               plain32)
+    tp1 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype)[6:]
+        m = _moe_model(torch, dtype, moe_dispatch_impl="sort")
+        plain = plain32 if key == "float32" else _serve(ServingEngine(
+            m, num_slots=16, max_len=2048, kv_block_size=64,
+            decode_attend_impl="fused"), cut)[0]
+        engine = ServingEngine(m, num_slots=16, max_len=2048,
+                               kv_block_size=64, decode_attend_impl="fused",
+                               mesh=comm)
+        pd.reset_launches()
+        ticks = _ticks_counted(engine, pd)
+        got, sched1 = _serve(engine, cut)
+        same = sum(x == y for a, b_ in zip(plain, got) for x, y in zip(a, b_))
+        tp1[key] = {"streams": got, "equal_tokens": same,
+                    "tokens": sum(len(a) for a in plain),
+                    "ticks": len(ticks), "tick": ticks[0],
+                    "bad_ticks": [t for t in ticks if t != (
+                        {"all_reduce": 2 * m.num_layers,
+                         "all_to_all_single": 2 * m.num_layers},
+                        m.num_layers)],
+                    "token_ms_p50": sched1.summary()["token_ms_p50"]}
+        if key == "float32":
+            tp1[key]["parts"] = _near_tie_parts(torch, m, cut, plain, got)
+        del engine, m
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    (tmp / "moe_tp1.json").write_text(json.dumps(
+        {k: v["streams"] for k, v in tp1.items()}))
+    d["tp1"] = {k: {kk: vv for kk, vv in v.items() if kk != "streams"}
+                for k, v in tp1.items()}
+    rows["d"] = d
+    print("moe (d) summary", json.dumps(d), flush=True)
+    print(f"moe (d): {len(reqs)} requests of phase 3's traffic, 16 slots: "
+          f"{d['tokens_per_sec']} tokens/s, TTFT p50 {d['ttft_ms_p50']} p99 "
+          f"{d['ttft_ms_p99']} ms, token ms p50 {d['token_ms_p50']} p99 "
+          f"{d['token_ms_p99']}, wall {wall:.3f} s; K4 launches {launches} "
+          f"by route {routes} (expected {want_routes}); fp32 engine vs "
+          f"generate: parts {d['fp32_generate_parts']}; TP 1 (mesh, "
+          f"ownership-split) vs the plain engine: fp32 "
+          f"{tp1['float32']['equal_tokens']}/{tp1['float32']['tokens']} "
+          f"tokens equal (parts {tp1['float32']['parts']}), bf16 "
+          f"{tp1['bfloat16']['equal_tokens']}/{tp1['bfloat16']['tokens']}; "
+          f"a TP 1 tick {tp1['float32']['tick']}; card {smi}", flush=True)
+    if routes != want_routes or not launches:
+        raise AssertionError(f"moe (d): K4 launches by route {routes} != "
+                             f"{want_routes}")
+    for (prompt_, n_new), g in zip(reqs, streams):
+        if len(g) != n_new or not all(0 <= t < 32000 for t in g):
+            raise AssertionError("moe (d): a malformed stream")
+    far = [p for p in d["fp32_generate_parts"] + tp1["float32"]["parts"]
+           if not p[2] < NEAR_TIE]
+    if far:
+        raise AssertionError(f"moe (d): fp32 streams part away from a "
+                             f"near-tie: {far}")
+    if tp1["float32"]["bad_ticks"] or tp1["bfloat16"]["bad_ticks"]:
+        raise AssertionError(f"moe (d): TP 1 ticks made other calls or "
+                             f"launches: {tp1['float32']['bad_ticks'][:2]}")
+    return rows
+
+
+def _moe_child(tmp, rank):
+    """One rank of phase 18 (c) and (e): rank ``rank`` of a gloo group of
+    ``MOE_RANKS`` on the one card. (c) 1: ``ParallelPlan({'expert': 2})``
+    at 4 experts a rank, one SGD step of (b)'s MoE MLP held to (b)'s
+    world-size-1 step, its all-to-alls and bytes counted; (c) 2: MoE
+    serving at TP 2 (fp32, bf16) against (d)'s TP 1 streams, every decode
+    tick's calls and K4 launches; (e): the twin at 2 ranks. Exits non-zero
+    when a check fails."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch.examples.moe import train_moe_mlp
+    from chainermn_tpu_torch.ops import paged_decode as pd
+    from chainermn_tpu_torch.parallel.plan import ParallelPlan
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    tmp = Path(tmp)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/moe_store",
+                            rank=rank, world_size=MOE_RANKS)
+    n = MOE_RANKS
+    out = {"rank": rank}
+    failed = []
+    # gloo's all-to-all over CUDA [E, C, d] queues, checked first
+    e, c, dd = MOE_EXPERTS, 4, 16
+    probe = (torch.arange(e * c * dd, device="cuda:0", dtype=torch.float32)
+             .reshape(e, c, dd) + 1e4 * rank)
+    got = torch.empty_like(probe)
+    dist.all_to_all_single(got, probe)
+    want = torch.cat([probe[rank * e // n:(rank + 1) * e // n] - 1e4 * rank
+                      + 1e4 * s for s in range(n)])
+    out["gloo_all_to_all_cuda"] = bool(torch.equal(got, want))
+    if not out["gloo_all_to_all_cuda"]:
+        failed.append("gloo_all_to_all_cuda")
+
+    # (c) 1: the plan's expert axis over the two ranks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = _moe_mlp_params(torch)
+    params = {"w_in": full["w_in"], "router": full["router"],
+              "experts": {k: v.reshape(n, MOE_EXPERTS // n, *v.shape[2:])
+                          for k, v in full["experts"].items()}}
+    batch = _moe_mlp_batch(torch, "cuda:0")
+    sent = {"bytes": 0}
+    keep = dist.all_to_all_single
+
+    def all_to_all(output, input, *args, **kw):
+        sent["bytes"] += input.numel() * input.element_size() * (n - 1) // n
+        return keep(output, input, *args, **kw)
+
+    dist.all_to_all_single = all_to_all
+    try:
+        plan = ParallelPlan({"expert": n}, device="cuda:0")
+        losses, grads, calls, metrics, ms, _ = _moe_mlp_steps(
+            torch, plan, "sort", params, batch, 1)
+    finally:
+        dist.all_to_all_single = keep
+    b_grads = torch.load(tmp / "moe_b_grads.pt")
+    b_loss = json.loads((tmp / "moe_b.json").read_text())["loss"]
+    el = MOE_EXPERTS // n
+    ref = {k: (v[rank * el:(rank + 1) * el]
+               if k.startswith("experts/") else v)
+           for k, v in b_grads.items()}
+    worst, leaf, diff = _over_limit(grads, ref, MOE_RANK_GRAD_TOL)
+    want_bytes = _moe_a2a_bytes(MOE_MLP_TOKENS // n, n)
+    out["plan"] = {"loss": losses[0], "loss_b": b_loss,
+                   "loss_rel_diff": abs(losses[0] - b_loss) / abs(b_loss),
+                   "grad_over_limit": worst, "worst_leaf": leaf,
+                   "grad_max_abs_diff": diff, "calls": calls,
+                   "a2a_bytes": sent["bytes"], "expected_a2a_bytes":
+                   want_bytes, "metrics": metrics, "ms": ms[0]}
+    if (out["plan"]["loss_rel_diff"] > MOE_RANK_LOSS_TOL or not worst <= 1
+            or calls.get("all_to_all_single") != 4
+            or sent["bytes"] != want_bytes
+            or metrics["dropped"] != 0):
+        failed.append("plan")
+    del grads, b_grads, ref, full, params, batch
+    torch.cuda.empty_cache()
+
+    # (c) 2: MoE serving at TP n
+    tp1 = json.loads((tmp / "moe_tp1.json").read_text())
+    cut = _tp_requests(np, 32000)
+    out["tp"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype)[6:]
+        m = _moe_model(torch, dtype, moe_dispatch_impl="sort",
+                       device="cuda:0")
+        engine = ServingEngine(m, num_slots=16, max_len=2048,
+                               kv_block_size=64, decode_attend_impl="fused",
+                               mesh=dist.group.WORLD, device="cuda:0")
+        pd.reset_launches()
+        ticks = _ticks_counted(engine, pd)
+        t0 = time.perf_counter()
+        streams, sched = _serve(engine, cut)
+        summ = sched.summary()
+        want_tick = ({"all_reduce": 2 * m.num_layers,
+                      "all_to_all_single": 2 * m.num_layers},
+                     m.num_layers)
+        same = sum(x == y for a, b_ in zip(tp1[key], streams)
+                   for x, y in zip(a, b_))
+        out["tp"][key] = {
+            "streams": streams, "equal_tokens_vs_tp1": same,
+            "tokens": sum(len(a) for a in tp1[key]),
+            "tick": ticks[0], "bad_ticks": len([t for t in ticks
+                                                if t != want_tick]),
+            "k4_launches": pd.LAUNCHES,
+            "k4_expected": m.num_layers * (summ["prefills"]
+                                           + summ["decode_steps"]),
+            "token_ms_p50": summ["token_ms_p50"],
+            "wall_s": time.perf_counter() - t0}
+        r = out["tp"][key]
+        if r["bad_ticks"] or r["k4_launches"] != r["k4_expected"]:
+            failed.append(f"tp_{key}")
+        del engine, m
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    # (e) the twin at n ranks
+    t0 = time.perf_counter()
+    res = train_moe_mlp.run(["--device", "cuda:0", "--iterations",
+                             str(MOE_TWIN_ITERATIONS)],
+                            group=dist.group.WORLD)
+    out["twin"] = {"losses": res["losses"], "accs": res["accs"],
+                   "seconds": time.perf_counter() - t0}
+    if not (all(math.isfinite(x) for x in res["losses"])
+            and res["accs"][-1] > res["accs"][0]):
+        failed.append("twin")
+    out["failed"] = failed
+    (tmp / f"moe_out{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    if failed:
+        print(f"moe (c) rank {rank} failed: {failed}: {json.dumps(out)}",
+              file=sys.stderr, flush=True)
+        sys.exit(1)
+
+
+def phase_moe_ranks(torch, np, smi, tmp):
+    """Phase 18 (c) and (e)'s two-rank run: ``MOE_RANKS`` processes on
+    the one card (``python3 chip_smoke.py --moe-child DIR RANK``), reading
+    (b)'s and (d)'s values from ``tmp``; a failing rank fails the phase.
+    The fp32 TP 2 streams must equal TP 1's, or part at a true near-tie;
+    the bf16 tokens equal are reported."""
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--moe-child",
+         str(tmp), str(r)]) for r in range(MOE_RANKS)]
+    deadline = time.monotonic() + MOE_CHILD_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    outs = [json.loads((tmp / f"moe_out{r}.json").read_text())
+            for r in range(MOE_RANKS) if (tmp / f"moe_out{r}.json").exists()]
+    print("moe (c) summary", json.dumps(outs), flush=True)
+    if any(codes) or len(outs) != MOE_RANKS:
+        raise AssertionError(f"moe (c) ranks exited with {codes}")
+    p = [o["plan"] for o in outs]
+    print(f"moe (c) 1: ParallelPlan({{'expert': {MOE_RANKS}}}) at "
+          f"{MOE_EXPERTS // MOE_RANKS} experts a rank over gloo on one card: "
+          f"gloo all-to-all of CUDA queues {[o['gloo_all_to_all_cuda'] for o in outs]}"
+          f"; per rank loss {[x['loss'] for x in p]} (world size 1: "
+          f"{p[0]['loss_b']}), grads {[round(x['grad_over_limit'], 4) for x in p]}"
+          f" of their limit (worst {[x['worst_leaf'] for x in p]}), calls "
+          f"{[x['calls'] for x in p]}, all-to-all bytes sent "
+          f"{[x['a2a_bytes'] for x in p]} (by the shapes "
+          f"{p[0]['expected_a2a_bytes']}), step ms over gloo "
+          f"{[round(x['ms'], 1) for x in p]}; card {smi}", flush=True)
+    tp1 = json.loads((tmp / "moe_tp1.json").read_text())
+    for key in ("float32", "bfloat16"):
+        r = [o["tp"][key] for o in outs]
+        if any(x["streams"] != r[0]["streams"] for x in r[1:]):
+            raise AssertionError(f"moe (c) 2 {key}: the ranks' streams "
+                                 "differ")
+        print(f"moe (c) 2 {key}: TP {MOE_RANKS} MoE serving, "
+              f"{TP_CARD_REQUESTS} requests x {TP_CARD_NEW_TOKENS} tokens: "
+              f"{r[0]['equal_tokens_vs_tp1']}/{r[0]['tokens']} tokens equal "
+              f"to TP 1's; a tick {r[0]['tick']}; per rank K4 launches "
+              f"{[x['k4_launches'] for x in r]} (expected "
+              f"{[x['k4_expected'] for x in r]}), ms per tick p50 "
+              f"{[x['token_ms_p50'] for x in r]}; card {smi}", flush=True)
+    # fp32: TP 2 equals TP 1, or parts at a true near-tie of the logits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m32 = _moe_model(torch, torch.float32)
+    parts = _near_tie_parts(torch, m32, _tp_requests(np, 32000),
+                            tp1["float32"], outs[0]["tp"]["float32"]
+                            ["streams"])
+    del m32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    print(f"moe (c) 2 float32: parts from TP 1 (request, token, top-2 gap) "
+          f"{parts}", flush=True)
+    far = [x for x in parts if not x[2] < NEAR_TIE]
+    if far:
+        raise AssertionError(f"moe (c) 2: fp32 TP {MOE_RANKS} streams part "
+                             f"from TP 1's away from a near-tie: {far}")
+    t = outs[0]["twin"]
+    print(f"moe (e) twin at {MOE_RANKS} ranks over gloo: loss "
+          f"{t['losses'][0]:.4f} -> {t['losses'][-1]:.4f}, acc "
+          f"{t['accs'][0]:.4f} -> {t['accs'][-1]:.4f} in {t['seconds']:.1f} s",
+          flush=True)
+    return outs
+
+
+def phase_moe_twin(torch, smi):
+    """Phase 18 (e) at world size 1 on the card (over the one-rank NCCL
+    group): the twin's defaults but ``MOE_TWIN_ITERATIONS`` iterations."""
+    from chainermn_tpu_torch.examples.moe import train_moe_mlp
+
+    t0 = time.perf_counter()
+    res = train_moe_mlp.run(["--iterations", str(MOE_TWIN_ITERATIONS)])
+    row = {"losses": res["losses"], "accs": res["accs"],
+           "seconds": time.perf_counter() - t0}
+    print(f"moe (e) twin at world size 1: loss {res['losses'][0]:.4f} -> "
+          f"{res['losses'][-1]:.4f}, acc {res['accs'][0]:.4f} -> "
+          f"{res['accs'][-1]:.4f} in {row['seconds']:.1f} s; card {smi}",
+          flush=True)
+    if not (all(math.isfinite(x) for x in res["losses"])
+            and res["accs"][-1] > res["accs"][0]):
+        raise AssertionError(f"moe (e): the twin did not learn: {row}")
+    return row
+
+
 # ---------------------------------------------------------------- main
 
 #: the bf16 kernels whose tensor-core instructions are counted: K1-K3
@@ -4479,6 +5224,12 @@ def main() -> int:
         seq_a1, seq_a2 = phase_seq_plan(torch, np, comm, smi, Path(tmp))
         seq_ranks = phase_seq_ranks(torch, smi, Path(tmp))
     print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
+    t18 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        moe = phase_moe(torch, np, comm, smi, Path(tmp))
+        moe_ranks = phase_moe_ranks(torch, np, smi, Path(tmp))
+    phase_moe_twin(torch, smi)
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s", flush=True)
     import torch.distributed as dist
 
     dist.destroy_process_group()  # the training phases' one-rank group
@@ -4509,7 +5260,10 @@ def main() -> int:
             "serving_phase3": launches,
             "tp1_serving_phase15a": tp_serving["k4_launches"],
             "tp2_serving_per_rank_phase15b": [
-                r["k4_launches"] for r in tp_two["bfloat16"]["per_rank"]]},
+                r["k4_launches"] for r in tp_two["bfloat16"]["per_rank"]],
+            "moe_serving_phase18d": moe["d"]["k4_launches"],
+            "moe_tp2_serving_per_rank_phase18c": [
+                o["tp"]["bfloat16"]["k4_launches"] for o in moe_ranks]},
         "max_abs_err": main_row["max_abs_err"],
         "tolerance": main_row["tolerance"],
         "ms": main_row["ms"],
@@ -4624,7 +5378,9 @@ def main() -> int:
                     for o in seq_ranks],
                 "window_zigzag_per_rank_phase17b": [
                     {c: o[c]["launches"][key] for c in ("window", "zigzag")}
-                    for o in seq_ranks]},
+                    for o in seq_ranks],
+                "moe_lm_training_step_phase18a": moe["a"][
+                    "launches_per_step"][-1][key]},
             "max_abs_err": max(packed["max_abs_err"][e] for e in errs),
             "tolerance": packed["tolerance"],
             "ms": packed["ms"][key],
@@ -4669,5 +5425,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--seq-child"]:  # phase 17 (b)'s ranks
         sys.path.insert(0, str(ROOT))
         _seq_child(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--moe-child"]:  # phase 18 (c)'s ranks
+        sys.path.insert(0, str(ROOT))
+        _moe_child(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
     sys.exit(main())

@@ -15,6 +15,7 @@ import chainermn_tpu_torch
 from chainermn_tpu_torch.communicators import create_communicator
 from chainermn_tpu_torch.examples.imagenet import train_imagenet
 from chainermn_tpu_torch.examples.mnist import train_mnist
+from chainermn_tpu_torch.examples.moe import train_moe_mlp
 from chainermn_tpu_torch.examples.pipeline import train_pipeline_mlp
 from chainermn_tpu_torch.examples.tensor_parallel import (
     train_tp_transformer,
@@ -73,7 +74,8 @@ def test_every_port_module_imports_with_jax_blocked():
                  "examples.pipeline.train_pipeline_mlp",
                  "parallel.plan_specs", "parallel.plan",
                  "parallel.ring_attention", "parallel.ulysses",
-                 "parallel.local_attention"):
+                 "parallel.local_attention", "parallel.moe",
+                 "examples.moe.train_moe_mlp"):
         assert "chainermn_tpu_torch." + name in PORT_MODULES
     out = subprocess.run(
         [sys.executable, "-c", _BLOCK_AND_IMPORT, str(SMOKE), *PORT_MODULES],
@@ -122,6 +124,15 @@ def test_entry_points_raise_without_a_card_or_a_device(monkeypatch):
         train_tp_transformer.main(["--iterations", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_pipeline_mlp.main(["--iterations", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_moe_mlp.main(["--iterations", "1"])
+    # an MoE model served under tensor parallelism: the card first
+    moe = TransformerLM(vocab_size=16, num_layers=1, num_heads=2, d_model=8,
+                        d_ff=16, max_len=16, n_experts=2,
+                        moe_dispatch_impl="sort", device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(moe, num_slots=1, max_len=16, kv_block_size=4,
+                      mesh=object())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh(("data", "stage"))
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -233,8 +233,12 @@ def test_clone_to_shard_widths_keeps_the_replicated_leaves():
 
 def test_moe_under_tp_and_unknown_fields_are_refused():
     tm = TransformerLM(**LM_CFG, compute_dtype=torch.float32, device="cpu")
-    for field in ("expert_axis", "moe_experts_local"):
-        with pytest.raises(NotImplementedError, match="6.6"):
-            tm.clone(**{field: 2})
+    # the MoE fields are ported: a clone takes them (a dense model keeps
+    # its FFN, whatever they say)
+    for field, value in (("expert_axis", None), ("moe_experts_local", 2)):
+        local = tm.clone(**{field: value})
+        assert getattr(local, field) == value
+        assert local.blocks[0].ff_up.weight.shape == \
+            tm.blocks[0].ff_up.weight.shape
     with pytest.raises(ValueError, match="clone"):
         tm.clone(window=4)

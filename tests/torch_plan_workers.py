@@ -137,9 +137,10 @@ def plan_worker(inputs: dict) -> dict:
     out["reject/unknown"] = _raises(
         lambda: ParallelPlan({"tower": 8}, device="cpu"), ValueError,
         "subset")
+    # the expert axis is ported; its 'auto' dispatch waits for item 8
     out["reject/expert"] = _raises(
-        lambda: ParallelPlan({"expert": 8}, device="cpu"),
-        NotImplementedError, "6.6")
+        lambda: ParallelPlan({"expert": 8}, device="cpu").moe_layer(
+            tokens_local=4, d_model=8), NotImplementedError, "item 8")
     out["reject/grad_reduction"] = _raises(
         lambda: ParallelPlan({"data": 8}, device="cpu",
                              grad_reduction="flat"),
