@@ -19,11 +19,18 @@ Besides the JAX example's ``resnet50``, ``--arch`` takes the other ResNet
 depths (``resnet18`` for small runs). ``--profile DIR`` writes a
 ``torch.profiler`` trace of iterations 10-20.
 
+``--optimizer lars|lamb`` takes :class:`~chainermn_tpu_torch.optimizers.
+LARS`/:class:`~chainermn_tpu_torch.optimizers.LAMB` (``optax.lars``/
+``optax.lamb`` with their defaults) in place of SGD with momentum;
+``--local-sgd H`` averages the parameters every H steps instead of the
+per-step gradient reduction (and so refuses ``--double-buffering`` and
+``--error-feedback``, as the JAX example does); ``--error-feedback`` feeds the int8 wire's
+rounding back (``--allreduce-grad-dtype int8``).
+
 Left for later, each refused with an error naming its ROADMAP item:
 ``--arch alex|googlenet|googlenetbn|vit_s16``, ``--native-loader`` and
-``--train-root`` (queue 9); ``--optimizer lars|lamb``, ``--local-sgd`` and
-``--error-feedback`` (queue 3.3); ``--remat`` and ``--stem
-space_to_depth`` (queue 1, item 3.6).
+``--train-root`` (queue 9); ``--remat`` and ``--stem space_to_depth``
+(queue 1, item 3.6).
 """
 
 from __future__ import annotations
@@ -39,9 +46,14 @@ import torch.nn.functional as F
 
 from chainermn_tpu_torch import global_except_hook
 from chainermn_tpu_torch._device import resolve_device
-from chainermn_tpu_torch.communicators import create_communicator
+from chainermn_tpu_torch.communicators import example_communicator
 from chainermn_tpu_torch.models import resnet
-from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
+from chainermn_tpu_torch.optimizers import (
+    LAMB,
+    LARS,
+    create_local_sgd,
+    create_multi_node_optimizer,
+)
 from chainermn_tpu_torch.training import create_train_state, make_train_step
 from chainermn_tpu_torch.training.prefetch import to_device
 
@@ -52,8 +64,6 @@ _LATER_ARCHS = ("alex", "googlenet", "googlenetbn", "vit_s16")
 _LATER = {
     "native_loader": "ROADMAP queue 9 (native/: the C++ loader)",
     "train_root": "ROADMAP queue 9 (the real-data input path)",
-    "local_sgd": "ROADMAP queue 3.3 (LocalSGDOptimizer)",
-    "error_feedback": "ROADMAP queue 3.3 (error feedback on the int8 wire)",
     "remat": "ROADMAP queue 1, item 3.6 (the ResNet remat)",
 }
 
@@ -103,7 +113,9 @@ def _parser():
     p.add_argument("--iterations", type=int, default=100)
     p.add_argument("--lr", type=float, default=0.1)
     p.add_argument("--optimizer", default="sgd",
-                   choices=["sgd", "lars", "lamb"])
+                   choices=["sgd", "lars", "lamb"],
+                   help="sgd+momentum (default) or the large-batch "
+                        "layer-adaptive optimizers")
     p.add_argument("--double-buffering", action="store_true")
     p.add_argument("--local-sgd", type=int, default=0, metavar="H")
     p.add_argument("--allreduce-grad-dtype", default="bfloat16")
@@ -129,18 +141,20 @@ def setup(argv=None) -> SimpleNamespace:
     for flag, item in _LATER.items():
         if getattr(args, flag):
             p.error(f"--{flag.replace('_', '-')} is not ported yet ({item})")
+    if args.local_sgd and (args.double_buffering or args.error_feedback):
+        p.error("--local-sgd replaces the per-step gradient wire; "
+                "--double-buffering/--error-feedback would be silently "
+                "ignored")
     if args.arch in _LATER_ARCHS:
         p.error(f"--arch {args.arch} is not ported yet (ROADMAP queue 9: "
                 "models/imagenet.py and models/vit.py)")
-    if args.optimizer != "sgd":
-        p.error(f"--optimizer {args.optimizer} is not ported yet (ROADMAP "
-                "queue 3.3: the layer-adaptive optimizers)")
     device = resolve_device(args.device)
-    comm = create_communicator(
-        args.communicator or ("pure_nccl" if device.type == "cuda"
-                              else "naive"),
-        allreduce_grad_dtype=args.allreduce_grad_dtype or None,
-        device=device)
+    try:
+        comm = example_communicator(
+            args.communicator, device,
+            allreduce_grad_dtype=args.allreduce_grad_dtype or None)
+    except NotImplementedError as e:  # the 'auto' wire: ROADMAP queue 8
+        p.error(str(e))
     global_except_hook._add_hook()
     if comm.rank == 0:
         print(f"communicator: {comm}  arch: {args.arch}")
@@ -150,9 +164,17 @@ def setup(argv=None) -> SimpleNamespace:
         torch.backends.cudnn.benchmark = True
     model = ARCHS[args.arch](bn_comm=comm, compute_dtype=compute_dtype,
                              stem=args.stem, seed=0, device=device)
-    optimizer = create_multi_node_optimizer(
-        torch.optim.SGD(model.parameters(), lr=args.lr, momentum=0.9),
-        comm, double_buffering=args.double_buffering)
+    inner = {"sgd": lambda ps: torch.optim.SGD(ps, lr=args.lr,
+                                               momentum=0.9),
+             "lars": lambda ps: LARS(ps, lr=args.lr),
+             "lamb": lambda ps: LAMB(ps, lr=args.lr)}[args.optimizer](
+        model.parameters())
+    if args.local_sgd:
+        optimizer = create_local_sgd(inner, comm, sync_every=args.local_sgd)
+    else:
+        optimizer = create_multi_node_optimizer(
+            inner, comm, double_buffering=args.double_buffering,
+            error_feedback=args.error_feedback)
     state = create_train_state(model, optimizer, comm)
     step = make_train_step(loss_fn, optimizer, comm)
     rng = np.random.default_rng(0)

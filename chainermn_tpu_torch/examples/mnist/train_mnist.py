@@ -22,9 +22,12 @@ JAX example's choice names run unchanged)::
         --device cpu --checkpoint ckpt --checkpoint-interval 50 \
         --iterations 100   # then again with --iterations 200: resumes at 100
 
-Left for later, each refused with an error naming its ROADMAP item:
-``--local-sgd``, ``--outer-momentum``, ``--error-feedback`` and
-``--reduction-schedule`` (queue 3.3).
+``--local-sgd H`` averages the parameters every H steps instead of
+reducing the gradients each step (``--outer-momentum``: DiLoCo's outer
+heavy-ball momentum); ``--reduction-schedule flat|two_level|zero`` pins
+the gradient reduction; ``--error-feedback`` feeds the int8 wire's
+rounding back (``--allreduce-grad-dtype int8``). ``--reduction-schedule
+auto`` and composition signatures raise, naming ROADMAP queue 8 and 6.7.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import torch.nn.functional as F
 
 from chainermn_tpu_torch import global_except_hook
 from chainermn_tpu_torch._device import resolve_device
-from chainermn_tpu_torch.communicators import create_communicator
+from chainermn_tpu_torch.communicators import example_communicator
 from chainermn_tpu_torch.datasets import scatter_dataset
 from chainermn_tpu_torch.extensions import (
     create_dcp_checkpointer,
@@ -46,7 +49,11 @@ from chainermn_tpu_torch.extensions import (
 )
 from chainermn_tpu_torch.iterators import create_synchronized_iterator
 from chainermn_tpu_torch.models.mlp import MLP
-from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
+from chainermn_tpu_torch.optimizers import (
+    create_local_sgd,
+    create_multi_node_optimizer,
+)
+from chainermn_tpu_torch.parallel.reduction_schedule import check_schedule
 from chainermn_tpu_torch.training import (
     Trainer,
     create_train_state,
@@ -55,14 +62,6 @@ from chainermn_tpu_torch.training import (
     make_train_step,
 )
 from chainermn_tpu_torch.training.prefetch import to_device
-
-_LATER = {
-    "local_sgd": "ROADMAP queue 3.3 (LocalSGDOptimizer)",
-    "outer_momentum": "ROADMAP queue 3.3 (LocalSGDOptimizer)",
-    "error_feedback": "ROADMAP queue 3.3 (error feedback on the int8 wire)",
-    "reduction_schedule": "ROADMAP queue 3.3 (the reduction schedules)",
-}
-
 
 def get_mnist(n_train=8192, n_test=1024, seed=0):
     """Synthetic stand-in with MNIST shapes: 10 gaussian blobs in 784-d,
@@ -90,11 +89,20 @@ def _parser():
     p.add_argument("--iterations", type=int, default=200)
     p.add_argument("--lr", type=float, default=0.05)
     p.add_argument("--double-buffering", action="store_true")
-    p.add_argument("--local-sgd", type=int, default=0, metavar="H")
-    p.add_argument("--outer-momentum", type=float, default=0.0)
+    p.add_argument("--local-sgd", type=int, default=0, metavar="H",
+                   help="periodic parameter averaging every H steps "
+                        "instead of the per-step gradient allreduce; "
+                        "0 = off")
+    p.add_argument("--outer-momentum", type=float, default=0.0,
+                   help="DiLoCo outer heavy-ball momentum on the sync "
+                        "deltas")
     p.add_argument("--allreduce-grad-dtype", default=None)
-    p.add_argument("--reduction-schedule", default=None, metavar="SCHED")
-    p.add_argument("--error-feedback", action="store_true")
+    p.add_argument("--reduction-schedule", default=None, metavar="SCHED",
+                   help="gradient-reduction schedule: flat | two_level | "
+                        "zero; default: the communicator's own strategy")
+    p.add_argument("--error-feedback", action="store_true",
+                   help="EF-SGD residual feedback over the int8 wire "
+                        "(requires --allreduce-grad-dtype int8)")
     p.add_argument("--checkpoint", default=None, metavar="DIR",
                    help="fault-tolerant snapshots every "
                         "--checkpoint-interval iterations (async native "
@@ -157,14 +165,27 @@ def main(argv=None):
     """Train; returns the final evaluation ``{'val_loss', 'val_acc'}``."""
     p = _parser()
     args = p.parse_args(argv)
-    for flag, item in _LATER.items():
-        if getattr(args, flag):
-            p.error(f"--{flag.replace('_', '-')} is not ported yet ({item})")
+    if args.local_sgd:
+        bad = [f for f, on in (
+            ("--double-buffering", args.double_buffering),
+            ("--error-feedback", args.error_feedback),
+            ("--allreduce-grad-dtype", args.allreduce_grad_dtype),
+            ("--reduction-schedule", args.reduction_schedule),
+        ) if on]
+        if bad:
+            p.error(f"--local-sgd replaces the per-step gradient wire; "
+                    f"{', '.join(bad)} would be silently ignored")
+    try:  # 'auto' and the composed spellings: ROADMAP queue 8 and 6.7
+        check_schedule(args.reduction_schedule)
+    except NotImplementedError as e:
+        p.error(str(e))
     device = resolve_device(args.device)
-    comm = create_communicator(
-        args.communicator or ("pure_nccl" if device.type == "cuda"
-                              else "naive"),
-        allreduce_grad_dtype=args.allreduce_grad_dtype, device=device)
+    try:
+        comm = example_communicator(
+            args.communicator, device,
+            allreduce_grad_dtype=args.allreduce_grad_dtype)
+    except NotImplementedError as e:  # the 'auto' wire: ROADMAP queue 8
+        p.error(str(e))
     global_except_hook._add_hook()
     if comm.rank == 0:
         print(f"communicator: {comm}")
@@ -174,9 +195,15 @@ def main(argv=None):
     test = scatter_dataset(test, comm)
 
     model = MLP(seed=0, device=device)
-    optimizer = create_multi_node_optimizer(
-        torch.optim.SGD(model.parameters(), lr=args.lr, momentum=0.9),
-        comm, double_buffering=args.double_buffering)
+    inner = torch.optim.SGD(model.parameters(), lr=args.lr, momentum=0.9)
+    if args.local_sgd:
+        optimizer = create_local_sgd(inner, comm, sync_every=args.local_sgd,
+                                     outer_momentum=args.outer_momentum)
+    else:
+        optimizer = create_multi_node_optimizer(
+            inner, comm, double_buffering=args.double_buffering,
+            error_feedback=args.error_feedback,
+            reduction_schedule=args.reduction_schedule)
     state = create_train_state(model, optimizer, comm)
     step = make_train_step(loss_fn, optimizer, comm)
     evaluator = create_multi_node_evaluator(

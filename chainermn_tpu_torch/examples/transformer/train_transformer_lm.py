@@ -36,8 +36,10 @@ gradients and the loss are averaged over the ranks in fp32, and AdamW
 steps the replicated weights. The other flags of the mode are the JAX
 example's: it ignores ``--packed``, ``--mlm`` and ``--batchsize``.
 
-Left for later, each refused with an error naming its ROADMAP item:
-``--local-sgd`` and ``--error-feedback`` (queue 3.3).
+``--local-sgd H`` averages the parameters every H steps (AdamW steps
+each rank's own gradients in between); ``--error-feedback`` feeds the
+int8 wire's rounding back (``--allreduce-grad-dtype int8``; with
+``--communicator two_dimensional`` at the shard the inter stage rounds).
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ import torch
 
 from chainermn_tpu_torch import global_except_hook
 from chainermn_tpu_torch._device import resolve_device
-from chainermn_tpu_torch.communicators import create_communicator
+from chainermn_tpu_torch.communicators import example_communicator
 from chainermn_tpu_torch.models import (
     TransformerLM,
     beam_search,
@@ -61,16 +63,13 @@ from chainermn_tpu_torch.models import (
     mlm_loss,
 )
 from chainermn_tpu_torch.ops.flash_attention import flash_attention
-from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
+from chainermn_tpu_torch.optimizers import (
+    create_local_sgd,
+    create_multi_node_optimizer,
+)
 from chainermn_tpu_torch.training import create_train_state, make_train_step
 
 VOCAB = 1024
-
-_LATER = {
-    "local_sgd": "ROADMAP queue 3.3 (LocalSGDOptimizer)",
-    "error_feedback": "ROADMAP queue 3.3 (error feedback on the int8 wire)",
-}
-
 
 def synthetic_tokens(rng, batch, seqlen):
     """Markov-ish synthetic text: next token correlates with current."""
@@ -108,12 +107,15 @@ def pack_documents(rng, batch, seqlen):
 def _make_optimizer(args, model, comm):
     """AdamW with optax.adamw's defaults (betas 0.9/0.999, eps 1e-8,
     weight decay 1e-4; torch's own default decay is 1e-2), wrapped for
-    the multi-node reduction."""
+    the multi-node reduction, or for local SGD with ``--local-sgd``."""
     inner = torch.optim.AdamW(model.parameters(), lr=args.lr,
                               betas=(0.9, 0.999), eps=1e-8,
                               weight_decay=1e-4)
+    if args.local_sgd:
+        return create_local_sgd(inner, comm, sync_every=args.local_sgd)
     return create_multi_node_optimizer(
-        inner, comm, double_buffering=args.double_buffering)
+        inner, comm, double_buffering=args.double_buffering,
+        error_feedback=args.error_feedback)
 
 
 def _parser():
@@ -161,9 +163,14 @@ def main(argv=None, *, group=None):
     one card over gloo, which the communicators do not run)."""
     p = _parser()
     args = p.parse_args(argv)
-    for flag, item in _LATER.items():
-        if getattr(args, flag):
-            p.error(f"--{flag.replace('_', '-')} is not ported yet ({item})")
+    if args.local_sgd and (args.double_buffering or args.error_feedback):
+        p.error("--local-sgd replaces the per-step gradient wire; "
+                "--double-buffering/--error-feedback would be silently "
+                "ignored")
+    if args.local_sgd and args.sequence_parallel:
+        p.error("--local-sgd is not wired into the sequence-parallel path "
+                "(it builds its own per-step mean loop); drop one of the "
+                "flags")
     if args.mlm and (args.generate or args.beam):
         p.error("--mlm is an encoder: no autoregressive decode "
                 "(--generate/--beam)")
@@ -174,11 +181,12 @@ def main(argv=None, *, group=None):
     if group is not None:
         return run_sequence_parallel(args, group, device, compute_dtype,
                                      np.random.default_rng(0))
-    comm = create_communicator(
-        args.communicator or ("pure_nccl" if device.type == "cuda"
-                              else "naive"),
-        allreduce_grad_dtype=args.allreduce_grad_dtype or None,
-        device=device)
+    try:
+        comm = example_communicator(
+            args.communicator, device,
+            allreduce_grad_dtype=args.allreduce_grad_dtype or None)
+    except NotImplementedError as e:  # the 'auto' wire: ROADMAP queue 8
+        p.error(str(e))
     global_except_hook._add_hook()
     if comm.rank == 0:
         print(f"communicator: {comm}")

@@ -7,8 +7,10 @@ parameter and state sharding on DTensors (:mod:`.fsdp`), rank meshes
 heterogeneous) and 1F1B (:mod:`.pipeline`), the ParallelPlan and its
 spec layer (:mod:`.plan`, :mod:`.plan_specs`), sequence parallelism:
 ring attention (:mod:`.ring_attention`), Ulysses (:mod:`.ulysses`) and
-sliding-window attention (:mod:`.local_attention`), and expert
-parallelism (:mod:`.moe`). The rest of the JAX package's ``parallel/``
+sliding-window attention (:mod:`.local_attention`), expert
+parallelism (:mod:`.moe`), and the gradient-reduction schedules
+(:mod:`.reduction_schedule`; the two-level, staged and int8 wires they
+run on are in :mod:`.collectives`). The rest of the JAX package's ``parallel/``
 (the composition and cost model, the async host plane) is ROADMAP queue
 1, items 6.7-6.8."""
 
@@ -77,6 +79,13 @@ from chainermn_tpu_torch.parallel.plan_specs import (
     AxisSpec,
     moe_plan_axis,
 )
+from chainermn_tpu_torch.parallel.reduction_schedule import (
+    SCHEDULES,
+    OverlappedBucketReducer,
+    bucket_partition,
+    reduce_tree,
+    resolve_schedule,
+)
 from chainermn_tpu_torch.parallel.ring_attention import (
     make_ring_attention,
     ring_attention_local,
@@ -110,10 +119,11 @@ from chainermn_tpu_torch.parallel.zero import (
     zero_state_specs,
 )
 
-__all__ = ["AxisSpec", "CANONICAL_AXES", "MeshTopology", "ParallelPlan",
-           "PipelinePlanSpec", "PlanTrainState", "ZeroShardOptimizer",
+__all__ = ["AxisSpec", "CANONICAL_AXES", "MeshTopology",
+           "OverlappedBucketReducer", "ParallelPlan", "PipelinePlanSpec",
+           "PlanTrainState", "SCHEDULES", "ZeroShardOptimizer",
            "allgather", "allreduce", "alltoall", "axes_bound", "axis_index",
-           "axis_size_of", "bcast", "best_mesh_shape",
+           "axis_size_of", "bcast", "best_mesh_shape", "bucket_partition",
            "column_parallel_dense", "copy_to_tp", "create_fsdp_train_state",
            "dispatch_einsum", "dispatch_sort", "fsdp_shardings", "gather",
            "gather_from_tp", "load_balancing_loss", "make_expert_params",
@@ -123,6 +133,7 @@ __all__ = ["AxisSpec", "CANONICAL_AXES", "MeshTopology", "ParallelPlan",
            "moe_layer_local", "moe_plan_axis", "pipe_plan_axis",
            "pipeline_1f1b_local", "pipeline_hetero_local", "pipeline_local", "pipeline_total_ticks", "ppermute",
            "record_moe_dispatch", "reduce_from_tp", "reduce_scatter",
+           "reduce_tree", "resolve_schedule",
            "resolve_dispatch_impl", "resolve_expert_parallel",
            "ring_attention_local", "route_slots", "routing_stats",
            "row_parallel_dense", "scatter", "seq_ring_attention_local",

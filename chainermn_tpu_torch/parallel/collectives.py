@@ -38,10 +38,21 @@ selects the same layouts. ``allreduce``, ``bcast``, ``ppermute`` and
 ``shift`` take a tensor or a dict, list or tuple of them, as the JAX
 functions take pytrees.
 
-Left for later, each raising ``NotImplementedError`` that names its
-ROADMAP item: the two-level, decomposed and staged wires over several
-axes (queue 3.2), the int8 wires and their error feedback (queue 3.3),
-and the tuned bucket size and wire (queue 8, the tuning registry).
+Over several axes (a tuple of groups, merged in row-major order; a
+collective over them is ONE call on their product group, which a
+:class:`MergedAxes` carries beside them, as a communicator's
+``grad_axes`` does): ``axes_size``/
+``axes_index``, the two-level and decomposed all-reduces, the staged
+primitives the reduction schedules are written in (a reduce-scatter
+over ceil-padded rows, an all-reduce, the conjugate all-gather, and a
+radix-tree broadcast of ``ceil(log_radix n)`` rounds), and the int8 wires
+with their error-feedback forms (per-member stage-1 scales, a per-shard
+stage-2 scale; at n == 1 the value itself, unrounded). These are XLA ops
+in the JAX package, so torch ops and ``torch.distributed`` calls here; a
+gloo group moves CUDA tensors through host copies.
+
+Left for later, raising ``NotImplementedError`` that names ROADMAP
+queue 8 (the tuning registry): the tuned bucket size and wire.
 """
 
 from __future__ import annotations
@@ -130,8 +141,8 @@ def _leaves(fn: Callable, x: PyTree) -> PyTree:
 # plain collectives on one tensor, no autograd
 # ---------------------------------------------------------------------------
 
-def _all_reduce(t, group, op="sum"):
-    out = t.contiguous().clone()
+def _all_reduce(t, group, op="sum", *, inplace=False):
+    out = t if inplace else t.contiguous().clone()
     dist.all_reduce(out, op=_REDUCE_OPS[op], group=group)
     if op == "mean":
         out /= dist.get_world_size(group)
@@ -402,6 +413,361 @@ def alltoall(x: torch.Tensor, group=None, *, split_axis: int = 0,
         lambda ct: _all_to_all(ct, g, ca, sa, tiled))
 
 
+# ---------------------------------------------------------------------------
+# several axes: the merged group, the two-level frame and the staged
+# primitives (the reduction schedules' and the composition layer's
+# vocabulary), and the int8 wires
+# ---------------------------------------------------------------------------
+
+def _norm(group):
+    g = as_group(group)
+    return dist.group.WORLD if g is None else g
+
+
+def _axes(axes) -> tuple:
+    """``axes`` (a group, a communicator, None, or a sequence of them) as
+    a tuple of process groups, ``None`` being the default group."""
+    if isinstance(axes, MergedAxes):
+        return axes
+    if isinstance(axes, (tuple, list)):
+        return tuple(_norm(a) for a in axes)
+    return (_norm(axes),)
+
+
+class MergedAxes(tuple):
+    """Axis groups merged in row-major order, with ``product``: the one
+    group over all of them (rank ``i`` of ``product`` is the rank whose
+    row-major index over the groups is ``i``, as a 2-D mesh's whole group
+    over its two axes). A collective over the merged axes runs as ONE
+    call on ``product``. Slicing gives a plain tuple of the groups."""
+
+    def __new__(cls, groups, product):
+        self = super().__new__(cls, (_norm(g) for g in groups))
+        self.product = _norm(product)
+        return self
+
+
+def _merged(axes: tuple):
+    """The one group that spans the merged ``axes``: a single axis, or
+    the product a :class:`MergedAxes` carries."""
+    if len(axes) == 1:
+        return axes[0]
+    if isinstance(axes, MergedAxes):
+        return axes.product
+    raise ValueError(
+        f"a collective over {len(axes)} merged axes runs on their product "
+        "group: pass MergedAxes(groups, product) (a communicator's "
+        "grad_axes is one)")
+
+
+def axes_size(axes) -> int:
+    """Product of the sizes of the groups ``axes`` (a group or a sequence
+    of groups): the world size of a reduction over the merged axes."""
+    n = 1
+    for g in _axes(axes):
+        n *= dist.get_world_size(g)
+    return n
+
+
+def axes_index(axes) -> int:
+    """Row-major index of this rank over the merged ``axes`` (the
+    single-group :func:`axis_index`, generalised)."""
+    idx = 0
+    for g in _axes(axes):
+        idx = idx * dist.get_world_size(g) + dist.get_rank(g)
+    return idx
+
+
+def two_level_shard_len(size: int, n_intra: int) -> int:
+    """Per-member intra-shard length for a flat buffer of ``size``
+    elements: the ceil-padded row length of the two-level frame, and so
+    the shape of the shard-level error-feedback residual."""
+    return -(-size // n_intra)
+
+
+def _rows(flat: torch.Tensor, n: int) -> torch.Tensor:
+    """``flat`` zero-padded into ``n`` equal rows ``[n, c]``."""
+    c = two_level_shard_len(flat.numel(), n)
+    if n * c == flat.numel():
+        return flat.reshape(n, c)
+    return torch.nn.functional.pad(flat, (0, n * c - flat.numel())
+                                   ).reshape(n, c)
+
+
+def _host_staged(fn, t, group, *args, **kwargs):
+    """``fn(t, group, *args, **kwargs)``, through a host copy when
+    ``group`` is gloo and ``t`` a CUDA tensor (gloo's collectives take CPU
+    tensors)."""
+    if _stage_through_host(t, group):
+        return fn(t.cpu(), group, *args, **kwargs).to(t.device)
+    return fn(t, group, *args, **kwargs)
+
+
+def _psum(x: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """The sum over the merged ``axes`` (``lax.psum``)."""
+    return _host_staged(_all_reduce, x, _merged(axes))
+
+
+def _rs_rows(rows: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """``[n, c]`` rows over the merged ``axes`` -> this rank's ``[c]``
+    row summed over them (``psum_scatter(..., tiled=False)``)."""
+    return _host_staged(_reduce_scatter, rows, _merged(axes), 0, False)
+
+
+def _ag_rows(t: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """``t`` of every rank of the merged ``axes``, stacked ``[n, ...]`` in
+    row-major order (``all_gather(..., tiled=False)``)."""
+    return _host_staged(_all_gather, t, _merged(axes), 0, False)
+
+
+def _a2a_rows(rows: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """Row ``j`` of ``[n, c]`` to member ``j`` of the merged ``axes``; row
+    ``s`` of the result came from member ``s`` (``all_to_all(...,
+    tiled=True)``)."""
+    return _host_staged(_all_to_all, rows, _merged(axes), 0, 0, True)
+
+
+def _two_level_frame(x: torch.Tensor, intra, inter_reduce) -> torch.Tensor:
+    """The frame both two-level reductions share: ceil-pad, intra
+    reduce-scatter (the exact sum of this member's 1/n slice),
+    ``inter_reduce(shard)``, intra all-gather, un-pad."""
+    intra = _axes(intra)
+    n_intra = axes_size(intra)
+    flat = x.reshape(-1)
+    shard = _rs_rows(_rows(flat, n_intra), intra)
+    shard = inter_reduce(shard)
+    rows = _ag_rows(shard, intra)
+    return rows.reshape(-1)[:flat.numel()].reshape(x.shape)
+
+
+def _check_op(op):
+    if op not in ("sum", "mean"):
+        raise ValueError(f"op must be 'sum' or 'mean', got {op!r}")
+
+
+def _self_adjoint(x, fn):
+    """``fn(x)`` as a differentiable linear map that is its own
+    transpose (an all-reduce, whatever its schedule)."""
+    return _linear(x, fn, fn)
+
+
+def two_level_allreduce(x: torch.Tensor, intra_group, inter_group, *,
+                        op: str = "mean") -> torch.Tensor:
+    """Bandwidth-optimal two-level allreduce: intra reduce-scatter, inter
+    allreduce of the 1/n shard, intra all-gather (the reference's
+    ``TwoDimensionalCommunicator`` pipeline). ``inter_group`` may be a
+    sequence of groups, merged. Differentiable (its own transpose)."""
+    _check_op(op)
+    return _self_adjoint(x, lambda v: _two_level(v, intra_group, inter_group,
+                                                 op == "mean"))
+
+
+def _two_level(x, intra, inter, mean: bool):
+    """The exact two-level sum (or mean) of ``x`` over ``intra`` and
+    ``inter`` (no autograd)."""
+    inter = _axes(inter)
+    n = axes_size(intra) * axes_size(inter)
+
+    def inter_fn(shard):
+        shard = _psum(shard, inter)
+        return shard / n if mean else shard
+
+    return _two_level_frame(x, intra, inter_fn)
+
+
+def decomposed_allreduce(x: torch.Tensor, axes, *,
+                         op: str = "mean") -> torch.Tensor:
+    """Allreduce as its bandwidth-optimal decomposition: reduce-scatter
+    over the LAST group of ``axes`` (the fast, intra one by the mesh
+    convention), allreduce of the shard over the others (none on a flat
+    mesh), all-gather back. Differentiable (its own transpose)."""
+    _check_op(op)
+    names = _axes(axes)
+    scatter_ax, rest = names[-1], names[:-1]
+    n = axes_size(names)
+
+    def run(v):
+        def inter_fn(shard):
+            if rest:
+                shard = _psum(shard, rest)
+            return shard / n if op == "mean" else shard
+
+        return _two_level_frame(v, scatter_ax, inter_fn)
+
+    return _self_adjoint(x, run)
+
+
+def staged_reduce_scatter(flat: torch.Tensor, axes) -> torch.Tensor:
+    """One composition stage: ceil-pad ``flat`` into ``[n, c]`` rows over
+    the merged ``axes`` (``c`` = :func:`two_level_shard_len`) and
+    reduce-scatter them: this member's exactly summed 1/n shard."""
+    names = _axes(axes)
+    return _rs_rows(_rows(flat.reshape(-1), axes_size(names)), names)
+
+
+def staged_allreduce(x: torch.Tensor, axes) -> torch.Tensor:
+    """One composition stage: the sum over the merged ``axes``."""
+    return _psum(x, _axes(axes))
+
+
+def staged_allgather(shard: torch.Tensor, axes,
+                     orig_size: int) -> torch.Tensor:
+    """One composition stage, the conjugate of
+    :func:`staged_reduce_scatter`: all-gather the shards over the merged
+    ``axes`` and un-pad to ``orig_size`` elements."""
+    return _ag_rows(shard, _axes(axes)).reshape(-1)[:orig_size]
+
+
+def staged_broadcast(x: torch.Tensor, axes, *, radix: int = 2,
+                     root: int = 0) -> torch.Tensor:
+    """One composition stage: the ``root`` member's ``x`` on every member
+    of the merged ``axes``, by a multicast tree of exactly
+    ``ceil(log_radix n)`` rounds of point-to-point transfers (the JAX
+    ``ppermute`` rounds): non-holders carry zeros, so each transfer's
+    ``cur + received`` delivers the payload or adds zero, and each round
+    multiplies the holders by ``radix`` (holder ``s`` sends to ``s +
+    j * holders``, ``j`` in ``1..radix-1``: ``radix - 1`` transfers a
+    round). The merged axes must be one group (a single axis, or a
+    :class:`MergedAxes`): a tree's transfers cross the axes at once."""
+    names = _axes(axes)
+    r = int(radix)
+    if r < 2:
+        raise ValueError(f"multicast radix must be >= 2, got {radix}")
+    n = axes_size(names)
+    if n == 1:
+        return x
+    g = _merged(names)
+    idx = axes_index(names)
+    rk = int(root) % n
+
+    def pos(s):  # tree coordinate -> rank
+        return (s + rk) % n
+
+    cur = x if idx == rk else torch.zeros_like(x)
+    holders = 1
+    while holders < n:
+        for j in range(1, r):
+            perm = [(pos(s), pos(s + j * holders))
+                    for s in range(holders) if s + j * holders < n]
+            if perm:
+                cur = cur + _permute(cur, g, perm)
+        holders = min(n, holders * r)
+    return cur
+
+
+def quantize_int8(v: torch.Tensor):
+    """One quantization stage of the int8 wire: ``(codes, scale)`` with
+    ``scale = max(max|v|, 1e-30) / 127`` and ``codes = clip(round(v /
+    scale), -127, 127)`` as int8 (round half to even, as ``jnp.round``)."""
+    amax = v.abs().max()
+    scale = torch.clamp(amax, min=1e-30) / 127.0
+    q = torch.clamp(torch.round(v / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _int8_core(x: torch.Tensor, axes: tuple):
+    """The two-phase quantized mean over the merged ``axes``:
+    ``(mean, local_roundtrip)``, ``local_roundtrip`` being this member's
+    dequantized stage-1 message ``D(C(x))``, what the peers received
+    from it (error feedback keeps ``x - D(C(x))``).
+
+    1. quantize the ceil-padded ``[n, c]`` rows against this member's own
+       max-abs scale; all-to-all the int8 rows and all-gather the n
+       scales;
+    2. dequantize and sum the n received rows (this member's exact 1/n
+       shard), requantize it against its own scale, all-gather the int8
+       shards and their scales.
+
+    At n == 1 the mean is ``x`` itself, with no rounding."""
+    n = axes_size(axes)
+    if n == 1 or x.numel() == 0:
+        return x, x
+    orig = x.dtype
+    flat = x.detach().float().reshape(-1)
+    q, scale = quantize_int8(_rows(flat, n))
+    local_rt = ((q.float() * scale).reshape(-1)[:flat.numel()]
+                .reshape(x.shape).to(orig))
+    qt = _a2a_rows(q, axes)
+    scales = _ag_rows(scale.reshape(1), axes).reshape(n)
+    shard = (qt.float() * scales[:, None]).sum(0)
+    q2, scale2 = quantize_int8(shard)
+    q2g = _ag_rows(q2, axes)
+    scale2g = _ag_rows(scale2.reshape(1), axes).reshape(n)
+    out = (q2g.float() * scale2g[:, None]).reshape(-1)
+    mean = (out[:flat.numel()] / n).reshape(x.shape).to(orig)
+    return mean, local_rt
+
+
+def int8_allreduce_mean(x: torch.Tensor, axes) -> torch.Tensor:
+    """Quantized mean-allreduce over the merged ``axes`` on an INT8 wire
+    (:func:`_int8_core`'s two phases: about ``2(n-1)/n`` bytes an element
+    against bf16's ``4(n-1)/n``, two roundings of at most half a code of
+    each stage's scale). Differentiable straight through: the backward is
+    the exact mean-allreduce of the cotangent."""
+    names = _axes(axes)
+    return _linear(x, lambda v: _int8_core(v, names)[0],
+                   lambda ct: _psum(ct, names) / axes_size(names))
+
+
+def int8_allreduce_mean_with_feedback(x: torch.Tensor, axes):
+    """``(mean, local_roundtrip)`` of :func:`_int8_core`: the caller keeps
+    ``x - local_roundtrip`` and adds it into the next step's message
+    (EF-SGD). Not differentiable (the optimizer's)."""
+    return _int8_core(x.detach(), _axes(axes))
+
+
+def int8_two_level_allreduce_mean(x: torch.Tensor, intra_group,
+                                  inter_group) -> torch.Tensor:
+    """Topology-aware quantized allreduce: exact intra reduce-scatter,
+    the int8 wire (both stages) only on the shard crossing the inter
+    groups (one or several, merged), exact intra all-gather; the mean
+    over the whole product. Straight-through gradient (the exact mean
+    over both levels)."""
+    intra, inter = _axes(intra_group), _axes(inter_group)
+    n_intra = axes_size(intra)
+
+    def run(v):
+        def inter_fn(shard):
+            return _int8_core(shard, inter)[0] / n_intra
+
+        return _two_level_frame(v.detach(), intra, inter_fn).to(v.dtype)
+
+    return _linear(x, run, lambda ct: _two_level(ct, intra, inter, True))
+
+
+def int8_decomposed_allreduce_mean(x: torch.Tensor, axes) -> torch.Tensor:
+    """The quantized :func:`decomposed_allreduce`: exact reduce-scatter
+    over the last group, the int8 wire over the others, exact all-gather.
+    On one axis the flat int8 wire (already a scatter-gather)."""
+    names = _axes(axes)
+    if len(names) == 1:
+        return int8_allreduce_mean(x, names)
+    return int8_two_level_allreduce_mean(x, names[-1], names[:-1])
+
+
+def int8_two_level_allreduce_mean_with_feedback(x: torch.Tensor,
+                                                residual: torch.Tensor,
+                                                intra_group, inter_group):
+    """Shard-level error feedback for the topology-aware wire: the inter
+    message is ``intra_shard + residual``, the new residual ``message -
+    D(C(message))``, an fp32 buffer of ``[two_level_shard_len(x.numel(),
+    n_intra)]`` (1/n_intra of the flat form's), kept where the error
+    arises. Returns ``(mean, new_residual)``; an inter level of size 1
+    rounds nothing and returns a zero residual. Not differentiable."""
+    intra, inter = _axes(intra_group), _axes(inter_group)
+    n_intra = axes_size(intra)
+    captured = []
+
+    def inter_fn(shard):
+        msg = shard + residual.float()
+        mean_shard, local_rt = _int8_core(msg, inter)
+        captured.append(msg - local_rt)
+        return mean_shard / n_intra
+
+    mean = _two_level_frame(x.detach().float(), intra, inter_fn).to(x.dtype)
+    return mean, captured[0]
+
+
 def _later(name: str, item: str) -> Callable:
     def left_out(*args, **kwargs):
         raise NotImplementedError(
@@ -412,40 +778,22 @@ def _later(name: str, item: str) -> Callable:
     return left_out
 
 
-_WIRES = "3.2, communicators: the two-level and staged wires"
-_INT8 = "3.3, optimizer and reduction: the int8 wire and error feedback"
 _TUNED = "8, tuning: the tuned bucket size and wire"
-two_level_allreduce = _later("two_level_allreduce", _WIRES)
-two_level_shard_len = _later("two_level_shard_len", _WIRES)
-decomposed_allreduce = _later("decomposed_allreduce", _WIRES)
-axes_size = _later("axes_size", _WIRES)
-axes_index = _later("axes_index", _WIRES)
-staged_reduce_scatter = _later("staged_reduce_scatter", _WIRES)
-staged_allreduce = _later("staged_allreduce", _WIRES)
-staged_allgather = _later("staged_allgather", _WIRES)
-staged_broadcast = _later("staged_broadcast", _WIRES)
-int8_allreduce_mean = _later("int8_allreduce_mean", _INT8)
-int8_decomposed_allreduce_mean = _later("int8_decomposed_allreduce_mean",
-                                        _INT8)
-int8_two_level_allreduce_mean = _later("int8_two_level_allreduce_mean",
-                                       _INT8)
-int8_allreduce_mean_with_feedback = _later(
-    "int8_allreduce_mean_with_feedback", _INT8)
-int8_two_level_allreduce_mean_with_feedback = _later(
-    "int8_two_level_allreduce_mean_with_feedback", _INT8)
 tuned_bucket_bytes = _later("tuned_bucket_bytes", _TUNED)
 resolve_allreduce_wire = _later("resolve_allreduce_wire", _TUNED)
 #: the left-outs above, by name
-LEFT_OUT = ("two_level_allreduce", "two_level_shard_len",
-            "decomposed_allreduce", "axes_size", "axes_index",
-            "staged_reduce_scatter", "staged_allreduce", "staged_allgather",
-            "staged_broadcast", "int8_allreduce_mean",
-            "int8_decomposed_allreduce_mean", "int8_two_level_allreduce_mean",
-            "int8_allreduce_mean_with_feedback",
-            "int8_two_level_allreduce_mean_with_feedback",
-            "tuned_bucket_bytes", "resolve_allreduce_wire")
+LEFT_OUT = ("tuned_bucket_bytes", "resolve_allreduce_wire")
 
 
-__all__ = ["allgather", "allreduce", "alltoall", "as_group", "axes_bound",
-           "axis_index", "axis_size_of", "bcast", "gather", "ppermute",
-           "reduce_scatter", "scatter", "shift"]
+__all__ = ["LEFT_OUT", "MergedAxes", "allgather", "allreduce", "alltoall",
+           "as_group", "axes_bound", "axes_index", "axes_size",
+           "axis_index", "axis_size_of", "bcast", "decomposed_allreduce",
+           "gather", "int8_allreduce_mean",
+           "int8_allreduce_mean_with_feedback",
+           "int8_decomposed_allreduce_mean", "int8_two_level_allreduce_mean",
+           "int8_two_level_allreduce_mean_with_feedback", "ppermute",
+           "quantize_int8", "reduce_scatter",
+           "resolve_allreduce_wire", "scatter", "shift",
+           "staged_allgather", "staged_allreduce", "staged_broadcast",
+           "staged_reduce_scatter", "tuned_bucket_bytes",
+           "two_level_allreduce", "two_level_shard_len"]

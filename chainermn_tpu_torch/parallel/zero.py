@@ -43,10 +43,13 @@ another reduction.
 
 :func:`zero_plan_axis` and :func:`zero_stacked_init` are the ZeRO axis's
 surface of the :class:`~chainermn_tpu_torch.parallel.plan.ParallelPlan`.
-Left for later: ``compress_dtype`` (the compressed wire applied to the
-scatter, with the other wires of ROADMAP queue 1, item 3.2) and the
-multi-axis group (``axis_name`` as a tuple of mesh axes, the flattened
-product the ``'zero'`` reduction schedule builds on, queue 3.3).
+``compress_dtype`` (``'bfloat16'``/``'float16'``) casts the gradient
+rows before the reduce-scatter and the summed chunk back before the
+mean's division, as the JAX wrapper does (the JAX ``'zero'`` reduction
+schedule divides in the wire dtype instead: the same number when the
+ranks are a power of two). The ``'zero'`` schedule of
+:class:`~chainermn_tpu_torch.optimizers.MultiNodeOptimizer` runs this
+wrapper over the last (intra) axis with the others as ``extra_group``.
 ``zero_state_specs`` has a DTensor counterpart: the placement of each
 state leaf over a 1-D device mesh of the group.
 """
@@ -90,14 +93,19 @@ def _group_of(group):
 
 
 def zero_grad_scatter(g: torch.Tensor, group=None, *, extra_group=None,
-                      total: Optional[int] = None) -> torch.Tensor:
+                      total: Optional[int] = None,
+                      wire_dtype=None) -> torch.Tensor:
     """This rank's MEAN gradient chunk ``[c]``: one reduce-scatter of
     ``g``'s rows over ``group`` plus, when the step has more data-parallel
     ranks, one all-reduce of the chunk over ``extra_group`` (JAX
     ``extra_axes``), divided by ``total`` (default: the product of the two
-    groups' sizes)."""
+    groups' sizes). ``wire_dtype`` (a float dtype) casts the rows before
+    the reduce-scatter, and the sum back to ``g``'s dtype before the
+    division (the JAX ``zero_shard_optimizer(compress_dtype=)``)."""
     grp, n, _ = _group_of(group)
     rows = _chunk_rows(g, n).contiguous()
+    if wire_dtype is not None and g.is_floating_point():
+        rows = rows.to(wire_dtype)
     part = rows.new_empty(rows.shape[1:])
     dist.reduce_scatter_tensor(part, rows.reshape(-1), group=grp)
     if extra_group is not None:
@@ -105,7 +113,7 @@ def zero_grad_scatter(g: torch.Tensor, group=None, *, extra_group=None,
         dist.all_reduce(part, group=extra)
         if total is None:
             total = n * dist.get_world_size(extra)
-    return (part / (n if total is None else total)).to(g.dtype)
+    return part.to(g.dtype) / (n if total is None else total)
 
 
 def zero_param_chunk(p: torch.Tensor, group=None) -> torch.Tensor:
@@ -213,10 +221,14 @@ class ZeroShardOptimizer:
     def __init__(self, make_inner: Callable[[list], torch.optim.Optimizer],
                  params: Iterable[torch.Tensor], group=None, *,
                  extra_group=None, compress_dtype=None) -> None:
-        if compress_dtype is not None:
-            raise NotImplementedError(
-                "zero_shard_optimizer(compress_dtype=) is not ported yet "
-                "(ROADMAP queue 1, item 3.2: the compressed wires)")
+        from chainermn_tpu_torch.communicators.base import _wire_dtype
+
+        self.compress_dtype = _wire_dtype(compress_dtype)
+        if self.compress_dtype == torch.int8:
+            raise ValueError(
+                "zero_shard_optimizer cannot ride the int8 wire: its "
+                "reduce-scatter sums raw chunks, and the two-phase quantized "
+                "scheme has no scatter form")
         self._params = list(params)
         if not self._params:
             raise ValueError("ZeroShardOptimizer got no parameters")
@@ -262,7 +274,8 @@ class ZeroShardOptimizer:
                 torch.zeros_like(p) if p.grad is None else p.grad, n)
                 for p in (self._params[i] for i in idx)], dim=1)
             part = zero_grad_scatter(rows, self.group,
-                                     extra_group=self.extra_group)
+                                     extra_group=self.extra_group,
+                                     wire_dtype=self.compress_dtype)
             del rows
             for i, g in zip(idx, part.split(lens)):
                 self._chunks[i].grad = g

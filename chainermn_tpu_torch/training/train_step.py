@@ -15,7 +15,16 @@ optimizer's ``state_dict`` and the step.
 
 ``make_train_step(plan=...)`` delegates to the
 :class:`~chainermn_tpu_torch.parallel.plan.ParallelPlan`'s composed step.
-Left for later: the error-feedback state (ROADMAP queue 3.3).
+
+Error feedback's residual is PER-RANK state (the JAX package stacks it
+``[n_slots, ...]`` and shards it over the grad axes): here it lives in
+the :class:`~chainermn_tpu_torch.optimizers.MultiNodeOptimizer` of each
+rank and in its ``state_dict``, so the npz checkpointer's per-rank files
+keep every rank's residual and a resume gives each rank its own back
+(the DCP backend, whose contract is replicated state, refuses it).
+So is a :class:`~chainermn_tpu_torch.optimizers.LocalSGDOptimizer`'s
+inner state (each rank steps on its own gradients); its anchor, outer
+velocity and step count are alike on every rank.
 """
 
 from __future__ import annotations

@@ -270,6 +270,35 @@ script exits non-zero without its final ``ok`` line:
     the tick's calls, each rank's K4 launches); (e) the MoE twin at 2
     ranks there and at world size 1 here, ``MOE_TWIN_ITERATIONS``
     iterations: finite losses, accuracy rising.
+19. (run after phase 18) The topology communicators, the wires, the
+    reduction schedules and local SGD under phase 7's LM: (a) world size
+    1 over NCCL, ``TOPO_STEPS`` AdamW steps each under ``pure_nccl``
+    (fp32 and bf16 wires), ``hierarchical``, ``two_dimensional``,
+    ``single_node`` and ``non_cuda_aware`` (bf16), ``two_dimensional``
+    with the int8 wire and shard-level error feedback,
+    ``reduction_schedule`` ``'flat'``, ``'two_level'`` and ``'zero'``
+    (bf16) and ``create_local_sgd(sync_every=2)``: every run's losses bit
+    for bit ``pure_nccl``'s on its wire (the int8 wire is exact at one
+    rank, its residual all zero), K1/K2/K3 6/6/6 a step, step ms p50/p99
+    beside ``pure_nccl``'s, ``torch.distributed`` calls a step; local
+    SGD's largest |parameter| difference from the fp32 run printed, its
+    last loss within ``TOPO_LOSS_TOL`` relative; (b) ``TOPO_RANKS``
+    processes on the one card (``python3 chip_smoke.py --comm-child DIR
+    RANK``, CUDA tensors over gloo, ``mesh=`` 2 x 2), the LM at full
+    width cut to ``TOPO_LAYERS`` layers and B ``TOPO_B`` x T ``TOPO_T`` a
+    rank, ``TOPO_RANK_STEPS`` steps each under ``two_dimensional`` bf16,
+    the int8 wire with flat and with shard-level error feedback, the
+    fp32 ``'two_level'`` schedule and local SGD: parameters equal on
+    every rank bit for bit after every step (local SGD: after each
+    sync), step 1's reduced gradient against the fp32 mean of the ranks'
+    local gradients as a share of the wire's bound (at most 1), calls
+    and bytes sent a step per rank equal to the shapes' count, the
+    residual's shapes, stage 1's codes on the card against the CPU (none
+    more than one code apart); (c) the Transformer twin with
+    ``two_dimensional``, the int8 wire and error feedback, and with
+    ``--local-sgd 4``, the MNIST twin with ``--reduction-schedule
+    two_level``, the ImageNet twin (ResNet-50, batch 64) with
+    ``--optimizer lars`` and ``lamb``: finite losses, first -> last.
 
 The ``kernels`` JSON and the card's name and power limit come on the two
 lines before the last; the last line is ``{"ok": true, "device": {...}}``.
@@ -278,14 +307,16 @@ lines before the last; the last line is ``{"ok": true, "device": {...}}``.
 K1-K3's ``launches`` are phase 7's (the LM training path); their
 ``launches_by_path`` add phase 11's encoder run, phase 15 (c)'s TP 1
 training, phase 16's pipelined steps ((a) by engine, (b) by rank),
-phase 17's plan and sequence-parallel steps ((a), and (b) by rank) and
-phase 18 (a)'s MoE LM step; K4's add phase 15 (a)'s TP 1 serving, each
+phase 17's plan and sequence-parallel steps ((a), and (b) by rank),
+phase 18 (a)'s MoE LM step and phase 19's steps ((a) by run, (b) by
+rank); K4's add phase 15 (a)'s TP 1 serving, each
 rank's of (b), phase 18 (d)'s MoE serving and each rank's of 18 (c).
 
 ``python3 chip_smoke.py --drill-child DIR MODE`` is phase 12's child
 process, ``--tp-child DIR RANK`` phase 15 (b)'s, ``--pipe-child DIR
-RANK`` phase 16 (b)'s, ``--seq-child DIR RANK`` phase 17 (b)'s and
-``--moe-child DIR RANK`` phase 18 (c)'s, not checks of their own.
+RANK`` phase 16 (b)'s, ``--seq-child DIR RANK`` phase 17 (b)'s,
+``--moe-child DIR RANK`` phase 18 (c)'s and ``--comm-child DIR RANK``
+phase 19 (b)'s, not checks of their own.
 """
 
 from __future__ import annotations
@@ -5044,6 +5075,558 @@ def phase_moe_twin(torch, smi):
     return row
 
 
+# ---------------------------------------------------------------- phase 19
+
+TOPO_STEPS = 10
+TOPO_WARMUP = 2
+TOPO_RANKS = 4
+TOPO_CHILD_TIMEOUT_S = 300
+#: (b): the LM at full width cut to 2 layers, B 2 x T 512 a rank
+TOPO_LAYERS = 2
+TOPO_B, TOPO_T = 2, 512
+TOPO_RANK_STEPS = 3
+#: a reduced gradient may sit this far past the wire's stated bound
+#: before (b) fails: none (the bound is the wire's own)
+TOPO_BOUND_SHARE = 1.0
+#: (a) local SGD: its outer step a - (a - c) rounds once a sync, and
+#: AdamW turns a rounding into a step of up to 2 lr where a gradient is
+#: near zero, so its largest |parameter| difference from the fp32 run is
+#: printed; the last loss must stay within this relative distance
+TOPO_LOSS_TOL = 1e-3
+TOPO_TWIN_ITERATIONS = 10
+TOPO_IMAGENET_ITERATIONS = 5
+TOPO_MNIST_ITERATIONS = 60
+
+
+def _adamw(torch, params):
+    """Phase 7's optimizer: AdamW with optax.adamw's defaults."""
+    return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def _topo_train(torch, fa, comm, make_opt, batches, **model_kw):
+    """Phase 7's LM behind ``make_opt(model, comm)`` for ``len(batches)``
+    steps: losses, host ms a step, K1-K3 launches a step, the
+    ``torch.distributed`` calls of the last step, and the model."""
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+
+    torch.cuda.empty_cache()
+    model = TransformerLM(seed=0, attention_fn=fa.flash_attention,
+                          **model_kw)
+    opt = make_opt(model, comm)
+    state = create_train_state(model, opt, comm)
+    step = make_train_step(_packed_loss, opt, comm)
+    _reset_launches(fa)
+    state, losses, ms = _run_steps(step, state, batches[:-1])
+    launches = {k: v / (len(batches) - 1) for k, v in fa.LAUNCHES.items()}
+    with _CountedDist() as calls:
+        state, last, ms_last = _run_steps(step, state, batches[-1:])
+    return {"losses": losses + last, "ms": ms + ms_last,
+            "launches_per_step": launches,
+            "calls_per_step": {k: v for k, v in calls.items() if v},
+            "model": model, "optimizer": opt}
+
+
+def phase_topology(torch, np, smi):
+    """Phase 19 (a): phase 7's LM (B 8 x T 2048 packed, bf16, flash
+    attention, AdamW) at world size 1 over NCCL, ``TOPO_STEPS`` steps
+    under each topology communicator (bf16 wire), two_dimensional with
+    the int8 wire and shard-level error feedback, the three reduction
+    schedules (bf16 wire) and local SGD (sync every 2): every run's losses
+    bit for bit those of ``pure_nccl`` on the same wire (fp32 for int8:
+    at one rank every wire is exact and the residual stays zero), K1/K2/
+    K3 6/6/6 a step; local SGD's largest |parameter| difference from the
+    fp32 run."""
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.examples.transformer.train_transformer_lm \
+        import pack_documents
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.optimizers import (
+        create_local_sgd,
+        create_multi_node_optimizer,
+    )
+
+    rng = np.random.default_rng(0)
+    batches = [tuple(torch.from_numpy(x).cuda()
+                     for x in pack_documents(rng, 8, 2048))
+               for _ in range(TOPO_STEPS)]
+
+    def mno(**kw):
+        return lambda model, comm: create_multi_node_optimizer(
+            _adamw(torch, model.parameters()), comm, **kw)
+
+    def sgd_local(model, comm):
+        return create_local_sgd(_adamw(torch, model.parameters()), comm,
+                                sync_every=2)
+
+    bf16 = {"allreduce_grad_dtype": "bfloat16"}
+    runs = [  # (label, communicator name, its kwargs, optimizer, wire)
+        ("pure_nccl fp32", "pure_nccl", {}, mno(), "float32"),
+        ("pure_nccl bf16", "pure_nccl", bf16, mno(), "bfloat16")]
+    runs += [(name, name, bf16, mno(), "bfloat16") for name in (
+        "hierarchical", "two_dimensional", "single_node", "non_cuda_aware")]
+    runs += [("two_dimensional int8 + EF", "two_dimensional",
+              {"allreduce_grad_dtype": "int8"}, mno(error_feedback=True),
+              "float32")]
+    runs += [(f"schedule {s}", "pure_nccl", bf16, mno(reduction_schedule=s),
+              "bfloat16") for s in ("flat", "two_level", "zero")]
+    runs += [("local SGD (sync every 2)", "pure_nccl", {}, sgd_local, None)]
+    rows, ref = {}, {}
+    for label, name, kw, make_opt, wire in runs:
+        comm = create_communicator(name, **kw)
+        r = _topo_train(torch, fa, comm, make_opt, batches)
+        p50, p99 = _p50_p99(r["ms"][TOPO_WARMUP:])
+        row = {"losses": r["losses"], "step_ms_p50": p50,
+               "step_ms_p99": p99, "calls_per_step": r["calls_per_step"],
+               "launches_per_step": r["launches_per_step"],
+               "communicator": repr(comm)}
+        if label.startswith("pure_nccl"):
+            ref[wire] = r
+        elif wire is not None:
+            row["bit_identical_to_pure_nccl"] = (
+                r["losses"] == ref[wire]["losses"])
+        if label.endswith("EF"):
+            row["residual_all_zero"] = all(
+                not bool(t.any()) for t in
+                r["optimizer"].state_dict()["residual"])
+            row["residual_shapes"] = [list(t.shape) for t in
+                                      r["optimizer"].state_dict()["residual"]]
+        if wire is None:
+            mine = dict(r["model"].named_parameters())
+            row["max_abs_param_diff_vs_fp32"] = max(
+                float((mine[k].detach() - p.detach()).abs().max())
+                for k, p in ref["float32"]["model"].named_parameters())
+        rows[label] = row
+        base = ref.get(wire or "float32")
+        bp50 = _p50_p99(base["ms"][TOPO_WARMUP:])
+        print(f"topology (a) {label}: losses {r['losses'][0]:.6f} -> "
+              f"{r['losses'][-1]:.6f}"
+              + (f", bit-identical to pure_nccl {wire}: "
+                 f"{row['bit_identical_to_pure_nccl']}"
+                 if "bit_identical_to_pure_nccl" in row else "")
+              + (f", max |dparam| vs pure_nccl fp32 "
+                 f"{row['max_abs_param_diff_vs_fp32']:.3e}"
+                 if wire is None else "")
+              + (f", residual all zero {row['residual_all_zero']} "
+                 f"shapes {row['residual_shapes']}"
+                 if "residual_all_zero" in row else "")
+              + f"; step ms p50 {p50:.3f} p99 {p99:.3f} (pure_nccl "
+              f"{wire or 'float32'}: {bp50[0]:.3f} / {bp50[1]:.3f}); calls "
+              f"a step {row['calls_per_step']}; K1/K2/K3 a step "
+              f"{row['launches_per_step']}; card {smi}", flush=True)
+        r.pop("optimizer")
+        if not label.startswith("pure_nccl") and wire is not None:
+            del r["model"]
+    del ref
+    torch.cuda.empty_cache()
+    print("topology (a) summary", json.dumps(rows), flush=True)
+    bad = [k for k, v in rows.items()
+           if v.get("bit_identical_to_pure_nccl") is False
+           or v.get("residual_all_zero") is False
+           or any(n != 6 for n in v["launches_per_step"].values())
+           or not all(math.isfinite(x) for x in v["losses"])]
+    local = rows["local SGD (sync every 2)"]["losses"][-1]
+    fp32 = rows["pure_nccl fp32"]["losses"][-1]
+    if not abs(local - fp32) <= TOPO_LOSS_TOL * abs(fp32):
+        bad.append("local SGD (sync every 2)")
+    if bad:
+        raise AssertionError(f"topology (a): {bad} failed: "
+                             f"{json.dumps({k: rows[k] for k in bad})}")
+    return rows
+
+
+class _BytesDist(_CountedDist):
+    """:class:`_CountedDist` that also adds up the bytes each call sends
+    from this rank, by the ring algorithms' counts: an all-reduce
+    ``2(n-1)/n`` of its buffer, a reduce-scatter ``(n-1)/n`` of its input,
+    an all-gather ``(n-1)/n`` of its output, an all-to-all ``(n-1)/n`` of
+    its input, a point-to-point transfer its tensors."""
+
+    def __enter__(self):
+        counts = super().__enter__()
+        self.sent = 0
+        dist = self.dist
+
+        def size(kw, args, at):
+            g = kw.get("group", args[at] if len(args) > at else None)
+            return dist.get_world_size(g)
+
+        def patch(name, nbytes):
+            inner = getattr(dist, name)
+
+            def call(*a, **k):
+                self.sent += nbytes(a, k)
+                return inner(*a, **k)
+            setattr(dist, name, call)
+
+        def nb(t):
+            return t.numel() * t.element_size()
+
+        patch("all_reduce", lambda a, k: 2 * (size(k, a, 2) - 1)
+              * nb(a[0]) // size(k, a, 2))
+        patch("reduce_scatter_tensor", lambda a, k: (size(k, a, 3) - 1)
+              * nb(a[1]) // size(k, a, 3))
+        patch("all_gather_into_tensor", lambda a, k: (size(k, a, 2) - 1)
+              * nb(a[0]) // size(k, a, 2))
+        patch("all_gather", lambda a, k: (size(k, a, 2) - 1) * nb(a[1]))
+        patch("all_to_all_single", lambda a, k: (size(k, a, 4) - 1)
+              * nb(a[1]) // size(k, a, 4))
+        patch("batch_isend_irecv", lambda a, k: sum(
+            nb(op.tensor) for op in a[0] if op.op is dist.isend))
+        return counts
+
+
+def _topo_expected_bytes(config, bucket_elems, n_params, step, n=4,
+                         n_intra=2):
+    """Bytes a step per rank of each (b) configuration's reduction by the
+    shapes (``bucket_elems``: each gradient bucket's elements), by the
+    ring counts of :class:`_BytesDist`."""
+    if config == "local SGD":
+        # a sync every 2 steps: one fp32 all-reduce of the parameters
+        return 2 * (n - 1) * 4 * n_params // n if step % 2 == 1 else 0
+    n_inter = n // n_intra
+    total = 0
+    for m in bucket_elems:
+        c1 = -(-m // n_intra)  # the intra shard, ceil-padded
+        if config == "two_dimensional bf16":
+            # rs(intra), ar(inter) of the shard, ag(intra): 2-byte elements
+            total += (2 * (n_intra - 1) * c1
+                      + 2 * 2 * (n_inter - 1) * c1 // n_inter
+                      + 2 * (n_intra - 1) * c1)
+        elif config == "two_level fp32":
+            total += (4 * (n_intra - 1) * c1
+                      + 2 * 4 * (n_inter - 1) * c1 // n_inter
+                      + 4 * (n_intra - 1) * c1)
+        elif config == "int8 flat EF":
+            # all-to-all of the int8 rows, all-gathers of the n scales,
+            # of the int8 shards and of the n stage-2 scales
+            c = -(-m // n)
+            total += 2 * (n - 1) * c + 2 * (n - 1) * 4
+        elif config == "int8 shard EF":
+            # fp32 rs(intra), the int8 wire on the shard over inter, fp32
+            # ag(intra)
+            c2 = -(-c1 // n_inter)
+            total += (2 * 4 * (n_intra - 1) * c1
+                      + 2 * (n_inter - 1) * c2 + 2 * (n_inter - 1) * 4)
+        else:
+            raise KeyError(config)
+    return total
+
+
+def _comm_child(tmp, rank):
+    """One rank of phase 19 (b): rank ``rank`` of ``TOPO_RANKS`` gloo
+    processes on the one card, the 2 x 2 layout (``mesh=``), phase 7's LM
+    at full width cut to ``TOPO_LAYERS`` layers, ``TOPO_RANK_STEPS`` AdamW
+    steps of this rank's own batch a configuration; each step's
+    parameters hashed and compared across the ranks; step 1's reduced
+    gradient against the fp32 mean of the ranks' local gradients over
+    the wire's bound; the reduction's calls and bytes a step; the
+    residual's shapes; stage 1's codes on the card against the CPU.
+    Exits non-zero when a check fails."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.examples.transformer.train_transformer_lm \
+        import pack_documents
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.optimizers import (
+        create_local_sgd,
+        create_multi_node_optimizer,
+    )
+    from chainermn_tpu_torch.parallel import collectives as C
+    from chainermn_tpu_torch.parallel.mesh import make_mesh
+    from chainermn_tpu_torch.parallel.reduction_schedule import (
+        bucket_partition,
+    )
+
+    tmp = Path(tmp)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/topo_store",
+                            rank=rank, world_size=TOPO_RANKS)
+    fa.load_kernel()
+    mesh = make_mesh(("inter", "intra"), (2, 2), device="cuda:0")
+    rng = np.random.default_rng(100 + rank)  # this rank's own data
+    batches = [tuple(torch.from_numpy(x).cuda()
+                     for x in pack_documents(rng, TOPO_B, TOPO_T))
+               for _ in range(TOPO_RANK_STEPS)]
+    out = {"rank": rank}
+    failed = []
+    configs = [
+        ("two_dimensional bf16", "two_dimensional",
+         {"allreduce_grad_dtype": "bfloat16"}, {}),
+        ("int8 flat EF", "hierarchical", {"allreduce_grad_dtype": "int8"},
+         {"error_feedback": True}),
+        ("int8 shard EF", "two_dimensional",
+         {"allreduce_grad_dtype": "int8"}, {"error_feedback": True}),
+        ("two_level fp32", "hierarchical", {},
+         {"reduction_schedule": "two_level"}),
+        ("local SGD", "hierarchical", {}, None)]
+    for label, name, ckw, okw in configs:
+        comm = create_communicator(name, backend="gloo", device="cuda:0",
+                                   mesh=mesh, **ckw)
+        from chainermn_tpu_torch.models import TransformerLM
+        from chainermn_tpu_torch.training import (
+            create_train_state,
+            make_train_step,
+        )
+
+        model = TransformerLM(seed=0, attention_fn=fa.flash_attention,
+                              num_layers=TOPO_LAYERS)
+        inner = _adamw(torch, model.parameters())
+        opt = (create_local_sgd(inner, comm, sync_every=2) if okw is None
+               else create_multi_node_optimizer(inner, comm, **okw))
+        params = [p for g in inner.param_groups for p in g["params"]]
+        n_params = sum(p.numel() for p in params)
+        seen = {}
+        stepper = opt.step
+        counter = _BytesDist()
+        inner_step = inner.step
+
+        def wrapped_step():
+            if "local" not in seen:  # step 1: the local gradients
+                seen["local"] = [p.grad.detach().float().clone()
+                                 for p in params]
+            with counter as calls:
+                stepper()
+            seen.setdefault("calls", []).append(
+                {k: v for k, v in calls.items() if v})
+            seen.setdefault("bytes", []).append(counter.sent)
+
+        def inner_wrapped(*a, **k):
+            if "reduced" not in seen:
+                seen["reduced"] = [p.grad.detach().float().clone()
+                                   for p in params]
+            return inner_step(*a, **k)
+
+        opt.step = wrapped_step
+        inner.step = inner_wrapped
+        state = create_train_state(model, opt, comm)
+        step = make_train_step(_packed_loss, opt, comm)
+        _reset_launches(fa)
+        hashes, losses, ms = [], [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            h = hashlib.sha256()
+            for p in params:
+                h.update(p.detach().cpu().contiguous().view(-1)
+                         .view(torch.uint8).numpy().tobytes())
+            hashes.append(h.hexdigest())
+        everyone = comm.allgather_obj(hashes)
+        # local SGD: equal after each sync (every 2nd step), apart between
+        synced = [s for s in range(TOPO_RANK_STEPS)
+                  if okw is not None or s % 2 == 1]
+        row = {"losses": losses, "ms": ms,
+               "params_equal_every_step": all(
+                   x[s] == everyone[0][s] for x in everyone for s in synced),
+               "params_equal_by_step": [
+                   all(x[s] == everyone[0][s] for x in everyone)
+                   for s in range(TOPO_RANK_STEPS)],
+               "calls_per_step": seen["calls"][-1],
+               "bytes_per_step": seen["bytes"],
+               "n_params": n_params,
+               "launches_per_step": {k: v / TOPO_RANK_STEPS
+                                     for k, v in fa.LAUNCHES.items()}}
+        if okw is not None:
+            flat_local = torch.cat([g.reshape(-1) for g in seen["local"]])
+            flat_red = torch.cat([g.reshape(-1) for g in seen["reduced"]])
+            total = comm.allreduce(flat_local, "sum")  # fp32, exact enough
+            mean = total / TOPO_RANKS
+            maxes = comm.allgather(flat_local.abs().max().reshape(1))
+            sum_abs = comm.allreduce(flat_local.abs(), "sum")
+            err = (flat_red - mean).abs()
+            if label.startswith("int8"):
+                # two roundings, each within half a code of its scale (the
+                # second's scale is the rounded sum's: 1% over the exact)
+                bound = ((maxes.sum() + total.abs().max()) / 254.0
+                         / TOPO_RANKS) * 1.01
+            elif "bf16" in label:
+                # the bf16 cast and the three sums' roundings, each within
+                # half a bf16 ulp (2^-8 of the magnitude)
+                bound = 2.0 ** -6 * sum_abs / TOPO_RANKS + 1e-30
+            else:  # fp32: sums in another order
+                bound = 2.0 ** -20 * sum_abs / TOPO_RANKS + 1e-30
+            row["step1_share_of_bound"] = float((err / bound).max())
+            row["step1_max_abs_err"] = float(err.max())
+            if row["step1_share_of_bound"] > TOPO_BOUND_SHARE:
+                failed.append(f"{label}: bound")
+        sizes = [p.numel() for p in params]
+        item = 2 if "bf16" in label else 4
+        buckets = [sum(sizes[i] for i in b) for b in bucket_partition(
+            list(range(len(params))), sizes, item)]
+        row["bucket_elements"] = buckets
+        row["expected_bytes_per_step"] = [
+            _topo_expected_bytes(label, buckets, n_params, s)
+            for s in range(TOPO_RANK_STEPS)]
+        row["wire_bytes_per_element"] = max(row["bytes_per_step"]) / n_params
+        if row["bytes_per_step"] != row["expected_bytes_per_step"]:
+            failed.append(f"{label}: bytes")
+        if okw and okw.get("error_feedback"):
+            res = opt.state_dict()["residual"]
+            row["residual_shapes"] = [list(t.shape) for t in res]
+            row["residual_elements_over_params"] = (
+                sum(t.numel() for t in res) / n_params)
+            if label == "int8 shard EF":
+                m = torch.cat([g.reshape(-1) for g in seen["local"]])
+                rows = C._rows(m, 4)
+                q_card, s_card = C.quantize_int8(rows)
+                q_cpu, s_cpu = C.quantize_int8(rows.cpu())
+                d = (q_card.cpu().int() - q_cpu.int()).abs()
+                row["stage1_codes_differing"] = int((d > 0).sum())
+                row["stage1_codes_max_diff"] = int(d.max())
+                row["stage1_codes"] = int(d.numel())
+                if row["stage1_codes_max_diff"] > 1:
+                    failed.append("stage-1 codes")
+        if not row["params_equal_every_step"]:
+            failed.append(f"{label}: params differ across ranks")
+        if any(v != TOPO_LAYERS for v in row["launches_per_step"].values()):
+            failed.append(f"{label}: launches")
+        out[label] = row
+        del model, inner, opt, state, seen
+        torch.cuda.empty_cache()
+    out["failed"] = failed
+    (tmp / f"topo_out{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    if failed:
+        print(f"topology (b) rank {rank} failed: {failed}: "
+              f"{json.dumps(out)}", file=sys.stderr, flush=True)
+        sys.exit(1)
+
+
+def phase_topology_ranks(torch, smi, tmp):
+    """Phase 19 (b): ``TOPO_RANKS`` processes on the one card (``python3
+    chip_smoke.py --comm-child DIR RANK``), CUDA tensors over gloo on the
+    2 x 2 layout; a failing rank fails the phase."""
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--comm-child",
+         str(tmp), str(r)]) for r in range(TOPO_RANKS)]
+    deadline = time.monotonic() + TOPO_CHILD_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    outs = [json.loads((tmp / f"topo_out{r}.json").read_text())
+            for r in range(TOPO_RANKS)
+            if (tmp / f"topo_out{r}.json").exists()]
+    print("topology (b) summary", json.dumps(outs), flush=True)
+    if len(outs) != TOPO_RANKS:
+        raise AssertionError(f"topology (b) ranks exited with {codes}")
+    for label in [k for k in outs[0] if k not in ("rank", "failed")]:
+        rows = [o[label] for o in outs]
+        r0 = rows[0]
+        print(f"topology (b) {label}, {TOPO_RANKS} ranks (2 x 2) over gloo "
+              f"on one card, {TOPO_LAYERS} layers, B {TOPO_B} x T {TOPO_T} "
+              f"a rank: params equal across ranks by step "
+              f"{r0['params_equal_by_step']}; losses per "
+              f"rank {[[round(x, 4) for x in r['losses']] for r in rows]}"
+              + (f"; step 1 reduced gradient vs the fp32 mean: "
+                 f"{[round(r['step1_share_of_bound'], 4) for r in rows]} of "
+                 f"the wire's bound (max |err| "
+                 f"{[r['step1_max_abs_err'] for r in rows]})"
+                 if "step1_share_of_bound" in r0 else "")
+              + f"; calls a step {r0['calls_per_step']}; bytes sent a step "
+              f"per rank {[r['bytes_per_step'] for r in rows]}"
+              + (f" (by the shapes {r0['expected_bytes_per_step']}, "
+                 f"{r0['wire_bytes_per_element']:.4f} bytes an element of "
+                 f"{r0['n_params']})" if "expected_bytes_per_step" in r0
+                 else "")
+              + (f"; residual shapes {r0['residual_shapes']} "
+                 f"({r0['residual_elements_over_params']:.4f} of the "
+                 f"parameters)" if "residual_shapes" in r0 else "")
+              + (f"; stage-1 codes card vs CPU: "
+                 f"{[r['stage1_codes_differing'] for r in rows]} of "
+                 f"{r0['stage1_codes']} differ, max "
+                 f"{[r['stage1_codes_max_diff'] for r in rows]} code"
+                 if "stage1_codes" in r0 else "")
+              + f"; K1/K2/K3 a step {r0['launches_per_step']}; step ms "
+              f"over gloo {[round(x, 1) for x in r0['ms']]}; card {smi}",
+              flush=True)
+    if any(codes):
+        raise AssertionError(f"topology (b) ranks exited with {codes}: "
+                             f"{[o['failed'] for o in outs]}")
+    return outs
+
+
+def _recorded_losses(mod):
+    """Wrap ``mod.make_train_step`` so every step's loss is recorded;
+    returns (losses, undo)."""
+    losses = []
+    orig = mod.make_train_step
+
+    def make(*a, **k):
+        step = orig(*a, **k)
+
+        def recorded(state, batch):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            return state, metrics
+
+        return recorded
+
+    mod.make_train_step = make
+    return losses, lambda: setattr(mod, "make_train_step", orig)
+
+
+def phase_topology_twins(torch, smi):
+    """Phase 19 (c): the twins' new flags on the card, one rank each: the
+    Transformer twin under two_dimensional with the int8 wire and error
+    feedback, and with ``--local-sgd 4``; the MNIST twin with
+    ``--reduction-schedule two_level``; the ImageNet twin (ResNet-50,
+    batch 64) with ``--optimizer lars`` and ``lamb``. Losses first ->
+    last, finite."""
+    from chainermn_tpu_torch.examples.imagenet import train_imagenet
+    from chainermn_tpu_torch.examples.mnist import train_mnist
+    from chainermn_tpu_torch.examples.transformer import train_transformer_lm
+
+    rows = {}
+    for label, mod, argv in (
+            ("transformer two_dimensional int8 EF", train_transformer_lm,
+             ["--communicator", "two_dimensional", "--allreduce-grad-dtype",
+              "int8", "--error-feedback", "--iterations",
+              str(TOPO_TWIN_ITERATIONS)]),
+            ("transformer local SGD 4", train_transformer_lm,
+             ["--local-sgd", "4", "--iterations",
+              str(TOPO_TWIN_ITERATIONS)]),
+            ("mnist two_level", train_mnist,
+             ["--reduction-schedule", "two_level", "--iterations",
+              str(TOPO_MNIST_ITERATIONS)]),
+            ("imagenet resnet50 lars", train_imagenet,
+             ["--optimizer", "lars", "--iterations",
+              str(TOPO_IMAGENET_ITERATIONS)]),
+            ("imagenet resnet50 lamb", train_imagenet,
+             ["--optimizer", "lamb", "--iterations",
+              str(TOPO_IMAGENET_ITERATIONS)])):
+        losses, undo = _recorded_losses(mod)
+        t0 = time.perf_counter()
+        try:
+            mod.main(argv)
+        finally:
+            undo()
+        rows[label] = {"losses": losses,
+                       "seconds": time.perf_counter() - t0}
+        print(f"topology (c) {label}: loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} over {len(losses)} iterations in "
+              f"{rows[label]['seconds']:.1f} s; card {smi}", flush=True)
+        if not (losses and all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"topology (c) {label}: {losses}")
+    return rows
+
+
 # ---------------------------------------------------------------- main
 
 #: the bf16 kernels whose tensor-core instructions are counted: K1-K3
@@ -5230,6 +5813,12 @@ def main() -> int:
         moe_ranks = phase_moe_ranks(torch, np, smi, Path(tmp))
     phase_moe_twin(torch, smi)
     print(f"phase 18: {time.perf_counter() - t18:.1f} s", flush=True)
+    t19 = time.perf_counter()
+    topo = phase_topology(torch, np, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_topo_") as tmp:
+        topo_ranks = phase_topology_ranks(torch, smi, Path(tmp))
+    phase_topology_twins(torch, smi)
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s", flush=True)
     import torch.distributed as dist
 
     dist.destroy_process_group()  # the training phases' one-rank group
@@ -5380,7 +5969,13 @@ def main() -> int:
                     {c: o[c]["launches"][key] for c in ("window", "zigzag")}
                     for o in seq_ranks],
                 "moe_lm_training_step_phase18a": moe["a"][
-                    "launches_per_step"][-1][key]},
+                    "launches_per_step"][-1][key],
+                "topology_lm_training_step_phase19a": {
+                    k: r["launches_per_step"][key]
+                    for k, r in topo.items()},
+                "topology_2layer_step_per_rank_phase19b": [
+                    {k: o[k]["launches_per_step"][key] for k in o
+                     if k not in ("rank", "failed")} for o in topo_ranks]},
             "max_abs_err": max(packed["max_abs_err"][e] for e in errs),
             "tolerance": packed["tolerance"],
             "ms": packed["ms"][key],
@@ -5429,5 +6024,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--moe-child"]:  # phase 18 (c)'s ranks
         sys.path.insert(0, str(ROOT))
         _moe_child(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--comm-child"]:  # phase 19 (b)'s ranks
+        sys.path.insert(0, str(ROOT))
+        _comm_child(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
     sys.exit(main())

@@ -1,6 +1,7 @@
 """The port's communicator at world size 1: ``'naive'`` (gloo on the CPU),
-the packed flat-buffer reduction, the wire dtype, and the names that are
-not ported or need the card."""
+the packed flat-buffer reduction, the wire dtype, the topology names
+over gloo, and the names and wires that need the card or are not
+ported."""
 
 import sys
 
@@ -77,8 +78,18 @@ def test_bcast_data_leaves_params_equal():
 @pytest.mark.parametrize("name", ["hierarchical", "two_dimensional",
                                   "single_node", "non_cuda_aware"])
 def test_queue_three_names_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3.2"):
-        create_communicator(name)
+    """The topology names are ported: over gloo on the CPU when asked
+    for it, at world size 1 one host and one rank; without the card they
+    raise rather than fall back from NCCL, and the 'auto' wire still
+    raises naming ROADMAP queue 8."""
+    comm = create_communicator(name, backend="gloo", device="cpu")
+    assert (comm.rank, comm.size, comm.inter_size, comm.intra_size) == (
+        0, 1, 1, 1)
+    with pytest.raises(RuntimeError, match="runs NCCL on a CUDA device"):
+        create_communicator(name, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 8"):
+        create_communicator(name, backend="gloo", device="cpu",
+                            allreduce_grad_dtype="auto")
 
 
 @pytest.mark.parametrize("name", ["pure_nccl", "xla", "flat"])
@@ -94,8 +105,12 @@ def test_nccl_names_need_the_card(name):
 def test_bad_names_and_wires_raise():
     with pytest.raises(ValueError, match="unknown communicator"):
         create_communicator("mpi")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3.3"):
-        create_communicator("naive", allreduce_grad_dtype="int8")
+    # the int8 wire is ported (exact at one rank); 'auto' is queue 8's
+    assert create_communicator(
+        "naive", allreduce_grad_dtype="int8").allreduce_grad_dtype == \
+        torch.int8
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 8"):
+        create_communicator("naive", allreduce_grad_dtype="auto")
     with pytest.raises(ValueError, match="allreduce_grad_dtype"):
         create_communicator("naive", allreduce_grad_dtype="float64")
     with pytest.raises(ValueError, match="gloo on CPU tensors"):

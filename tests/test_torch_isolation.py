@@ -75,7 +75,9 @@ def test_every_port_module_imports_with_jax_blocked():
                  "parallel.plan_specs", "parallel.plan",
                  "parallel.ring_attention", "parallel.ulysses",
                  "parallel.local_attention", "parallel.moe",
-                 "examples.moe.train_moe_mlp"):
+                 "examples.moe.train_moe_mlp",
+                 "communicators.xla_communicator",
+                 "parallel.reduction_schedule"):
         assert "chainermn_tpu_torch." + name in PORT_MODULES
     out = subprocess.run(
         [sys.executable, "-c", _BLOCK_AND_IMPORT, str(SMOKE), *PORT_MODULES],

@@ -231,9 +231,14 @@ def test_left_out_options_raise():
     with pytest.raises(ValueError, match="accum_steps"):
         make_train_step(_port_loss, adamw, comm, plan=object(),
                         accum_steps=2)
-    for kw in (dict(error_feedback=True), dict(reduction_schedule="flat")):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 3.3"):
-            create_multi_node_optimizer(adamw, comm, **kw)
+    # error feedback and the schedules are ported: EF needs the int8
+    # wire, and the 'auto' schedule names ROADMAP queue 8
+    with pytest.raises(ValueError, match="int8"):
+        create_multi_node_optimizer(adamw, comm, error_feedback=True)
+    assert create_multi_node_optimizer(
+        adamw, comm, reduction_schedule="flat").reduction_schedule == "flat"
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 8"):
+        create_multi_node_optimizer(adamw, comm, reduction_schedule="auto")
     with pytest.raises(ValueError, match="exactly the model's parameters"):
         create_train_state(tm, torch.optim.AdamW(tm.blocks.parameters()),
                            comm)

@@ -93,8 +93,9 @@ def test_both_twins_at_two_ranks():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--local-sgd", "4"], ["--outer-momentum", "0.5"], ["--error-feedback"],
-    ["--reduction-schedule", "flat"]])
+    ["--reduction-schedule", "auto"],
+    ["--reduction-schedule", "rs(data)>ag(data)"],
+    ["--allreduce-grad-dtype", "auto"]])
 def test_mnist_left_out_flags_exit_naming_their_roadmap_item(flag, capsys):
     with pytest.raises(SystemExit):
         train_mnist.main(MNIST + flag)
@@ -102,9 +103,9 @@ def test_mnist_left_out_flags_exit_naming_their_roadmap_item(flag, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--arch", "alex"], ["--arch", "vit_s16"], ["--optimizer", "lars"],
-    ["--local-sgd", "2"], ["--error-feedback"], ["--native-loader", "x.bin"],
-    ["--train-root", "data"], ["--remat"]])
+    ["--arch", "alex"], ["--arch", "vit_s16"], ["--native-loader", "x.bin"],
+    ["--train-root", "data"], ["--remat"],
+    ["--allreduce-grad-dtype", "auto"]])
 def test_imagenet_left_out_flags_exit_naming_their_roadmap_item(flag,
                                                                 capsys):
     with pytest.raises(SystemExit):

@@ -25,7 +25,9 @@ def test_example_twin_trains_to_a_finite_loss(mode, capsys):
             else "done (data-parallel)") in out
 
 
-@pytest.mark.parametrize("flag", [["--local-sgd", "4"], ["--error-feedback"]])
+@pytest.mark.parametrize("flag", [
+    ["--allreduce-grad-dtype", "auto"],
+    ["--communicator", "two_dimensional", "--allreduce-grad-dtype", "auto"]])
 def test_left_out_flags_exit_naming_their_roadmap_item(flag, capsys):
     with pytest.raises(SystemExit):
         train_transformer_lm.main(TINY + flag)

@@ -215,15 +215,30 @@ def test_zero_step_follows_a_load_between_steps(runs, n):
 
 
 def test_zero_compressed_wire_is_left_for_later():
+    """The compressed wire is ported (the JAX ``compress_dtype``): at one
+    rank a bf16 wire step equals AdamW on the bf16-rounded gradients,
+    bit for bit; the int8 wire has no scatter form and raises."""
     import functools
 
     import torch
 
+    from chainermn_tpu_torch.communicators import create_communicator
     from chainermn_tpu_torch.parallel.zero import zero_shard_optimizer
 
-    with pytest.raises(NotImplementedError, match="3.2"):
+    create_communicator("naive")  # the one-rank group
+    g = torch.tensor([0.1234567, -3.3333333, 7e-3])
+    p = torch.zeros(3, requires_grad=True)
+    ref = torch.zeros(3, requires_grad=True)
+    opt = zero_shard_optimizer(functools.partial(torch.optim.AdamW, lr=1e-3),
+                               [p], compress_dtype="bfloat16")
+    plain = torch.optim.AdamW([ref], lr=1e-3)
+    p.grad, ref.grad = g.clone(), g.to(torch.bfloat16).float()
+    opt.step()
+    plain.step()
+    assert torch.equal(p.detach(), ref.detach())
+    with pytest.raises(ValueError, match="int8"):
         zero_shard_optimizer(functools.partial(torch.optim.AdamW, lr=1e-3),
-                             [torch.zeros(3)], compress_dtype="bfloat16")
+                             [torch.zeros(3)], compress_dtype="int8")
 
 
 def test_zero_plan_surface_is_left_for_the_plan():
