@@ -8,7 +8,8 @@ ranks on this host) and ``inter_rank``/``inter_size`` (the hosts), from
 one hostname exchange; ``grad_axes``, the groups gradients are averaged
 over (this group; ``('inter', 'intra')`` under the hierarchical
 communicators of :mod:`~chainermn_tpu_torch.communicators.
-xla_communicator`).
+xla_communicator`), and ``axis_names``/``axis_groups``, the same axes by
+name (``('data',)`` here), which composed reduction schedules spell.
 
 The model calls: ``bcast_data`` and ``allreduce_grad`` with the
 compressed wire (``allreduce_grad_dtype`` ``'bfloat16'``/``'float16'``,
@@ -245,10 +246,28 @@ class CommunicatorBase:
         return len(set(self._host_names()))
 
     @property
+    def axis_groups(self):
+        """The axes gradients are averaged over, by name, bound to their
+        groups (a :class:`~chainermn_tpu_torch.parallel.collectives.
+        AxisGroups`): the names a composition's stages speak. Here one
+        ``'data'`` axis, this communicator's group, as the JAX
+        communicator's ``grad_axes`` names it."""
+        from chainermn_tpu_torch.parallel.collectives import AxisGroups
+
+        return AxisGroups(("data",), (self.group,))
+
+    @property
+    def axis_names(self) -> tuple:
+        """The names of :attr:`axis_groups`, in mesh order."""
+        return self.axis_groups.names
+
+    @property
     def grad_axes(self) -> tuple:
-        """The groups gradients are averaged over, merged (here: this
-        communicator's group)."""
-        return (self.group,)
+        """:attr:`axis_groups`' groups merged in mesh order (a
+        :class:`~chainermn_tpu_torch.parallel.collectives.MergedAxes`
+        with their product, this communicator's group, when there are
+        several)."""
+        return self.axis_groups.merged(self.axis_names)
 
     #: ``(intra, inter)`` groups of a pinned two-level reduction, or None
     two_level_axes = None

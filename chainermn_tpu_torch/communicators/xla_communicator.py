@@ -9,11 +9,15 @@ The ranks are laid out on two axes, ``('inter', 'intra')``. By default
 must be contiguous and equal in number. ``mesh=`` — a 2-D
 ``DeviceMesh`` (:func:`~chainermn_tpu_torch.parallel.mesh.make_mesh`
 over ``('inter', 'intra')``) that lays out this communicator's ranks
-row-major — sets the layout instead, so a 2 x 2 layout runs on one host.
-``grad_axes`` is the two axes' groups with their product, this
-communicator's group
+row-major — sets the layout instead, so a 2 x 2 layout runs on one host;
+``hierarchical`` takes a mesh of any number of axes (``inter`` is then
+every axis but the last, merged). ``grad_axes`` is the axes' groups with
+their product, this communicator's group
 (:class:`~chainermn_tpu_torch.parallel.collectives.MergedAxes`), so a
-reduction over both axes is one call.
+reduction over all of them is one call; ``axis_groups`` names them (the
+mesh's dim names, or ``('inter', 'intra')``) and carries the product
+group of every other set of axes, made at construction, which the
+composed reduction schedules run their merged stages on.
 
 Transport: NCCL on the card by default. gloo only when the caller asks
 for it (``backend='gloo'``): on the CPU (``device='cpu'``, as the CPU
@@ -59,13 +63,22 @@ class HierarchicalCommunicator(CommunicatorBase):
         super().__init__(backend, packed=True,
                          allreduce_grad_dtype=allreduce_grad_dtype,
                          device=device)
+        names = ("inter", "intra")
         if mesh is not None:
             axes = self._mesh_axes(mesh)
-        elif self.size == 1:
-            axes = (self.group, self.group)
+            names = tuple(mesh.mesh_dim_names
+                          or (f"a{i}" for i in range(mesh.ndim)))
+            # the group over every other set of axes, made here on every
+            # rank in one order (a group made inside a step deadlocks the
+            # moment two ranks bind different compositions)
+            products = C.product_groups(
+                mesh.mesh.cpu().numpy(), names, backend=self.backend,
+                known={names: self.group})
         else:
-            axes = self._host_axes()
-        self._axes = C.MergedAxes(axes, self.group)
+            axes = (self._host_axes() if self.size > 1
+                    else (self.group, self.group))
+            products = {names: self.group}
+        self._axis_groups = C.AxisGroups(names, axes, products)
 
     def _mesh_axes(self, mesh) -> tuple:
         """The axis groups of ``mesh``, checked against this
@@ -110,26 +123,29 @@ class HierarchicalCommunicator(CommunicatorBase):
         return inter, intra
 
     @property
-    def grad_axes(self) -> tuple:
-        """The axis groups, ``(inter, intra)`` (a mesh's, in its order),
-        merged: their product is this communicator's group."""
-        return self._axes
+    def axis_groups(self):
+        """The axes by name (``('inter', 'intra')``, or the ``mesh=``'s
+        dim names) with their groups and the product group of every set
+        of them (made at construction)."""
+        return self._axis_groups
 
     @property
     def inter_rank(self) -> int:
-        return dist.get_rank(self._axes[0])
+        """This rank's row-major index over every axis but the last."""
+        return C.axes_index(self.grad_axes[:-1])
 
     @property
     def inter_size(self) -> int:
-        return dist.get_world_size(self._axes[0])
+        """The ranks of every axis but the last, merged."""
+        return C.axes_size(self.grad_axes[:-1])
 
     @property
     def intra_rank(self) -> int:
-        return dist.get_rank(self._axes[-1])
+        return dist.get_rank(self.grad_axes[-1])
 
     @property
     def intra_size(self) -> int:
-        return dist.get_world_size(self._axes[-1])
+        return dist.get_world_size(self.grad_axes[-1])
 
 
 class TwoDimensionalCommunicator(HierarchicalCommunicator):
@@ -144,17 +160,17 @@ class TwoDimensionalCommunicator(HierarchicalCommunicator):
 
     def __init__(self, **kwargs) -> None:
         super().__init__(**kwargs)
-        if len(self._axes) != 2:
+        if len(self.axis_names) != 2:
             raise ValueError(
                 "two_dimensional requires a 2-axis (inter, intra) layout; "
-                f"got {len(self._axes)} axes")
+                f"got {len(self.axis_names)} axes")
 
     @property
     def two_level_axes(self) -> tuple:
         """``(intra, inter)`` groups of the pinned two-level reduction:
         the int8 wire rounds only at the inter stage, so error feedback
         keeps its residual at shard shape."""
-        inter, intra = self._axes
+        inter, intra = self.grad_axes
         return intra, inter
 
     def _reduce(self, grads: list, wire) -> None:
@@ -166,7 +182,7 @@ class TwoDimensionalCommunicator(HierarchicalCommunicator):
         self._two_level(grads, torch.int8)
 
     def _two_level(self, grads: list, wire) -> None:
-        means = reduce_tree(grads, schedule="two_level", axes=self._axes,
+        means = reduce_tree(grads, schedule="two_level", axes=self,
                             compress_dtype=wire,
                             bucket_bytes=self.bucket_bytes)
         for g, m in zip(grads, means):

@@ -24,10 +24,12 @@ JAX example's choice names run unchanged)::
 
 ``--local-sgd H`` averages the parameters every H steps instead of
 reducing the gradients each step (``--outer-momentum``: DiLoCo's outer
-heavy-ball momentum); ``--reduction-schedule flat|two_level|zero`` pins
-the gradient reduction; ``--error-feedback`` feeds the int8 wire's
-rounding back (``--allreduce-grad-dtype int8``). ``--reduction-schedule
-auto`` and composition signatures raise, naming ROADMAP queue 8 and 6.7.
+heavy-ball momentum); ``--reduction-schedule flat|two_level|zero`` or a
+composition signature over the communicator's axes (``'rs(data)>ag(data)'``,
+sliced ``'rs(data)[s0..3]>ag(data)'``; ``inter``/``intra`` under the
+topology communicators) pins the gradient reduction; ``--error-feedback``
+feeds the int8 wire's rounding back (``--allreduce-grad-dtype int8``).
+``--reduction-schedule auto`` exits naming ROADMAP queue 8.
 """
 
 from __future__ import annotations
@@ -99,7 +101,9 @@ def _parser():
     p.add_argument("--allreduce-grad-dtype", default=None)
     p.add_argument("--reduction-schedule", default=None, metavar="SCHED",
                    help="gradient-reduction schedule: flat | two_level | "
-                        "zero; default: the communicator's own strategy")
+                        "zero | a composition signature, e.g. "
+                        "'rs(data)[s0..3]>ag(data)'; default: the "
+                        "communicator's own strategy")
     p.add_argument("--error-feedback", action="store_true",
                    help="EF-SGD residual feedback over the int8 wire "
                         "(requires --allreduce-grad-dtype int8)")
@@ -175,9 +179,9 @@ def main(argv=None):
         if bad:
             p.error(f"--local-sgd replaces the per-step gradient wire; "
                     f"{', '.join(bad)} would be silently ignored")
-    try:  # 'auto' and the composed spellings: ROADMAP queue 8 and 6.7
+    try:  # 'auto' is ROADMAP queue 8's; a signature must parse
         check_schedule(args.reduction_schedule)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         p.error(str(e))
     device = resolve_device(args.device)
     try:
@@ -200,10 +204,13 @@ def main(argv=None):
         optimizer = create_local_sgd(inner, comm, sync_every=args.local_sgd,
                                      outer_momentum=args.outer_momentum)
     else:
-        optimizer = create_multi_node_optimizer(
-            inner, comm, double_buffering=args.double_buffering,
-            error_feedback=args.error_feedback,
-            reduction_schedule=args.reduction_schedule)
+        try:  # a refused composition (a sharded update, the int8 wire)
+            optimizer = create_multi_node_optimizer(
+                inner, comm, double_buffering=args.double_buffering,
+                error_feedback=args.error_feedback,
+                reduction_schedule=args.reduction_schedule)
+        except ValueError as e:
+            p.error(str(e))
     state = create_train_state(model, optimizer, comm)
     step = make_train_step(loss_fn, optimizer, comm)
     evaluator = create_multi_node_evaluator(

@@ -14,14 +14,20 @@ ranks, then steps the inner optimizer. How it averages:
   (``allreduce_grad_dtype='int8'``) the two-phase quantized all-reduce
   per gradient, per bucket under ``'two_dimensional'`` (the scales
   follow that layout, so the int8 wire never rides the packed buffer);
-- ``reduction_schedule='flat'`` or ``'two_level'``: the bucketed
-  schedules of :func:`~chainermn_tpu_torch.parallel.reduction_schedule.
-  reduce_tree` over the communicator's ``grad_axes``;
-- ``reduction_schedule='zero'``: reduce-scatter, the inner optimizer on
-  this rank's 1/n chunk of every parameter, all-gather, through
-  :class:`~chainermn_tpu_torch.parallel.zero.ZeroShardOptimizer` over the
-  last (intra) axis (the inner optimizer is rebuilt over the chunks with
-  its defaults; it must be element-wise);
+- ``reduction_schedule='flat'``, ``'two_level'``, a composition
+  signature (``'rs(intra)>rs(inter)>ag(inter)>ag(intra)'``, sliced
+  ``'rs(data)[s0..3]>ag(data)'``) or a ``Composition`` over the
+  communicator's ``axis_names``, validated at construction: the
+  bucketed schedules of :func:`~chainermn_tpu_torch.parallel.
+  reduction_schedule.reduce_tree` over the communicator's axes. A
+  composition with a sharded update is refused (spell it ``'zero'``);
+- ``reduction_schedule='zero'``: ``zero_composition(axes)``, split at
+  its sharded update: reduce-scatter over the last (intra) axis and
+  all-reduce over the others (the prefix), the inner optimizer on this
+  rank's 1/n chunk of every parameter, all-gather (the suffix), through
+  :class:`~chainermn_tpu_torch.parallel.zero.ZeroShardOptimizer` (the
+  inner optimizer is rebuilt over the chunks with its defaults; it must
+  be element-wise);
 - ``error_feedback=True`` (the int8 wire only): EF-SGD. The flat form
   adds a per-rank fp32 residual shaped as the parameters into each
   ~64 MB bucket's message and keeps what its stage-1 quantization
@@ -41,8 +47,8 @@ per-rank files keep for each rank.
 parameter average every ``sync_every`` steps, folded through an outer
 heavy-ball step from the last sync's anchor (DiLoCo).
 
-Left for later: ``reduction_schedule='auto'`` (ROADMAP queue 8) and
-composed schedules (queue 6.7), each raising.
+Left for later: ``reduction_schedule='auto'`` (ROADMAP queue 8),
+raising.
 
 :func:`inner_transform` unwraps a wrapper into the factory of its inner
 optimizer, which a :class:`~chainermn_tpu_torch.parallel.plan.
@@ -60,10 +66,12 @@ from chainermn_tpu_torch.communicators.base import (
     _wire_dtype,
 )
 from chainermn_tpu_torch.parallel import collectives as C
+from chainermn_tpu_torch.parallel.composition import Composition
 from chainermn_tpu_torch.parallel.reduction_schedule import (
     DEFAULT_BUCKET_BYTES,
     bucket_partition,
     check_schedule,
+    int8_rendering,
     reduce_tree,
 )
 
@@ -82,7 +90,7 @@ class MultiNodeOptimizer:
                  double_buffering: bool = False, compress_dtype=None,
                  error_feedback: bool = False,
                  reduction_schedule=None) -> None:
-        check_schedule(reduction_schedule)
+        schedule = check_schedule(reduction_schedule, communicator)
         self.actual_optimizer = actual_optimizer
         self.communicator = communicator
         self.double_buffering = double_buffering
@@ -92,6 +100,11 @@ class MultiNodeOptimizer:
                                if compress_dtype is None
                                else _wire_dtype(compress_dtype))
         int8 = self.compress_dtype == torch.int8
+        if isinstance(schedule, Composition) and schedule.has_update:
+            raise ValueError(
+                f"reduction_schedule composition {schedule.signature()!r} "
+                "carries a sharded_update stage — spell the structural "
+                "form as reduction_schedule='zero'")
         self.error_feedback = error_feedback
         if error_feedback and not int8:
             raise ValueError(
@@ -103,7 +116,10 @@ class MultiNodeOptimizer:
                 "error_feedback owns its reduction (the flat or the "
                 "communicator's topology-aware quantized wire): "
                 f"reduction_schedule={reduction_schedule!r} cannot compose")
-        if reduction_schedule == "zero":
+        if int8 and isinstance(schedule, Composition):
+            # refuses what the two-phase wire cannot render
+            int8_rendering(schedule, communicator.axis_groups)
+        if schedule == "zero":
             if double_buffering:
                 raise ValueError(
                     "reduction_schedule='zero' cannot compose with "
@@ -115,14 +131,19 @@ class MultiNodeOptimizer:
                     "(its reduce-scatter sums raw chunks; the two-phase "
                     "quantized scheme has no scatter form): use bf16 "
                     "compression or the flat/two_level schedules")
+        #: the schedule as given
         self.reduction_schedule = reduction_schedule
+        #: what the step runs through ``reduce_tree``: the schedule
+        #: compiled into a validated Composition (None for the
+        #: communicator's own reduction and for ``'zero'``)
+        self._comp = schedule if isinstance(schedule, Composition) else None
         #: the buckets of the schedules and of error feedback
         self.bucket_bytes = getattr(communicator, "bucket_bytes",
                                     DEFAULT_BUCKET_BYTES)
         #: the gradients reduced at the previous step (double buffering)
         self._bank = None
         self._residual = self._init_residual() if error_feedback else None
-        if reduction_schedule == "zero":
+        if schedule == "zero":
             self.actual_optimizer = self._zero_wrapper(actual_optimizer)
 
     def _params(self) -> list:
@@ -133,21 +154,23 @@ class MultiNodeOptimizer:
 
     def _zero_wrapper(self, inner: torch.optim.Optimizer):
         """The :class:`~chainermn_tpu_torch.parallel.zero.
-        ZeroShardOptimizer` of the ``'zero'`` schedule: chunks over the
-        last grad axis, the others' all-reduce after its scatter, the
-        inner optimizer rebuilt over the chunks with its defaults."""
+        ZeroShardOptimizer` of the ``'zero'`` schedule, the groups of
+        ``zero_composition(axes)`` (``rs(fast) > ar(rest) > su >
+        ag(fast)``): chunks over the last axis, the others' all-reduce
+        after its scatter, the inner optimizer rebuilt over the chunks
+        with its defaults."""
         from chainermn_tpu_torch.parallel.zero import ZeroShardOptimizer
 
         if len(inner.param_groups) != 1:
             raise ValueError(
                 "reduction_schedule='zero' rebuilds the inner optimizer "
                 "over its chunks with its defaults: give it one param group")
-        axes = C._axes(self.communicator.grad_axes)
-        rest = axes[:-1]
-        extra = C._merged(rest) if rest else None
+        ag = self.communicator.axis_groups
+        fast, rest = ag.names[-1], ag.names[:-1]
+        extra = C._merged(ag.merged(rest)) if rest else None
         params = list(inner.param_groups[0]["params"])
-        return ZeroShardOptimizer(inner_transform(inner), params, axes[-1],
-                                  extra_group=extra,
+        return ZeroShardOptimizer(inner_transform(inner), params,
+                                  ag.groups[fast], extra_group=extra,
                                   compress_dtype=self.compress_dtype)
 
     # -- error feedback ------------------------------------------------
@@ -218,11 +241,11 @@ class MultiNodeOptimizer:
         comm = self.communicator
         if self.error_feedback:
             self._reduce_with_feedback(params)
-        elif self.reduction_schedule in ("flat", "two_level"):
+        elif self._comp is not None:
             grads = comm._grads(params)
             for g, m in zip(grads, reduce_tree(
-                    grads, schedule=self.reduction_schedule,
-                    axes=comm.grad_axes, compress_dtype=self.compress_dtype,
+                    grads, schedule=self._comp,
+                    axes=comm, compress_dtype=self.compress_dtype,
                     bucket_bytes=self.bucket_bytes)):
                 g.copy_(m)
         else:
@@ -574,7 +597,8 @@ def create_multi_node_optimizer(actual_optimizer: torch.optim.Optimizer,
     (``create_multi_node_optimizer(opt, comm, double_buffering)``);
     ``error_feedback=True`` needs ``allreduce_grad_dtype='int8'`` (here or
     on the communicator), ``reduction_schedule`` is ``'flat'``,
-    ``'two_level'`` or ``'zero'``."""
+    ``'two_level'``, ``'zero'``, a composition signature or a
+    ``Composition``."""
     return MultiNodeOptimizer(
         actual_optimizer, communicator, double_buffering=double_buffering,
         compress_dtype=allreduce_grad_dtype, error_feedback=error_feedback,

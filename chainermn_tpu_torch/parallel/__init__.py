@@ -8,11 +8,12 @@ heterogeneous) and 1F1B (:mod:`.pipeline`), the ParallelPlan and its
 spec layer (:mod:`.plan`, :mod:`.plan_specs`), sequence parallelism:
 ring attention (:mod:`.ring_attention`), Ulysses (:mod:`.ulysses`) and
 sliding-window attention (:mod:`.local_attention`), expert
-parallelism (:mod:`.moe`), and the gradient-reduction schedules
+parallelism (:mod:`.moe`), the gradient-reduction schedules
 (:mod:`.reduction_schedule`; the two-level, staged and int8 wires they
-run on are in :mod:`.collectives`). The rest of the JAX package's ``parallel/``
-(the composition and cost model, the async host plane) is ROADMAP queue
-1, items 6.7-6.8."""
+run on are in :mod:`.collectives`), the composition DSL and its executor
+(:mod:`.composition`), the α–β cost model of composed schedules
+(:mod:`.cost_model`) and the background-thread staleness-1 reducer
+(:mod:`.async_host`)."""
 
 from chainermn_tpu_torch.parallel.collectives import (
     allgather,
@@ -27,6 +28,20 @@ from chainermn_tpu_torch.parallel.collectives import (
     reduce_scatter,
     scatter,
     shift,
+)
+from chainermn_tpu_torch.parallel.async_host import AsyncHostGradReducer
+from chainermn_tpu_torch.parallel.composition import (
+    Composition,
+    CompositionError,
+    Stage,
+    compile_schedule,
+    derive_compositions,
+    parse_signature,
+    predicted_collectives,
+    reduce_composed,
+    schedule_candidates,
+    validate_composition,
+    zero_composition,
 )
 from chainermn_tpu_torch.parallel.fsdp import (
     create_fsdp_train_state,
@@ -81,6 +96,7 @@ from chainermn_tpu_torch.parallel.plan_specs import (
 )
 from chainermn_tpu_torch.parallel.reduction_schedule import (
     SCHEDULES,
+    MeasuredComposedReducer,
     OverlappedBucketReducer,
     bucket_partition,
     reduce_tree,
@@ -119,9 +135,14 @@ from chainermn_tpu_torch.parallel.zero import (
     zero_state_specs,
 )
 
-__all__ = ["AxisSpec", "CANONICAL_AXES", "MeshTopology",
-           "OverlappedBucketReducer", "ParallelPlan", "PipelinePlanSpec",
-           "PlanTrainState", "SCHEDULES", "ZeroShardOptimizer",
+__all__ = ["AsyncHostGradReducer", "AxisSpec", "CANONICAL_AXES",
+           "Composition", "CompositionError", "MeasuredComposedReducer",
+           "MeshTopology", "OverlappedBucketReducer", "ParallelPlan",
+           "PipelinePlanSpec", "PlanTrainState", "SCHEDULES", "Stage",
+           "ZeroShardOptimizer", "compile_schedule", "derive_compositions",
+           "parse_signature", "predicted_collectives", "reduce_composed",
+           "schedule_candidates", "validate_composition",
+           "zero_composition",
            "allgather", "allreduce", "alltoall", "axes_bound", "axis_index",
            "axis_size_of", "bcast", "best_mesh_shape", "bucket_partition",
            "column_parallel_dense", "copy_to_tp", "create_fsdp_train_state",

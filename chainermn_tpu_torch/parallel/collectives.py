@@ -49,7 +49,10 @@ radix-tree broadcast of ``ceil(log_radix n)`` rounds), and the int8 wires
 with their error-feedback forms (per-member stage-1 scales, a per-shard
 stage-2 scale; at n == 1 the value itself, unrounded). These are XLA ops
 in the JAX package, so torch ops and ``torch.distributed`` calls here; a
-gloo group moves CUDA tensors through host copies.
+gloo group moves CUDA tensors through host copies. The composed
+schedules name their axes: an :class:`AxisGroups` binds mesh axis names
+to their groups and to the product group of every set of them
+(:func:`product_groups`, made with the mesh).
 
 Left for later, raising ``NotImplementedError`` that names ROADMAP
 queue 8 (the tuning registry): the tuned bucket size and wire.
@@ -57,8 +60,10 @@ queue 8 (the tuning registry): the tuned bucket size and wire.
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
@@ -447,6 +452,109 @@ class MergedAxes(tuple):
         return self
 
 
+class AxisGroups:
+    """Mesh axis names bound to this rank's process groups, the names a
+    composition's stages speak (``rs(intra)``, ``ar(a0+a1)``): ``names``
+    in mesh order (slow first, fast last), the group of each axis through
+    this rank, and ``products``, the group over each set of two or more
+    axes (the ranks that share this rank's coordinates on every other
+    axis). Group creation is collective, so every product group is made
+    with the mesh, on every rank in one order (:func:`product_groups`),
+    never inside a step. torch numbers a group's ranks by their
+    default-group ranks, so rank ``i`` of a product group is the rank at
+    row-major position ``i`` over its axes in MESH order."""
+
+    def __init__(self, names, groups, products=None) -> None:
+        self.names = tuple(names)
+        groups = tuple(groups)
+        if len(set(self.names)) != len(self.names) or len(groups) != len(
+                self.names):
+            raise ValueError(f"axis names {self.names} must be distinct, one "
+                             f"for each of the {len(groups)} groups")
+        self.groups = dict(zip(self.names, (_norm(g) for g in groups)))
+        self.products = {frozenset(k): _norm(g)
+                         for k, g in (products or {}).items()}
+
+    def ordered(self, axes) -> tuple:
+        """``axes`` (names) in mesh order; raises on a name not on it."""
+        bad = [a for a in axes if a not in self.groups]
+        if bad:
+            raise ValueError(f"axes {bad} are not on the mesh {self.names}")
+        return tuple(sorted(axes, key=self.names.index))
+
+    def merged(self, axes) -> tuple:
+        """The groups of ``axes`` merged in mesh order: a 1-tuple for one
+        axis, else a :class:`MergedAxes` carrying their product group."""
+        ordered = self.ordered(axes)
+        groups = [self.groups[a] for a in ordered]
+        if len(ordered) == 1:
+            return tuple(groups)
+        key = frozenset(ordered)
+        if key not in self.products:
+            raise ValueError(f"no product group over {ordered} was made with "
+                             f"the mesh {self.names}")
+        return MergedAxes(groups, self.products[key])
+
+    def size(self, axes) -> int:
+        """The number of ranks of ``axes`` merged."""
+        n = 1
+        for a in self.ordered(axes):
+            n *= dist.get_world_size(self.groups[a])
+        return n
+
+    def sizes(self) -> dict:
+        """``{name: size}`` of every axis."""
+        return {a: dist.get_world_size(g) for a, g in self.groups.items()}
+
+
+def product_groups(ranks, names, *, backend=None, known=None) -> dict:
+    """``{frozenset(axes): group}``: the group through this rank over each
+    set of two or more of the axes ``names`` of ``ranks`` (an array of
+    default-group ranks in the mesh's shape), but the sets ``known``
+    already has (passed through). Every rank calls it, with the same
+    arguments: each set's groups are made in one fixed order."""
+    ranks = np.asarray(ranks)
+    names = tuple(names)
+    me = dist.get_rank()
+    out = {frozenset(k): g for k, g in (known or {}).items()}
+    k = len(names)
+    for n_axes in range(2, k + 1):
+        for combo in itertools.combinations(range(k), n_axes):
+            key = frozenset(names[i] for i in combo)
+            if key in out:
+                continue
+            rest = [i for i in range(k) if i not in combo]
+            mine = None
+            for fixed in itertools.product(*(range(ranks.shape[i])
+                                             for i in rest)):
+                index = [slice(None)] * k
+                for i, c in zip(rest, fixed):
+                    index[i] = c
+                members = sorted(int(r) for r in
+                                 ranks[tuple(index)].reshape(-1))
+                g = dist.new_group(members, backend=backend)
+                if me in members:
+                    mine = g
+            out[key] = mine
+    return out
+
+
+def axis_groups_of(axes) -> AxisGroups:
+    """``axes`` as an :class:`AxisGroups`: itself, a communicator's
+    (``comm.axis_groups``), or a group or tuple of groups named by
+    position ``('a0', 'a1', ...)`` (a :class:`MergedAxes` brings its
+    product group)."""
+    if isinstance(axes, AxisGroups):
+        return axes
+    if isinstance(axes, CommunicatorBase):
+        return axes.axis_groups
+    groups = _axes(axes)
+    names = tuple(f"a{i}" for i in range(len(groups)))
+    products = ({frozenset(names): groups.product}
+                if isinstance(groups, MergedAxes) else {})
+    return AxisGroups(names, groups, products)
+
+
 def _merged(axes: tuple):
     """The one group that spans the merged ``axes``: a single axis, or
     the product a :class:`MergedAxes` carries."""
@@ -785,14 +893,15 @@ resolve_allreduce_wire = _later("resolve_allreduce_wire", _TUNED)
 LEFT_OUT = ("tuned_bucket_bytes", "resolve_allreduce_wire")
 
 
-__all__ = ["LEFT_OUT", "MergedAxes", "allgather", "allreduce", "alltoall",
-           "as_group", "axes_bound", "axes_index", "axes_size",
+__all__ = ["AxisGroups", "LEFT_OUT", "MergedAxes", "allgather", "allreduce",
+           "alltoall", "as_group", "axes_bound", "axes_index", "axes_size",
+           "axis_groups_of",
            "axis_index", "axis_size_of", "bcast", "decomposed_allreduce",
            "gather", "int8_allreduce_mean",
            "int8_allreduce_mean_with_feedback",
            "int8_decomposed_allreduce_mean", "int8_two_level_allreduce_mean",
            "int8_two_level_allreduce_mean_with_feedback", "ppermute",
-           "quantize_int8", "reduce_scatter",
+           "product_groups", "quantize_int8", "reduce_scatter",
            "resolve_allreduce_wire", "scatter", "shift",
            "staged_allgather", "staged_allreduce", "staged_broadcast",
            "staged_reduce_scatter", "tuned_bucket_bytes",

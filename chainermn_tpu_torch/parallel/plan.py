@@ -62,10 +62,17 @@ JAX's donation becomes the in-place update: a step returns the same
 tensor objects and allocates no new state. JAX's jit-cache pin has no
 counterpart.
 
+``grad_reduction=`` drives the plain groups' data-parallel gradient
+reduction by a composition over the dp axes (a menu name, a signature or
+a ``Composition``), run by :func:`~chainermn_tpu_torch.parallel.
+composition.reduce_composed_tree`: ``ar(all)`` is the reduction without
+it, call for call; any other composition reduces each leaf through its
+stages, and reports its calls as the ``data`` axis's owed collectives
+(:func:`~chainermn_tpu_torch.parallel.plan_specs.composition_collectives`).
+
 Left for later, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``grad_reduction=`` (6.7: ``composition.py``), and
-``seq_attention(impl='auto')`` and ``moe_layer(impl='auto')`` (item 8:
-the tuning registry).
+item: ``seq_attention(impl='auto')`` and ``moe_layer(impl='auto')``
+(item 8: the tuning registry).
 """
 
 from __future__ import annotations
@@ -188,7 +195,11 @@ class ParallelPlan:
         group sits at the row-major position ``r`` of the mesh.
       device: the ranks' device (``None``: the CUDA card, raising without
         one; the CPU tests pass ``'cpu'``).
-      grad_reduction: not ported (ROADMAP queue 1, item 6.7).
+      grad_reduction: the schedule of the non-ZeRO groups' dp gradient
+        reduction: a menu name, a composition signature or a
+        ``Composition`` over exactly the plan's dp axes (``data`` [+
+        ``zero``]), validated here; a sharded update is refused (that is
+        the ``zero`` axis's job). ``None`` keeps the packed mean.
       zero_stacked_groups: chunk the STACKED groups' optimizer state over
         the ``zero`` axis too. Needs a ``zero`` axis and a stacked axis.
 
@@ -246,9 +257,30 @@ class ParallelPlan:
                                  "are mutually exclusive: the stacked "
                                  "groups' reduction IS the zero composition "
                                  "(rs > ar > update > ag)")
+        self._grad_comp = None
         if grad_reduction is not None:
-            raise _later("ParallelPlan(grad_reduction=) (the composed "
-                         "gradient reduction, composition.py)", "6.7")
+            from chainermn_tpu_torch.parallel.composition import (
+                compile_schedule,
+            )
+
+            if not self.dp_axes:
+                raise ValueError(
+                    "grad_reduction= needs a data-parallel axis "
+                    "('data'/'zero') to reduce over; this plan has none")
+            comp = compile_schedule(grad_reduction, self.dp_axes)
+            if comp.has_update:
+                raise ValueError(
+                    f"grad_reduction composition {comp.signature()!r} "
+                    "carries a sharded_update stage — the sharded update "
+                    "is the 'zero' AXIS's job (add zero to the plan's "
+                    "axes); grad_reduction takes pure reductions")
+            self._grad_comp = comp
+            # the composition is the data axis's spec provider; the zero
+            # axis keeps its own entry (its groups' rs/ag are its job)
+            owed = _ps.composition_collectives(comp)
+            if "data" in owed and "data" in self.axes:
+                self.axes["data"] = dataclasses.replace(
+                    self.axes["data"], collectives=owed["data"])
         self.mesh = make_mesh(tuple(self.axes), shape, self.device)
         self.shape = shape
         self.coords = dict(zip(self.axes, np.unravel_index(
@@ -262,6 +294,10 @@ class ParallelPlan:
         for combo in dict.fromkeys((dp, dp + sq, dp + ex, dp + sq + ex)):
             if len(combo) > 1:
                 self._groups[combo] = self._new_group(combo)
+        #: the dp axes by name (the composed reduction's binding)
+        self._dp_groups = C.AxisGroups(
+            dp, [self._groups[(a,)] for a in dp],
+            {dp: self._groups[dp]} if len(dp) > 1 else {})
         #: decision records the plan resolved (``seq_attn_impl``,
         #: ``moe_dispatch``)
         self.decisions: list = []
@@ -375,6 +411,8 @@ class ParallelPlan:
         out = {"mesh": {a: s.size for a, s in self.axes.items()},
                "collectives": _ps.owed_collectives(self.axes),
                "batch_spec": str(self.batch_spec())}
+        if self._grad_comp is not None:
+            out["grad_reduction"] = self._grad_comp.signature()
         if self._zsg:
             out["zero_stacked_groups"] = True
         if self._seq_impl is not None:
@@ -859,9 +897,27 @@ class _PlanStep:
                 grads[i] = g
         # the plain groups (replicated, and stacked without
         # zero_stacked_groups): the dp mean (with the expert mean), one
-        # all-reduce for all
+        # all-reduce for all, or the grad_reduction composition over the
+        # dp axes (after the expert mean of the non-expert leaves)
         plain = [i for grp, idx in groups.items()
                  if not plan._zero_chained(grp) for i in idx]
+        if plan._grad_comp is not None:
+            from chainermn_tpu_torch.parallel.composition import (
+                reduce_composed_tree,
+            )
+
+            rest = [i for i in plain if i not in expert]
+            if ex and rest:
+                for i, g in zip(rest, _mean_packed(
+                        [grads[i] for i in rest], plan.group("expert"),
+                        n_exp)):
+                    grads[i] = g
+            if plain:
+                for i, g in zip(plain, reduce_composed_tree(
+                        [grads[i] for i in plain], plan._grad_comp,
+                        plan._dp_groups)):
+                    grads[i] = g
+            plain = []
         for axes, idx in ((plan.dp_axes + ex,
                            [i for i in plain if i not in expert]),
                           (plan.dp_axes, [i for i in plain if i in expert])):

@@ -262,11 +262,23 @@ def owed_collectives(axes: Mapping[str, AxisSpec]) -> dict:
 
 
 def composition_collectives(comp) -> dict:
-    """Not ported yet: the composed gradient reduction is ROADMAP queue 1,
-    item 6.7 (``composition.py``)."""
-    raise NotImplementedError(
-        "composition_collectives is not ported yet (ROADMAP queue 1, item "
-        "6.7: composition.py and the plan's grad_reduction=)")
+    """A :class:`~chainermn_tpu_torch.parallel.composition.Composition` as
+    a spec provider: per mesh axis, the ``torch.distributed`` calls its
+    stages owe the step, in stage order (``STAGE_CALLS``: the calls the
+    port's tests count), which
+    :class:`~chainermn_tpu_torch.parallel.plan.ParallelPlan` reports for
+    the ``data`` axis when ``grad_reduction=`` drives the gradient
+    reduction."""
+    from chainermn_tpu_torch.parallel.composition import STAGE_CALLS
+
+    out: dict = {}
+    for st in comp.stages:
+        call = STAGE_CALLS.get(st.primitive)
+        if call is None:
+            continue
+        for a in st.axes:
+            out.setdefault(a, []).append(call)
+    return {a: tuple(v) for a, v in out.items()}
 
 
 __all__ = ["AxisSpec", "CANONICAL_AXES", "P", "PartitionSpec",

@@ -2,8 +2,11 @@
 ``chainermn_tpu/parallel/reduction_schedule.py``).
 
 The gradient reduction is the one collective every data-parallel step
-shares, and the right algorithm for it depends on the topology. The
-named schedules:
+shares, and the right algorithm for it depends on the topology. Every
+spelling of a schedule compiles to a validated composition
+(:func:`~chainermn_tpu_torch.parallel.composition.compile_schedule`) and
+runs through its one executor
+(:func:`~chainermn_tpu_torch.parallel.composition.reduce_composed`):
 
 - ``'flat'``: float leaves packed into ~64 MB flat buckets (the
   reference's ``_memory_utility.pack_params`` discipline), one
@@ -13,40 +16,46 @@ named schedules:
   all-gather back (``rs(intra) > ar(inter) > ag(intra)``; the reference's
   ``TwoDimensionalCommunicator`` pipeline, on a flat mesh the pinned
   reduce-scatter/all-gather decomposition);
+- a composition signature (``'rs(intra)>rs(inter)>ag(inter)>ag(intra)'``,
+  sliced ``'rs(data)[s0..3]>ag(data)'``) or a ``Composition`` over the
+  communicator's axis names, validated against them;
 - ``'zero'``: reduce-scatter, the update on this rank's 1/n chunk, and
-  an all-gather: structural, run by
+  an all-gather (``zero_composition(axes)``): structural, run by
   :class:`~chainermn_tpu_torch.optimizers.MultiNodeOptimizer` through
-  :class:`~chainermn_tpu_torch.parallel.zero.ZeroShardOptimizer`.
+  :class:`~chainermn_tpu_torch.parallel.zero.ZeroShardOptimizer` over
+  the composition's groups (the scatter over the last axis, the others'
+  all-reduce after it).
 
 Each rank is a process here, and an axis a process group:
 :func:`reduce_tree` takes this rank's gradients (a list of tensors) and
 returns their means, bucket by bucket, on the fp32, bf16 (fp16) or int8
-wire, written over :mod:`~chainermn_tpu_torch.parallel.collectives`'
-staged primitives. The int8 wire is a wire, not a schedule: its flat
-rendering is the two-phase quantized all-reduce, its two-level one
-quantizes only the shard crossing the inter axes.
+wire. The int8 wire is a wire, not a schedule: its flat rendering is the
+two-phase quantized all-reduce, its two-level one quantizes only the
+shard crossing the inter axes, and their sliced spellings run one wire
+a slice; any other composition is refused on it.
 
 :class:`OverlappedBucketReducer` is the eager double-buffered driver:
 ``dispatch`` starts each bucket's all-reduce without waiting, ``collect``
 waits for them (the staleness-1 loop, overlapping step N's reduction
-with step N+1's backward).
+with step N+1's backward). :class:`MeasuredComposedReducer` runs a
+composition stage by stage, waiting for each, and times every stage.
 
-Left for later, each raising with its ROADMAP item: ``'auto'`` and
-:func:`resolve_schedule` (queue 8, the tuning registry); composition
-signature strings, ``Composition`` objects and their sliced spellings,
-``resolve_comp_slices`` and ``MeasuredComposedReducer`` (queue 6.7,
-``composition.py``); the trace ``pack``/``wire`` events (queue 8, the
+Left for later, each raising with its ROADMAP item: ``'auto'``,
+:func:`resolve_schedule` and :func:`resolve_comp_slices` (queue 8, the
+tuning registry); the trace ``pack``/``wire`` events (queue 8, the
 recorder).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from chainermn_tpu_torch.parallel import collectives as C
+from chainermn_tpu_torch.parallel import composition as K
 
 #: the named strategies
 SCHEDULES = ("flat", "two_level", "zero")
@@ -56,22 +65,72 @@ SCHEDULES = ("flat", "two_level", "zero")
 DEFAULT_BUCKET_BYTES = 64 << 20
 
 
-def check_schedule(schedule) -> None:
-    """Raise unless ``schedule`` is None or a named schedule: ``'auto'``
-    names ROADMAP queue 8, a composition (a signature string or object)
-    queue 6.7, anything else is a ``ValueError``."""
-    if schedule is None or schedule in SCHEDULES:
-        return
+def _names(axes) -> tuple:
+    """Axis names: ``axes`` itself when it is a sequence of names, else
+    the names of its :func:`~chainermn_tpu_torch.parallel.collectives.
+    axis_groups_of` binding."""
+    if isinstance(axes, (tuple, list)) and axes and all(
+            isinstance(a, str) for a in axes):
+        return tuple(axes)
+    return C.axis_groups_of(axes).names
+
+
+def check_schedule(schedule, axes=None):
+    """``schedule`` validated. None and ``'zero'`` (structural) come back
+    as they are. With ``axes`` (axis names, a communicator or an
+    ``AxisGroups``) every other spelling — ``'flat'``, ``'two_level'``,
+    a signature, a ``Composition`` — comes back compiled into a
+    ``Composition`` bound to their names and validated; without them a
+    signature is only parsed and a name returned as it is. ``'auto'``
+    raises ``NotImplementedError`` naming ROADMAP queue 8; anything else
+    a ``ValueError`` naming the menu."""
+    if schedule is None or schedule == "zero":
+        return schedule
     if schedule == "auto":
         raise NotImplementedError(
             "reduction_schedule='auto' is not ported yet (ROADMAP queue 8, "
             "tuning: the schedule resolved through the registry)")
-    if not isinstance(schedule, str) or ">" in schedule or "(" in schedule:
-        raise NotImplementedError(
-            f"composed reduction schedule {schedule!r} is not ported yet "
-            "(ROADMAP queue 6.7, composition.py)")
-    raise ValueError(f"reduction_schedule must be one of "
-                     f"{(None,) + SCHEDULES}, got {schedule!r}")
+    menu = (None, "auto") + SCHEDULES
+    is_sig = isinstance(schedule, str) and (">" in schedule
+                                            or "(" in schedule)
+    if not (is_sig or schedule in SCHEDULES
+            or isinstance(schedule, K.Composition)):
+        raise ValueError(f"unknown schedule {schedule!r}: "
+                         f"reduction_schedule must be one of {menu}, a "
+                         f"composition signature, or a Composition")
+    try:
+        if axes is None:
+            return K.parse_signature(schedule) if is_sig else schedule
+        return K.compile_schedule(schedule, _names(axes))
+    except K.CompositionError as e:
+        raise ValueError(f"reduction_schedule must be one of {menu}, a "
+                         f"composition signature, or a Composition; got "
+                         f"{schedule!r} ({e})") from None
+
+
+def int8_rendering(comp: K.Composition, axes: C.AxisGroups):
+    """The int8 wire's rendering of ``comp`` over ``axes``: for ``flat``
+    and its sliced spellings ``fn(x)`` =
+    :func:`~chainermn_tpu_torch.parallel.collectives.int8_allreduce_mean`
+    over every axis merged, for ``two_level`` and its
+    :func:`~chainermn_tpu_torch.parallel.collectives.
+    int8_two_level_allreduce_mean` with the last axis as intra and the
+    others merged as inter (one axis: the flat wire). Any other
+    composition raises ``ValueError``."""
+    names = axes.names
+    base = dataclasses.replace(K.compact_slices(comp), slices=1,
+                               slice_layout="contiguous").signature()
+    flat = base == K.flat_composition(names).signature()
+    if not flat and base != K.two_level_composition(names).signature():
+        raise ValueError(
+            f"the int8 two-phase wire has flat and two-level renderings "
+            f"only (sliced spellings of those included) — composition "
+            f"{comp.signature()!r} cannot ride it; use the bf16/f32 wire "
+            "for composed schedules")
+    if flat or len(names) == 1:
+        return lambda x: C.int8_allreduce_mean(x, axes.merged(names))
+    return lambda x: C.int8_two_level_allreduce_mean(
+        x, axes.merged(names[-1:]), axes.merged(names[:-1]))
 
 
 def bucket_partition(idxs: Sequence[int], sizes: Sequence[int],
@@ -115,6 +174,15 @@ def resolve_schedule(device_kind, payload_bytes, world_shape, *,
         "the 'auto' schedule)")
 
 
+def resolve_comp_slices(device_kind, payload_bytes, world_shape):
+    """The ``comp_slices`` decision (how many slices a composed
+    reduction cuts its buckets into). Not ported yet: a decision of the
+    tuning registry (ROADMAP queue 8), measured on the H100."""
+    raise NotImplementedError(
+        "resolve_comp_slices is not ported yet (ROADMAP queue 8, tuning: "
+        "the comp_slices decision)")
+
+
 def _is_float(dt: torch.dtype) -> bool:
     return dt.is_floating_point
 
@@ -128,47 +196,36 @@ def _wire_of(dt: torch.dtype, compress_dtype) -> torch.dtype:
     return torch.float32 if compress_dtype == torch.int8 else compress_dtype
 
 
-def _mean_flat(flat: torch.Tensor, names: tuple) -> torch.Tensor:
-    """``ar(all)``: the sum over the merged axes, divided by their size,
-    in the bucket's dtype."""
-    return C.staged_allreduce(flat, names) / C.axes_size(names)
-
-
-def _mean_two_level(flat: torch.Tensor, names: tuple) -> torch.Tensor:
-    """``rs(fast) > ar(rest) > ag(fast)``, divided where the reduction
-    completes (after the all-reduce; after the scatter on one axis)."""
-    fast, rest = names[-1:], names[:-1]
-    shard = C.staged_reduce_scatter(flat, fast)
-    if rest:
-        shard = C.staged_allreduce(shard, rest)
-    shard = shard / C.axes_size(names)
-    return C.staged_allgather(shard, fast, flat.numel())
-
-
 def reduce_tree(grads: Sequence[torch.Tensor], *, schedule, axes,
                 compress_dtype=None,
                 bucket_bytes: Optional[int] = None) -> list:
     """The bucketed, schedule-pinned MEAN of this rank's gradients over
-    the merged ``axes`` (a group or a sequence of groups): a new list of
-    tensors shaped and typed as ``grads``.
+    ``axes`` (a communicator, an ``AxisGroups``, or a group or sequence
+    of groups named ``a0, a1, ...`` by position): a new list of tensors
+    shaped and typed as ``grads``.
 
-    Leaves are grouped by wire dtype (``compress_dtype``: None, a float
-    dtype, or ``torch.int8``) and packed into ~``bucket_bytes`` flat
-    buffers (:func:`bucket_partition`); each bucket crosses the wire as
-    ``schedule`` says (``'flat'`` or ``'two_level'``). On the int8 wire
-    the buckets pack in fp32 and the flat schedule runs
-    :func:`~chainermn_tpu_torch.parallel.collectives.int8_allreduce_mean`,
-    the two-level one :func:`~chainermn_tpu_torch.parallel.collectives.
-    int8_decomposed_allreduce_mean`.
-    Zero-size leaves take the exact per-leaf path."""
-    check_schedule(schedule)
-    if schedule is None or schedule == "zero":
+    ``schedule`` is compiled against the axes' names
+    (:func:`check_schedule`): ``'flat'``, ``'two_level'``, a signature or
+    a ``Composition`` without a sharded update. Leaves are grouped by
+    wire dtype (``compress_dtype``: None, a float dtype, or
+    ``torch.int8``) and packed into ~``bucket_bytes`` flat buffers
+    (:func:`bucket_partition`); each bucket runs through
+    :func:`~chainermn_tpu_torch.parallel.composition.reduce_composed`.
+    On the int8 wire the buckets pack in fp32 and run
+    :func:`int8_rendering`'s wire, one a slice for a sliced spelling
+    (each slice quantized against its own max-abs). Zero-size leaves take
+    the exact per-leaf path."""
+    ag = C.axis_groups_of(axes)
+    comp = check_schedule(schedule, ag)
+    if comp is None or comp == "zero" or comp.has_update:
+        valid = tuple(s for s in SCHEDULES if s != "zero")
         raise ValueError(
-            f"reduce_tree runs the pure reduction schedules ('flat', "
-            f"'two_level'), got {schedule!r}: the 'zero' schedule's sharded "
-            "update is structural (MultiNodeOptimizer)")
-    names = C._axes(axes)
+            f"reduce_tree runs the pure reduction schedules {valid} (or "
+            f"any validated composition without a sharded_update stage), "
+            f"got {schedule!r} — the sharded update is structural, see "
+            "MultiNodeOptimizer's 'zero' schedule")
     int8 = compress_dtype == torch.int8
+    wire_fn = int8_rendering(comp, ag) if int8 else None
     leaves = list(grads)
     out: list = [None] * len(leaves)
     groups: dict = {}
@@ -187,13 +244,9 @@ def reduce_tree(grads: Sequence[torch.Tensor], *, schedule, axes,
                 flat = torch.cat([leaves[i].detach().to(dt).reshape(-1)
                                   for i in bidx])
                 if int8 and _is_float(dt):
-                    red = (C.int8_allreduce_mean(flat, names)
-                           if schedule == "flat"
-                           else C.int8_decomposed_allreduce_mean(flat, names))
-                elif schedule == "flat":
-                    red = _mean_flat(flat, names)
+                    red = _int8_sliced(flat, comp, wire_fn)
                 else:
-                    red = _mean_two_level(flat, names)
+                    red = K.reduce_composed(flat, comp, ag)
                 off = 0
                 for i in bidx:
                     n = sizes[i]
@@ -203,22 +256,13 @@ def reduce_tree(grads: Sequence[torch.Tensor], *, schedule, axes,
     return out
 
 
-def _effective_slices(slices: int, n_elems: int) -> int:
-    """``min(slices, n_elems)``, at least 1 (a bucket smaller than the
-    slice count cuts into fewer slices)."""
-    return max(1, min(int(slices), int(n_elems)))
-
-
-def _slice_bounds(n_elems: int, n_slices: int) -> list:
-    """Balanced contiguous ``[start, end)`` bounds (the first ``n %
-    S`` slices one element longer)."""
-    base, rem = divmod(int(n_elems), int(n_slices))
-    out, lo = [], 0
-    for i in range(int(n_slices)):
-        hi = lo + base + (1 if i < rem else 0)
-        out.append((lo, hi))
-        lo = hi
-    return out
+def _int8_sliced(flat, comp, fn):
+    """The int8 wire ``fn`` once a slice of ``comp``'s cut (the whole
+    bucket unsliced)."""
+    zigzag = comp.slice_layout == "zigzag"
+    parts = K._cut(flat, K.effective_slices(comp.slices, flat.numel()),
+                   zigzag)
+    return K._join([fn(p) for p in parts], zigzag)
 
 
 class OverlappedBucketReducer:
@@ -268,8 +312,8 @@ class OverlappedBucketReducer:
         self._layout = (leaves, buckets)
         for b_i, bidx in enumerate(buckets):
             flat = torch.cat([leaves[i].float().reshape(-1) for i in bidx])
-            s_eff = _effective_slices(self.slices, flat.numel())
-            for lo, hi in _slice_bounds(flat.numel(), s_eff):
+            s_eff = K.effective_slices(self.slices, flat.numel())
+            for lo, hi in K.slice_bounds(flat.numel(), s_eff):
                 part = flat[lo:hi]
                 home = part.device
                 if C._stage_through_host(part, group):
@@ -305,6 +349,67 @@ class OverlappedBucketReducer:
         return out
 
 
-__all__ = ["DEFAULT_BUCKET_BYTES", "OverlappedBucketReducer", "SCHEDULES",
-           "bucket_partition", "check_schedule", "reduce_tree",
-           "resolve_schedule"]
+class MeasuredComposedReducer:
+    """Eager per-STAGE composed reduction, timed stage by stage::
+
+        red = MeasuredComposedReducer(comm, schedule="two_level")
+        means = red.reduce(grads)   # this rank's tensors -> their means
+        red.stages                  # one row a stage: signature, call,
+                                    # bytes, seconds
+
+    ``reduce`` packs this rank's gradients into ONE flat fp32 buffer,
+    runs the composition on it as a sum (a sliced one slice by slice, in
+    :func:`~chainermn_tpu_torch.parallel.composition.expand_slices`
+    order), waits for each stage before the next (the card synchronised,
+    so a stage's wall clock is its own), divides by the ranks at the end
+    and unpacks the means. A stage's row carries its bytes by
+    :func:`~chainermn_tpu_torch.parallel.composition.stage_wire_layout`
+    and ``dur_s``; the trace ``wire`` events they feed in the JAX package
+    wait for the recorder (ROADMAP queue 8). Pure reductions only: a
+    ``sharded_update`` stage is refused (its fuse point is the
+    optimizer's ``'zero'`` schedule)."""
+
+    def __init__(self, comm, schedule="two_level", *,
+                 slices: int = 1) -> None:
+        self.comm = comm
+        self.axes = C.axis_groups_of(comm)
+        self.comp = K.compile_schedule(schedule, self.axes.names)
+        if self.comp.has_update:
+            raise K.CompositionError(
+                f"{self.comp.signature()!r} carries a sharded_update "
+                "stage — the eager measured reducer runs pure "
+                "reductions (the update fuse point is "
+                "MultiNodeOptimizer's 'zero' schedule)")
+        if int(slices) > 1:
+            self.comp = K.sliced_composition(self.comp, int(slices))
+        #: the last reduce's stages: dicts of ``stage``, ``op``,
+        #: ``nbytes``, ``dur_s`` (and ``slice``/``n_slices`` when sliced)
+        self.stages: list = []
+
+    def reduce(self, grads: Sequence[torch.Tensor]) -> list:
+        """The means of this rank's ``grads`` over the communicator's
+        axes, shaped and typed as they are; records :attr:`stages`."""
+        leaves = [g.detach() for g in grads]
+        device = leaves[0].device if leaves else torch.device("cpu")
+        flat = (torch.cat([g.float().reshape(-1) for g in leaves])
+                if leaves else torch.zeros(0, device=device))
+
+        def sync():
+            if flat.is_cuda:
+                torch.cuda.synchronize(flat.device)
+
+        total, self.stages = K.run_stages_measured(flat, self.comp,
+                                                   self.axes, sync=sync)
+        mean = total / self.axes.size(self.axes.names)
+        out, off = [], 0
+        for g in leaves:
+            k = g.numel()
+            out.append(mean[off:off + k].reshape(g.shape).to(g.dtype))
+            off += k
+        return out
+
+
+__all__ = ["DEFAULT_BUCKET_BYTES", "MeasuredComposedReducer",
+           "OverlappedBucketReducer", "SCHEDULES", "bucket_partition",
+           "check_schedule", "int8_rendering", "reduce_tree",
+           "resolve_comp_slices", "resolve_schedule"]

@@ -4,15 +4,16 @@ The JAX package tests distributed code in one process over N virtual CPU
 devices. The port runs one process per rank, as the reference ChainerMN
 did under ``mpiexec -n N pytest``, so its harness is a launcher:
 :func:`run_distributed` starts ``size`` gloo ranks on the CPU with the
-``spawn`` method, hands each the same numpy inputs and returns each
-rank's numpy results::
+``forkserver`` method (the server imports torch once, so a rank starts
+without importing it), hands each the same numpy inputs and returns
+each rank's numpy results::
 
     from chainermn_tpu_torch.testing import run_distributed
 
     outs = run_distributed(my_worker, 2, {"x": x})   # one dict per rank
 
-``my_worker(inputs) -> {name: array}`` is a module-level function (spawn
-pickles it by its import path), and the module that holds it must import
+``my_worker(inputs) -> {name: array}`` is a module-level function (it
+is pickled by its import path), and the module that holds it must import
 no JAX: a child imports it before it runs anything. Inputs and results
 cross as ``.npz`` files in a temporary directory, which also holds the
 ``FileStore`` the ranks rendezvous on, so no port is chosen. Every child
@@ -46,6 +47,9 @@ import torch
 #: torch threads per child: ranks share the machine with the other test
 #: workers, and the tests run at small sizes
 CHILD_THREADS = 1
+#: what the ranks' fork server imports once, so that no rank pays for
+#: importing torch itself
+_PRELOAD = ["numpy", "torch", "torch.distributed"]
 
 
 def _child(worker: Callable, rank: int, size: int, tmp: str) -> None:
@@ -87,15 +91,17 @@ def _child(worker: Callable, rank: int, size: int, tmp: str) -> None:
 def run_distributed(worker: Callable[[dict], Mapping[str, Any]], size: int,
                     inputs: Optional[Mapping[str, Any]] = None, *,
                     timeout: float = 120.0) -> list:
-    """Run ``worker(inputs)`` on ``size`` gloo ranks, one spawned process
-    each; return the ranks' results, ``[{name: ndarray}, ...]`` in rank
-    order.
+    """Run ``worker(inputs)`` on ``size`` gloo ranks, one process each
+    (forked by the fork server); return the ranks' results, ``[{name:
+    ndarray}, ...]`` in rank order.
 
     Raises ``RuntimeError`` when a rank raises, dies or outlives
     ``timeout`` seconds (it is killed, and so are the others)."""
     if size < 1:
         raise ValueError(f"size must be >= 1, got {size}")
-    ctx = torch.multiprocessing.get_context("spawn")
+    ctx = torch.multiprocessing.get_context("forkserver")
+    # the ranks fork from one server that has imported torch already
+    ctx.set_forkserver_preload(_PRELOAD)
     with tempfile.TemporaryDirectory(prefix="cmt_ranks_") as tmp:
         np.savez(os.path.join(tmp, "in.npz"),
                  **{k: np.asarray(v) for k, v in (inputs or {}).items()})

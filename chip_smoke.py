@@ -300,6 +300,33 @@ script exits non-zero without its final ``ok`` line:
     two_level``, the ImageNet twin (ResNet-50, batch 64) with
     ``--optimizer lars`` and ``lamb``: finite losses, first -> last.
 
+20. (run after phase 19) The composition DSL and its executor, the
+    composed schedules, ``MeasuredComposedReducer``,
+    ``AsyncHostGradReducer`` and ``calibrate`` under phase 7's LM: (a)
+    world size 1 over NCCL, ``COMP_STEPS`` AdamW steps on the bf16 wire
+    under ``two_dimensional`` (its 1 x 1 ``('inter', 'intra')`` mesh)
+    with each derived composition as ``reduction_schedule``, a sliced
+    (``[s0..3]``) and a zigzag (``[z0..3]``) spelling and ``'zero'``:
+    losses bit for bit ``pure_nccl`` bf16's, K1/K2/K3 6/6/6 a step, the
+    ``torch.distributed`` calls of a step equal to
+    ``predicted_collectives`` over the gradient buckets plus the
+    metrics all-reduce; ``ParallelPlan({'data': 1})`` with and without
+    ``grad_reduction='rs(a0)>ag(a0)'``, ``COMP_PLAN_STEPS`` steps, bit
+    for bit, one reduce-scatter and one all-gather a leaf;
+    ``MeasuredComposedReducer``'s ms a stage on the LM's fp32 gradients
+    (two_level and ``[s0..3]``), its means equal to the gradients; the
+    async reducer's staleness-1 loop over ``COMP_ASYNC_STEPS`` steps,
+    its parameters bit for bit the same loop's through ``reduce_sync``;
+    (b) ``COMP_RANKS`` processes on the one card (``python3
+    chip_smoke.py --comp-child DIR RANK``, gloo, ``mesh=`` 2 x 2), the
+    LM cut as in 19 (b), ``COMP_RANK_STEPS`` fp32 steps under every
+    derived composition, ``[s0..3]`` and ``[z0..3]``: parameters equal
+    on every rank after every step, step 1's reduced gradient within the
+    fp32 summation bound of the ``ar(inter+intra)`` run's, calls and
+    bytes sent a step per rank equal to the composition's frame
+    (``stage_wire_layout``'s rows at their ring shares); then
+    ``calibrate``'s α/β printed as gloo figures.
+
 The ``kernels`` JSON and the card's name and power limit come on the two
 lines before the last; the last line is ``{"ok": true, "device": {...}}``.
 ``dense_flash_decode``'s ``launches`` are phase 13 (b)'s,
@@ -308,15 +335,16 @@ K1-K3's ``launches`` are phase 7's (the LM training path); their
 ``launches_by_path`` add phase 11's encoder run, phase 15 (c)'s TP 1
 training, phase 16's pipelined steps ((a) by engine, (b) by rank),
 phase 17's plan and sequence-parallel steps ((a), and (b) by rank),
-phase 18 (a)'s MoE LM step and phase 19's steps ((a) by run, (b) by
-rank); K4's add phase 15 (a)'s TP 1 serving, each
+phase 18 (a)'s MoE LM step and phases 19's and 20's steps ((a) by run,
+(b) by rank); K4's add phase 15 (a)'s TP 1 serving, each
 rank's of (b), phase 18 (d)'s MoE serving and each rank's of 18 (c).
 
 ``python3 chip_smoke.py --drill-child DIR MODE`` is phase 12's child
 process, ``--tp-child DIR RANK`` phase 15 (b)'s, ``--pipe-child DIR
 RANK`` phase 16 (b)'s, ``--seq-child DIR RANK`` phase 17 (b)'s,
-``--moe-child DIR RANK`` phase 18 (c)'s and ``--comm-child DIR RANK``
-phase 19 (b)'s, not checks of their own.
+``--moe-child DIR RANK`` phase 18 (c)'s, ``--comm-child DIR RANK``
+phase 19 (b)'s and ``--comp-child DIR RANK`` phase 20 (b)'s, not checks
+of their own.
 """
 
 from __future__ import annotations
@@ -5627,6 +5655,548 @@ def phase_topology_twins(torch, smi):
     return rows
 
 
+# ---------------------------------------------------------------- phase 20
+
+COMP_STEPS = 10
+COMP_WARMUP = 2
+COMP_SLICES = 4
+#: (a) the plan's runs and the async reducer's loop
+COMP_PLAN_STEPS = 3
+COMP_ASYNC_STEPS = 5
+#: (b): 4 ranks on the 2 x 2 layout, the LM cut as phase 19 (b) cuts it
+COMP_RANKS = 4
+COMP_RANK_STEPS = 2
+COMP_CHILD_TIMEOUT_S = 300
+#: (b) calibrate's probe: 1 MB fp32 a pipeline, the median of 3 runs
+COMP_CAL_MB = 1.0
+
+
+def _comp_expected_calls(K, comp, buckets, extra_all_reduce=1):
+    """The calls a step makes by ``predicted_collectives``: each bucket's
+    (``buckets``: their element counts), plus the step's metrics
+    all-reduce."""
+    out = {}
+    for m in buckets:
+        for k, v in K.predicted_collectives(comp, m).items():
+            out[k] = out.get(k, 0) + v
+    out["all_reduce"] = out.get("all_reduce", 0) + extra_all_reduce
+    return {k: v for k, v in out.items() if v}
+
+
+def _comp_buckets(model, itemsize):
+    """The element counts of the gradient buckets of ``model`` at a wire
+    of ``itemsize`` bytes (the schedules' one layout)."""
+    from chainermn_tpu_torch.parallel.reduction_schedule import (
+        bucket_partition,
+    )
+
+    sizes = [p.numel() for p in model.parameters()]
+    return [sum(sizes[i] for i in b) for b in bucket_partition(
+        list(range(len(sizes))), sizes, itemsize)]
+
+
+def _functional_packed_loss(torch, model):
+    """:func:`_packed_loss` of ``model`` on a parameter tree (the plan's
+    loss form, ``loss(params, batch)``)."""
+    from chainermn_tpu_torch.models import lm_loss
+
+    def loss(p, batch):
+        tokens, seg = batch
+        valid = torch.cat([torch.ones_like(seg[:, :1]),
+                           (seg[:, 1:] == seg[:, :-1]).to(seg.dtype)], dim=1)
+        logits = torch.func.functional_call(model, p, (tokens,),
+                                            {"segment_ids": seg})
+        return lm_loss(logits, tokens, mask=valid)
+
+    return loss
+
+
+def _comp_plan_runs(torch, np, fa, batches, smi):
+    """Phase 20 (a)'s plan: ``ParallelPlan({'data': 1})`` with and
+    without ``grad_reduction='rs(a0)>ag(a0)'`` (the one-axis ladder, per
+    leaf), ``COMP_PLAN_STEPS`` fp32 AdamW steps each on phase 7's LM."""
+    import functools
+
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.parallel import composition as K
+    from chainermn_tpu_torch.parallel.plan import ParallelPlan
+    from chainermn_tpu_torch.training import make_train_step
+
+    adamw = dict(lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    runs = {}
+    for label, gr in (("plan", None), ("plan rs(a0)>ag(a0)",
+                                       "rs(a0)>ag(a0)")):
+        torch.cuda.empty_cache()
+        model = TransformerLM(seed=0, attention_fn=fa.flash_attention)
+        plan = ParallelPlan({"data": 1}, grad_reduction=gr)
+        make = functools.partial(torch.optim.AdamW, **adamw)
+        params = _params_of(model)
+
+        state = plan.create_train_state(params, make)
+        step = make_train_step(_functional_packed_loss(torch, model), make,
+                               plan=plan)
+        _reset_launches(fa)
+        state, losses, ms = _run_steps(step, state,
+                                       batches[:COMP_PLAN_STEPS - 1])
+        with _CountedDist() as calls:
+            state, last, ms_last = _run_steps(
+                step, state, batches[COMP_PLAN_STEPS - 1:COMP_PLAN_STEPS])
+        n_leaves = len(params)
+        expected = ({"all_reduce": 2} if gr is None else
+                    {k: v * n_leaves for k, v in K.predicted_collectives(
+                        K.compile_schedule(gr, ("data",))).items() if v})
+        if gr is not None:
+            expected["all_reduce"] = expected.get("all_reduce", 0) + 1
+        runs[label] = {
+            "losses": losses + last, "ms": ms + ms_last,
+            "calls_per_step": {k: v for k, v in calls.items() if v},
+            "expected_calls_per_step": expected, "leaves": n_leaves,
+            "launches_per_step": {k: v / COMP_PLAN_STEPS
+                                  for k, v in fa.LAUNCHES.items()},
+            "describe": repr(plan.describe())}
+        del model, state, step, params
+    return runs
+
+
+def _comp_async_runs(torch, np, fa, comm, batches):
+    """Phase 20 (a)'s async reducer: ``COMP_ASYNC_STEPS`` steps of phase
+    7's LM, staleness 1 (step t applies step t-1's mean; the first
+    applies none), through ``exchange`` and through ``reduce_sync`` with
+    the same bank by hand: the parameters after the loop, and ms a
+    step."""
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.parallel.async_host import AsyncHostGradReducer
+
+    out = {}
+    for mode in ("exchange", "reduce_sync"):
+        torch.cuda.empty_cache()
+        model = TransformerLM(seed=0, attention_fn=fa.flash_attention)
+        params = list(model.parameters())
+        opt = _adamw(torch, params)
+        red = AsyncHostGradReducer(comm)
+        bank, losses, ms, in_flight = None, [], [], []
+        _reset_launches(fa)
+
+        def apply(means):
+            for p, g in zip(params, means):
+                p.grad = g.to(p.device)
+            opt.step()
+
+        for batch in batches[:COMP_ASYNC_STEPS]:
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = _packed_loss(model, batch)
+            loss.backward()
+            grads = [p.grad for p in params]
+            if mode == "exchange":
+                stale = red.exchange(grads)
+                in_flight.append(red.in_flight)
+            else:
+                stale, bank = bank, red.reduce_sync(grads)
+            if stale is not None:
+                apply(stale)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        last = red.flush() if mode == "exchange" else bank
+        apply(last)
+        out[mode] = {"losses": losses, "ms": ms, "in_flight": in_flight,
+                     "launches_per_step": {
+                         k: v / COMP_ASYNC_STEPS
+                         for k, v in fa.LAUNCHES.items()},
+                     "params": [p.detach().clone() for p in params]}
+        del model, opt, params
+    a, s = out["exchange"], out["reduce_sync"]
+    equal = all(torch.equal(x, y) for x, y in zip(a.pop("params"),
+                                                   s.pop("params")))
+    return {"params_equal": equal, **out}
+
+
+def phase_composition(torch, np, smi):
+    """Phase 20 (a): phase 7's LM (B 8 x T 2048 packed, bf16, flash
+    attention, AdamW) at world size 1 over NCCL. ``COMP_STEPS`` steps
+    under ``two_dimensional`` (its 1 x 1 ``('inter', 'intra')`` mesh, the
+    bf16 wire) with each derived composition as ``reduction_schedule``,
+    a sliced (``[s0..3]``) and a zigzag (``[z0..3]``) spelling, and
+    ``'zero'`` (``zero_composition``'s groups): losses bit for bit
+    ``pure_nccl``'s on the bf16 wire, K1/K2/K3 6/6/6 a step, the calls of
+    a step equal to ``predicted_collectives`` over the gradient buckets
+    plus the metrics all-reduce. Then the plan with and without a
+    ``grad_reduction=`` ladder (bit for bit, the predicted calls a leaf),
+    ``MeasuredComposedReducer``'s ms a stage on the LM's gradients, and
+    ``AsyncHostGradReducer``'s staleness-1 loop equal to the same loop
+    through ``reduce_sync``."""
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.examples.transformer.train_transformer_lm \
+        import pack_documents
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
+    from chainermn_tpu_torch.parallel import composition as K
+    from chainermn_tpu_torch.parallel.reduction_schedule import (
+        MeasuredComposedReducer,
+    )
+
+    rng = np.random.default_rng(0)
+    batches = [tuple(torch.from_numpy(x).cuda()
+                     for x in pack_documents(rng, 8, 2048))
+               for _ in range(COMP_STEPS)]
+
+    def mno(**kw):
+        return lambda model, comm: create_multi_node_optimizer(
+            _adamw(torch, model.parameters()), comm, **kw)
+
+    bf16 = {"allreduce_grad_dtype": "bfloat16"}
+    comm = create_communicator("two_dimensional", **bf16)
+    names = comm.axis_names
+    two = K.two_level_composition(names)
+    sigs = [c.signature() for c in K.derive_compositions(names)]
+    sigs += [K.sliced_composition(two, COMP_SLICES).signature(),
+             K.sliced_composition(two, COMP_SLICES,
+                                  layout="zigzag").signature()]
+    ref = _topo_train(torch, fa, create_communicator("pure_nccl", **bf16),
+                      mno(), batches)
+    buckets = None
+    rows = {}
+    for sched in sigs + ["zero"]:
+        r = _topo_train(torch, fa, comm, mno(reduction_schedule=sched),
+                        batches)
+        if buckets is None:
+            buckets = _comp_buckets(r["model"], 2)
+        if sched == "zero":  # rs(intra) > ar(inter) > su > ag(intra)
+            expected = {"reduce_scatter_tensor": 1, "all_reduce": 2,
+                        "all_gather_into_tensor": 1}
+        else:
+            expected = _comp_expected_calls(
+                K, K.compile_schedule(sched, names), buckets)
+        p50, p99 = _p50_p99(r["ms"][COMP_WARMUP:])
+        row = {"losses": r["losses"], "step_ms_p50": p50,
+               "step_ms_p99": p99, "calls_per_step": r["calls_per_step"],
+               "expected_calls_per_step": expected,
+               "launches_per_step": r["launches_per_step"],
+               "bit_identical_to_pure_nccl": r["losses"] == ref["losses"]}
+        rows[sched] = row
+        bp50 = _p50_p99(ref["ms"][COMP_WARMUP:])
+        print(f"composition (a) {sched}: losses {r['losses'][0]:.6f} -> "
+              f"{r['losses'][-1]:.6f}, bit-identical to pure_nccl bf16: "
+              f"{row['bit_identical_to_pure_nccl']}; step ms p50 "
+              f"{p50:.3f} p99 {p99:.3f} (pure_nccl bf16 {bp50[0]:.3f} / "
+              f"{bp50[1]:.3f}); calls a step {row['calls_per_step']} "
+              f"(predicted over the {len(buckets)} buckets {buckets} + "
+              f"the metrics all-reduce: {expected}); K1/K2/K3 a step "
+              f"{row['launches_per_step']}; card {smi}", flush=True)
+        del r
+    ref_model = ref.pop("model")
+    ref.pop("optimizer")
+    plan = _comp_plan_runs(torch, np, fa, batches, smi)
+    for label, run in plan.items():
+        print(f"composition (a) {label}: losses "
+              f"{[round(x, 6) for x in run['losses']]}; calls a step "
+              f"{run['calls_per_step']} (expected "
+              f"{run['expected_calls_per_step']}, {run['leaves']} leaves); "
+              f"step ms {[round(x, 3) for x in run['ms']]}; K1/K2/K3 a "
+              f"step {run['launches_per_step']}; {run['describe']}; "
+              f"card {smi}", flush=True)
+
+    # MeasuredComposedReducer on the LM's fp32 gradients (one backward)
+    _packed_loss(ref_model, batches[0]).backward()
+    grads = [p.grad for p in ref_model.parameters()]
+    measured = {}
+    for sched in ("two_level", K.sliced_composition(
+            two, COMP_SLICES).signature()):
+        red = MeasuredComposedReducer(comm, schedule=sched)
+        red.reduce(grads)  # warm
+        means = red.reduce(grads)
+        exact = all(torch.equal(m, g.float()) for m, g in zip(means, grads))
+        measured[sched] = {"stages": [
+            {k: (round(v * 1e3, 4) if k == "dur_s" else v)
+             for k, v in s.items()} for s in red.stages],
+            "means_equal_grads": exact}
+        print(f"composition (a) MeasuredComposedReducer {sched} on "
+              f"{sum(g.numel() for g in grads)} fp32 gradient elements: "
+              + "; ".join(f"{s['stage']} {s['op']} {s['nbytes']} B "
+                          f"{s['dur_s'] * 1e3:.4f} ms"
+                          for s in red.stages)
+              + f"; means == gradients (one rank): {exact}; card {smi}",
+              flush=True)
+    del ref_model, grads, ref
+    torch.cuda.empty_cache()
+
+    async_rows = _comp_async_runs(torch, np, fa, comm, batches)
+    ea, rs = async_rows["exchange"], async_rows["reduce_sync"]
+    print(f"composition (a) AsyncHostGradReducer staleness 1 over "
+          f"{COMP_ASYNC_STEPS} steps: parameters equal to the reduce_sync "
+          f"loop's: {async_rows['params_equal']}; losses "
+          f"{[round(x, 6) for x in ea['losses']]} vs "
+          f"{[round(x, 6) for x in rs['losses']]}; in flight after each "
+          f"exchange {ea['in_flight']}; step ms exchange "
+          f"{[round(x, 1) for x in ea['ms']]} reduce_sync "
+          f"{[round(x, 1) for x in rs['ms']]}; K1/K2/K3 a step "
+          f"{ea['launches_per_step']}; card {smi}", flush=True)
+    summary = {"runs": rows, "plan": plan, "measured": measured,
+               "async": async_rows}
+    print("composition (a) summary", json.dumps(summary), flush=True)
+    six = {"fwd": 6, "dq": 6, "dkv": 6}
+    bad = [k for k, v in rows.items()
+           if not v["bit_identical_to_pure_nccl"]
+           or v["calls_per_step"] != v["expected_calls_per_step"]
+           or v["launches_per_step"] != six
+           or not all(math.isfinite(x) for x in v["losses"])]
+    if plan["plan"]["losses"] != plan["plan rs(a0)>ag(a0)"]["losses"]:
+        bad.append("plan grad_reduction not bit for bit")
+    bad += [f"{k} calls" for k, v in plan.items()
+            if v["calls_per_step"] != v["expected_calls_per_step"]
+            or v["launches_per_step"] != six]
+    bad += [f"measured {k}" for k, v in measured.items()
+            if not v["means_equal_grads"]]
+    if not (async_rows["params_equal"] and all(ea["in_flight"])
+            and ea["launches_per_step"] == six):
+        bad.append("async")
+    if bad:
+        raise AssertionError(f"composition (a): {bad} failed: "
+                             f"{json.dumps(summary)}")
+    return summary
+
+
+def _comp_expected_bytes(K, comp, axis_sizes, itemsize, buckets):
+    """Bytes a step per rank of ``comp`` on buckets of ``buckets``
+    elements: each row of its scatter frame (the rows
+    ``stage_wire_layout`` is made of, at their padded shard sizes) at its
+    ring algorithm's share, as :class:`_BytesDist` counts a call."""
+    total = 0
+    for m in buckets:
+        s_eff = K.effective_slices(comp.slices, m)
+        parts = ([hi - lo for lo, hi in K.slice_bounds(m, s_eff)]
+                 if s_eff > 1 else [m])
+        for size in parts:
+            rows, _, _ = K._replay_sizes(comp.stages, size, axis_sizes)
+            for st, size_in, size_out in rows:
+                n = 1
+                for a in st.axes:
+                    n *= axis_sizes[a]
+                if st.primitive == "reduce_scatter":
+                    total += (n - 1) * size_out * itemsize
+                elif st.primitive == "allgather":
+                    total += (n - 1) * size_in * itemsize
+                elif st.primitive == "allreduce":
+                    total += 2 * (n - 1) * size_in * itemsize // n
+    return total
+
+
+def _comp_child(tmp, rank):
+    """One rank of phase 20 (b): rank ``rank`` of ``COMP_RANKS`` gloo
+    processes on the one card, the 2 x 2 layout (``mesh=``), phase 7's
+    LM cut to ``TOPO_LAYERS`` layers, B ``TOPO_B`` x T ``TOPO_T`` of this
+    rank's own data, ``COMP_RANK_STEPS`` fp32 AdamW steps under each
+    derived composition (``ar(inter+intra)`` first, the reference), a
+    sliced and a zigzag one: parameters hashed each step and compared
+    across the ranks, step 1's reduced gradient against the ``ar(all)``
+    run's, the bytes sent a step against the composition's frame; then
+    ``calibrate``. Exits non-zero when a check fails."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.examples.transformer.train_transformer_lm \
+        import pack_documents
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
+    from chainermn_tpu_torch.parallel import composition as K
+    from chainermn_tpu_torch.parallel.cost_model import calibrate
+    from chainermn_tpu_torch.parallel.mesh import make_mesh
+    from chainermn_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+
+    tmp = Path(tmp)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/comp_store",
+                            rank=rank, world_size=COMP_RANKS)
+    fa.load_kernel()
+    mesh = make_mesh(("inter", "intra"), (2, 2), device="cuda:0")
+    comm = create_communicator("hierarchical", backend="gloo",
+                               device="cuda:0", mesh=mesh)
+    names = comm.axis_names
+    sizes = comm.axis_groups.sizes()
+    rng = np.random.default_rng(200 + rank)
+    batches = [tuple(torch.from_numpy(x).cuda()
+                     for x in pack_documents(rng, TOPO_B, TOPO_T))
+               for _ in range(COMP_RANK_STEPS)]
+    two = K.two_level_composition(names)
+    sigs = [K.flat_composition(names).signature()]
+    sigs += [c.signature() for c in K.derive_compositions(names)
+             if c.signature() not in sigs]
+    sigs += [K.sliced_composition(two, COMP_SLICES).signature(),
+             K.sliced_composition(two, COMP_SLICES,
+                                  layout="zigzag").signature()]
+    out = {"rank": rank}
+    failed = []
+    ref = None
+    for sig in sigs:
+        torch.cuda.empty_cache()
+        model = TransformerLM(seed=0, attention_fn=fa.flash_attention,
+                              num_layers=TOPO_LAYERS)
+        inner = _adamw(torch, model.parameters())
+        opt = create_multi_node_optimizer(inner, comm,
+                                          reduction_schedule=sig)
+        params = [p for g in inner.param_groups for p in g["params"]]
+        seen = {}
+        stepper = opt.step
+        inner_step = inner.step
+
+        def wrapped_step():
+            if "local_abs" not in seen:  # step 1: |local gradients|
+                seen["local_abs"] = torch.cat(
+                    [p.grad.detach().float().abs().reshape(-1)
+                     for p in params])
+            counter = _BytesDist()
+            with counter as calls:
+                stepper()
+            seen.setdefault("calls", []).append(
+                {k: v for k, v in calls.items() if v})
+            seen.setdefault("bytes", []).append(counter.sent)
+
+        def inner_wrapped(*a, **k):
+            if "reduced" not in seen:
+                seen["reduced"] = torch.cat(
+                    [p.grad.detach().float().reshape(-1) for p in params])
+            return inner_step(*a, **k)
+
+        opt.step = wrapped_step
+        inner.step = inner_wrapped
+        state = create_train_state(model, opt, comm)
+        step = make_train_step(_packed_loss, opt, comm)
+        _reset_launches(fa)
+        hashes, losses, ms = [], [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            h = hashlib.sha256()
+            for p in params:
+                h.update(p.detach().cpu().contiguous().view(-1)
+                         .view(torch.uint8).numpy().tobytes())
+            hashes.append(h.hexdigest())
+        everyone = comm.allgather_obj(hashes)
+        sum_abs = comm.allreduce(seen["local_abs"], "sum")
+        comp = K.compile_schedule(sig, names)
+        buckets = _comp_buckets(model, 4)
+        row = {"losses": losses, "ms": ms,
+               "params_equal_by_step": [
+                   all(x[s] == everyone[0][s] for x in everyone)
+                   for s in range(COMP_RANK_STEPS)],
+               "calls_per_step": seen["calls"][-1],
+               "expected_calls_per_step": {
+                   k: v for k, v in _comp_expected_calls(
+                       K, comp, buckets, 0).items() if v},
+               "bytes_per_step": seen["bytes"],
+               "expected_bytes_per_step": _comp_expected_bytes(
+                   K, comp, sizes, 4, buckets),
+               "bucket_elements": buckets,
+               "launches_per_step": {k: v / COMP_RANK_STEPS
+                                     for k, v in fa.LAUNCHES.items()}}
+        if ref is None:
+            ref = (seen["reduced"], sum_abs)
+        else:  # fp32 sums in another order: 2^-20 of the sum of |g|
+            bound = 2.0 ** -20 * ref[1] / COMP_RANKS + 1e-30
+            err = (seen["reduced"] - ref[0]).abs()
+            row["step1_share_of_bound"] = float((err / bound).max())
+            row["step1_max_abs_diff_vs_ar_all"] = float(err.max())
+            if row["step1_share_of_bound"] > 1.0:
+                failed.append(f"{sig}: step-1 gradient")
+        if not all(row["params_equal_by_step"]):
+            failed.append(f"{sig}: params differ across ranks")
+        if any(b != row["expected_bytes_per_step"]
+               for b in row["bytes_per_step"]):
+            failed.append(f"{sig}: bytes")
+        if row["calls_per_step"] != row["expected_calls_per_step"]:
+            failed.append(f"{sig}: calls")
+        if any(v != TOPO_LAYERS for v in row["launches_per_step"].values()):
+            failed.append(f"{sig}: launches")
+        out[sig] = row
+        del model, inner, opt, state, seen
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = calibrate(comm, payload_mb=COMP_CAL_MB, repeats=3)
+    out["calibrate"] = {"world_shape": list(model.world_shape),
+                        "alphas_ms": list(model.alphas),
+                        "betas_ms_per_byte": list(model.betas),
+                        "fit_err_pct": model.fit_err_pct,
+                        "rows": list(model.fit_rows),
+                        "seconds": time.perf_counter() - t0}
+    out["failed"] = failed
+    (tmp / f"comp_out{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    if failed:
+        print(f"composition (b) rank {rank} failed: {failed}: "
+              f"{json.dumps(out)}", file=sys.stderr, flush=True)
+        sys.exit(1)
+
+
+def phase_composition_ranks(torch, smi, tmp):
+    """Phase 20 (b): ``COMP_RANKS`` processes on the one card (``python3
+    chip_smoke.py --comp-child DIR RANK``), CUDA tensors over gloo on the
+    2 x 2 layout; a failing rank fails the phase."""
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--comp-child",
+         str(tmp), str(r)]) for r in range(COMP_RANKS)]
+    deadline = time.monotonic() + COMP_CHILD_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    outs = [json.loads((tmp / f"comp_out{r}.json").read_text())
+            for r in range(COMP_RANKS)
+            if (tmp / f"comp_out{r}.json").exists()]
+    print("composition (b) summary", json.dumps(outs), flush=True)
+    if len(outs) != COMP_RANKS:
+        raise AssertionError(f"composition (b) ranks exited with {codes}")
+    for sig in [k for k in outs[0]
+                if k not in ("rank", "failed", "calibrate")]:
+        rows = [o[sig] for o in outs]
+        r0 = rows[0]
+        print(f"composition (b) {sig}, {COMP_RANKS} ranks (2 x 2) over "
+              f"gloo on one card, {TOPO_LAYERS} layers, B {TOPO_B} x T "
+              f"{TOPO_T} a rank, fp32: params equal across ranks by step "
+              f"{r0['params_equal_by_step']}; losses per rank "
+              f"{[[round(x, 4) for x in r['losses']] for r in rows]}"
+              + (f"; step 1 reduced gradient vs the ar(inter+intra) run's: "
+                 f"{[round(r['step1_share_of_bound'], 4) for r in rows]} "
+                 f"of the fp32 summation bound (max |diff| "
+                 f"{[r['step1_max_abs_diff_vs_ar_all'] for r in rows]})"
+                 if "step1_share_of_bound" in r0 else "")
+              + f"; calls a step {r0['calls_per_step']} (predicted "
+              f"{r0['expected_calls_per_step']}); bytes sent a step per "
+              f"rank {[r['bytes_per_step'] for r in rows]} (by the "
+              f"composition's frame {r0['expected_bytes_per_step']} over "
+              f"the buckets {r0['bucket_elements']}); K1/K2/K3 a step "
+              f"{r0['launches_per_step']}; step ms over gloo "
+              f"{[round(x, 1) for x in r0['ms']]}; card {smi}", flush=True)
+    cal = outs[0]["calibrate"]
+    print(f"composition (b) calibrate over gloo (4 processes on one card, "
+          f"CUDA tensors through host copies: gloo figures, not a speed "
+          f"of the card): world shape {cal['world_shape']}, alpha ms a "
+          f"ring step {cal['alphas_ms']}, beta ms a byte "
+          f"{cal['betas_ms_per_byte']}, fit error {cal['fit_err_pct']} % "
+          f"over {cal['rows']}, {cal['seconds']:.1f} s; card {smi}",
+          flush=True)
+    if any(codes):
+        raise AssertionError(f"composition (b) ranks exited with {codes}: "
+                             f"{[o['failed'] for o in outs]}")
+    return outs
+
+
 # ---------------------------------------------------------------- main
 
 #: the bf16 kernels whose tensor-core instructions are counted: K1-K3
@@ -5819,6 +6389,11 @@ def main() -> int:
         topo_ranks = phase_topology_ranks(torch, smi, Path(tmp))
     phase_topology_twins(torch, smi)
     print(f"phase 19: {time.perf_counter() - t19:.1f} s", flush=True)
+    t20 = time.perf_counter()
+    comp = phase_composition(torch, np, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_comp_") as tmp:
+        comp_ranks = phase_composition_ranks(torch, smi, Path(tmp))
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s", flush=True)
     import torch.distributed as dist
 
     dist.destroy_process_group()  # the training phases' one-rank group
@@ -5975,7 +6550,19 @@ def main() -> int:
                     for k, r in topo.items()},
                 "topology_2layer_step_per_rank_phase19b": [
                     {k: o[k]["launches_per_step"][key] for k in o
-                     if k not in ("rank", "failed")} for o in topo_ranks]},
+                     if k not in ("rank", "failed")} for o in topo_ranks],
+                "composition_lm_training_step_phase20a": {
+                    k: r["launches_per_step"][key]
+                    for k, r in comp["runs"].items()},
+                "composition_plan_step_phase20a": {
+                    k: r["launches_per_step"][key]
+                    for k, r in comp["plan"].items()},
+                "async_host_step_phase20a": comp["async"]["exchange"][
+                    "launches_per_step"][key],
+                "composition_2layer_step_per_rank_phase20b": [
+                    {k: o[k]["launches_per_step"][key] for k in o
+                     if k not in ("rank", "failed", "calibrate")}
+                    for o in comp_ranks]},
             "max_abs_err": max(packed["max_abs_err"][e] for e in errs),
             "tolerance": packed["tolerance"],
             "ms": packed["ms"][key],
@@ -6028,5 +6615,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--comm-child"]:  # phase 19 (b)'s ranks
         sys.path.insert(0, str(ROOT))
         _comm_child(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--comp-child"]:  # phase 20 (b)'s ranks
+        sys.path.insert(0, str(ROOT))
+        _comp_child(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
     sys.exit(main())

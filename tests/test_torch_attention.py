@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from chainermn_tpu_torch.ops import attention as tat
+from torch_rank_workers import few_threads  # noqa: F401
 
 # the JAX package's ops/__init__ exports a function named ``attention``
 jat = importlib.import_module("chainermn_tpu.ops.attention")

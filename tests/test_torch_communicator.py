@@ -15,6 +15,7 @@ from chainermn_tpu_torch.communicators import (
     CommunicatorBase,
     create_communicator,
 )
+from torch_rank_workers import few_threads  # noqa: F401
 
 
 def _model_with_grads(seed=0):

@@ -36,6 +36,7 @@ from chainermn_tpu_torch.testing import (
     assert_distributed_equals_single,
     run_distributed,
 )
+from torch_comm_workers import shared_launch
 from torch_rank_workers import (
     datasets_worker,
     failing_worker,
@@ -58,10 +59,11 @@ def _jax_shard(n, r, **kw):
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["n2", "n4"])
-def ranks(request):
+def ranks(request, tmp_path_factory):
     n = request.param
-    return n, run_distributed(datasets_worker, n,
-                              {"n_items": N_ITEMS, "batch": BATCH})
+    return n, shared_launch(f"datasets_worker{n}", tmp_path_factory,
+                            datasets_worker, n,
+                            {"n_items": N_ITEMS, "batch": BATCH})
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4])

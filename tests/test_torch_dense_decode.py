@@ -24,6 +24,7 @@ from chainermn_tpu.ops.flash_attention import _pick_block as jax_pick_block
 from chainermn_tpu.ops.paged_decode import dense_flash_decode as jax_dense
 from chainermn_tpu.ops.paged_decode import fused_supported
 from chainermn_tpu_torch.ops import paged_decode as pd
+from torch_rank_workers import few_threads  # noqa: F401
 
 pytestmark = pytest.mark.skipif(
     not fused_supported(),

@@ -46,13 +46,13 @@ from chainermn_tpu_torch.convert import (
 )
 from chainermn_tpu_torch.models import MLP, ResNet18
 from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
-from chainermn_tpu_torch.testing import run_distributed
 from chainermn_tpu_torch.training import (
     Trainer,
     create_train_state,
     make_eval_step,
     make_train_step,
 )
+from torch_comm_workers import shared_launch
 from torch_flax_params import random_variables
 from torch_rank_workers import (
     dp_training_worker,
@@ -106,7 +106,7 @@ def _jax_comm(wire=None):
 
 
 @pytest.fixture(scope="module")
-def ranks():
+def ranks(tmp_path_factory):
     inputs = {f"mlp/sd/{k}": v.numpy()
               for k, v in mlp_state_from_flax(_mlp_params()).items()}
     for i, (x, y) in enumerate(_mlp_batches()):
@@ -117,7 +117,8 @@ def ranks():
         inputs[f"rn/sd/{k}"] = t.numpy()
     for i, (x, y) in enumerate(_rn_batches()):
         inputs[f"rn/x{i}"], inputs[f"rn/y{i}"] = _nchw(x), y
-    return run_distributed(dp_training_worker, N, inputs)
+    return shared_launch("dp_training_worker", tmp_path_factory,
+                         dp_training_worker, N, inputs)
 
 
 # ------------------------------------------------------------------ MLP

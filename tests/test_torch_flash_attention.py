@@ -33,6 +33,7 @@ from chainermn_tpu_torch.examples.transformer.train_transformer_lm import (
 )
 from chainermn_tpu_torch.ops import _build
 from chainermn_tpu_torch.ops import flash_attention as fa
+from torch_rank_workers import few_threads  # noqa: F401
 
 FWD = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-4)

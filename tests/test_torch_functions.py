@@ -33,6 +33,7 @@ from chainermn_tpu.parallel import collectives as JC
 from chainermn_tpu_torch import functions as Fn
 from chainermn_tpu_torch.parallel import collectives as C
 from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import run_once
 from torch_cross_rank_workers import (
     NO_GRAD_CASES,
     function_cases,
@@ -121,8 +122,13 @@ def _jax_grad(mesh, f, x, c):
 
 
 @pytest.fixture(scope="module")
-def runs():
-    """``{n: (port outputs per rank, JAX results)}``."""
+def runs(tmp_path_factory):
+    """``{n: (port outputs per rank, JAX results)}``, once per test run
+    (``run_once``: the xdist workers share both sides)."""
+    return run_once("functions_runs", _runs, tmp_path_factory)
+
+
+def _runs():
     res = {}
     for n in SIZES:
         mesh = Mesh(np.array(jax.devices("cpu")[:n]), (AX,))

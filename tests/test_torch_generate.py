@@ -33,6 +33,7 @@ from chainermn_tpu_torch.models import (
     init_cache,
 )
 from chainermn_tpu_torch.ops.attention import attention as port_attention
+from torch_rank_workers import few_threads  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 CFG = dict(vocab_size=64, num_layers=2, num_heads=4, d_model=32, d_ff=64,

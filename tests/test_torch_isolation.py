@@ -77,7 +77,8 @@ def test_every_port_module_imports_with_jax_blocked():
                  "parallel.local_attention", "parallel.moe",
                  "examples.moe.train_moe_mlp",
                  "communicators.xla_communicator",
-                 "parallel.reduction_schedule"):
+                 "parallel.reduction_schedule", "parallel.composition",
+                 "parallel.cost_model", "parallel.async_host"):
         assert "chainermn_tpu_torch." + name in PORT_MODULES
     out = subprocess.run(
         [sys.executable, "-c", _BLOCK_AND_IMPORT, str(SMOKE), *PORT_MODULES],

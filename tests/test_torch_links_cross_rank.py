@@ -46,6 +46,7 @@ from chainermn_tpu_torch.links import (
     create_mnbn_model,
 )
 from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import shared_launch
 from torch_cross_rank_workers import (
     DIST_CALLS,
     chain_specs,
@@ -207,7 +208,7 @@ def _jax_mnbn_training(comm, variables, X, Y):
 # ---------------------------------------------------------------- runs
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     res = {}
     for n in SIZES:
         comm = _jax_comm(n)
@@ -236,7 +237,8 @@ def runs():
         inputs.update({"train/x": X, "train/y": Y,
                        "train/per_rank": np.array(32 // n)})
         want["train"] = _jax_mnbn_training(comm, v_train, X, Y)
-        res[n] = (run_distributed(links_worker, n, inputs, timeout=120),
+        res[n] = (shared_launch(f"links_worker{n}", tmp_path_factory,
+                                links_worker, n, inputs, timeout=120),
                   want)
     return res
 

@@ -48,6 +48,7 @@ from chainermn_tpu_torch.training import (
     make_train_step,
     normalize_loss_fn,
 )
+from torch_rank_workers import few_threads  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 PARAM_TOL = dict(rtol=0, atol=2e-5)

@@ -94,7 +94,6 @@ def test_both_twins_at_two_ranks():
 
 @pytest.mark.parametrize("flag", [
     ["--reduction-schedule", "auto"],
-    ["--reduction-schedule", "rs(data)>ag(data)"],
     ["--allreduce-grad-dtype", "auto"]])
 def test_mnist_left_out_flags_exit_naming_their_roadmap_item(flag, capsys):
     with pytest.raises(SystemExit):

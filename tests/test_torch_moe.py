@@ -41,7 +41,7 @@ from chainermn_tpu.parallel import moe as jmoe
 from chainermn_tpu.parallel.plan_specs import CANONICAL_AXES as J_AXES
 from chainermn_tpu_torch.parallel import moe as tmoe
 from chainermn_tpu_torch.parallel.plan_specs import CANONICAL_AXES
-from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import shared_launch
 from torch_moe_workers import (
     AUX,
     CALLS,
@@ -88,8 +88,9 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
-def ranks(inputs):
-    return run_distributed(moe_worker, N, inputs, timeout=240)
+def ranks(inputs, tmp_path_factory):
+    return shared_launch("moe_worker", tmp_path_factory, moe_worker, N,
+                         inputs, timeout=240)
 
 
 def _stack(inputs, e):

@@ -27,10 +27,13 @@ import chainermn_tpu
 from chainermn_tpu import global_except_hook as jax_hook
 from chainermn_tpu.parallel.moe import make_expert_params
 from chainermn_tpu_torch.examples.moe import train_moe_mlp
-from chainermn_tpu_torch.testing import run_distributed
 from conftest import load_example
+from torch_comm_workers import shared_launch
 from torch_moe_workers import TWIN_FLAGS, twin_worker
-from torch_rank_workers import restore_excepthook  # noqa: F401
+from torch_rank_workers import (  # noqa: F401
+    few_threads,
+    restore_excepthook,
+)
 
 SIZES = (2, 4)
 ITERATIONS = 8
@@ -56,14 +59,15 @@ def _jax_weights(n, width):
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     out = {}
     for n in SIZES:
         dense, experts = _jax_weights(n, WIDTH)
         inputs = {"iterations": ITERATIONS,
                   **{f"dense/{k}": v for k, v in dense.items()},
                   **{f"experts/{k}": v for k, v in experts.items()}}
-        out[n] = run_distributed(twin_worker, n, inputs, timeout=240)
+        out[n] = shared_launch(f"moe_twin_worker{n}", tmp_path_factory,
+                               twin_worker, n, inputs, timeout=240)
     return out
 
 

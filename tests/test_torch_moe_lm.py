@@ -52,7 +52,7 @@ from chainermn_tpu_torch.serving.engine import (
     shard_lm_params,
     unshard_lm_params,
 )
-from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import shared_launch
 from torch_lm_params import lm_variables
 from torch_moe_workers import CALLS, moe_lm_worker
 from torch_rank_workers import few_threads  # noqa: F401
@@ -91,9 +91,10 @@ def setup():
 
 
 @pytest.fixture(scope="module")
-def runs(setup):
+def runs(setup, tmp_path_factory):
     *_, inputs = setup
-    return run_distributed(moe_lm_worker, TP, inputs, timeout=240)
+    return shared_launch("moe_lm_worker", tmp_path_factory, moe_lm_worker,
+                         TP, inputs, timeout=240)
 
 
 def _split(out, key):

@@ -31,6 +31,7 @@ from chainermn_tpu.ops.paged_decode import fused_supported
 from chainermn_tpu.ops.paged_decode import paged_flash_decode as jax_decode
 from chainermn_tpu_torch.ops import paged_decode as pd
 from chainermn_tpu_torch.ops.attention import NEG_INF
+from torch_rank_workers import few_threads  # noqa: F401
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: the split kernel's tile of keys (``kKeys``) and its warps

@@ -22,6 +22,7 @@ from chainermn_tpu.ops.paged_decode import fused_supported
 from chainermn_tpu.ops.paged_decode import paged_flash_decode as jax_decode
 from chainermn_tpu_torch.ops import paged_decode as pd
 from test_torch_paged_decode import TOL, _pool_case
+from torch_rank_workers import few_threads  # noqa: F401
 
 pytestmark = pytest.mark.skipif(
     not fused_supported(),

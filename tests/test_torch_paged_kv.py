@@ -13,6 +13,7 @@ import torch
 
 from chainermn_tpu.ops import paged_kv as jax_kv
 from chainermn_tpu_torch.ops import paged_kv as torch_kv
+from torch_rank_workers import few_threads  # noqa: F401
 
 
 def _case(rs, B=3, nb=12, bs=4, M=3, H=2, D=8, T=1):

@@ -29,6 +29,7 @@ from chainermn_tpu.ops.paged_decode import fused_supported
 from chainermn_tpu.ops.paged_decode import paged_flash_decode as jax_decode
 from chainermn_tpu_torch.ops import paged_decode as pd
 from chainermn_tpu_torch.ops.attention import NEG_INF
+from torch_rank_workers import few_threads  # noqa: F401
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LOG2E = 1.0 / math.log(2.0)

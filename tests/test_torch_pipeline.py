@@ -33,7 +33,7 @@ from chainermn_tpu.parallel import mesh as jmesh
 from chainermn_tpu.parallel import pipeline as jpl
 from chainermn_tpu_torch.parallel import mesh as tmesh
 from chainermn_tpu_torch.parallel import pipeline as tpl
-from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import shared_launch
 from torch_pipeline_workers import (
     CALLS,
     GPIPE,
@@ -44,6 +44,7 @@ from torch_pipeline_workers import (
     hetero_case,
     mesh_worker,
 )
+from torch_rank_workers import few_threads  # noqa: F401
 
 SIZES = (2, 4)
 VALUES = dict(rtol=1e-5, atol=1e-6)
@@ -51,8 +52,9 @@ GRADS = dict(rtol=1e-4, atol=1e-6)
 
 
 @pytest.fixture(scope="module")
-def runs():
-    return {n: run_distributed(gpipe_worker, n, timeout=240) for n in SIZES}
+def runs(tmp_path_factory):
+    return {n: shared_launch(f"gpipe_worker{n}", tmp_path_factory,
+                             gpipe_worker, n, timeout=240) for n in SIZES}
 
 
 def _mesh(n):
@@ -360,8 +362,9 @@ class TestBestMeshShape:
 
 
 @pytest.fixture(scope="module")
-def mesh_runs():
-    return run_distributed(mesh_worker, 4, timeout=120)
+def mesh_runs(tmp_path_factory):
+    return shared_launch("mesh_worker4", tmp_path_factory, mesh_worker, 4,
+                         timeout=120)
 
 
 def test_make_mesh_at_four_ranks(mesh_runs):

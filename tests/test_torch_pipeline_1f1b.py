@@ -34,7 +34,7 @@ import pytest
 from jax.sharding import Mesh
 
 from chainermn_tpu.parallel import pipeline as jpl
-from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import shared_launch
 from torch_pipeline_workers import (
     D,
     MEM_MICRO,
@@ -48,6 +48,7 @@ from torch_pipeline_workers import (
     tp_case,
     tp_data,
 )
+from torch_rank_workers import few_threads  # noqa: F401
 
 SIZES = (2, 4)
 VALUES = dict(rtol=1e-5, atol=1e-6)
@@ -55,14 +56,16 @@ GRADS = dict(rtol=1e-4, atol=1e-6)
 
 
 @pytest.fixture(scope="module")
-def runs():
-    return {n: run_distributed(onef1b_worker, n, timeout=240)
+def runs(tmp_path_factory):
+    return {n: shared_launch(f"onef1b_worker{n}", tmp_path_factory,
+                             onef1b_worker, n, timeout=240)
             for n in SIZES}
 
 
 @pytest.fixture(scope="module")
-def composed():
-    return {n: run_distributed(composed_worker, n, timeout=240)
+def composed(tmp_path_factory):
+    return {n: shared_launch(f"composed_worker{n}", tmp_path_factory,
+                             composed_worker, n, timeout=240)
             for n in (4, 8)}
 
 

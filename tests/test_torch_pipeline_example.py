@@ -22,10 +22,13 @@ import pytest
 
 import chainermn_tpu
 from chainermn_tpu import global_except_hook as jax_hook
-from chainermn_tpu_torch.testing import run_distributed
 from conftest import load_example
+from torch_comm_workers import shared_launch
 from torch_pipeline_workers import SCHEDULES, TWIN_FLAGS, twin_worker
-from torch_rank_workers import restore_excepthook  # noqa: F401
+from torch_rank_workers import (  # noqa: F401
+    few_threads,
+    restore_excepthook,
+)
 
 SIZES = (2, 4)
 ITERATIONS = 8
@@ -33,9 +36,10 @@ BATCH = 64
 
 
 @pytest.fixture(scope="module")
-def runs():
-    return {n: run_distributed(twin_worker, n, {"iterations": ITERATIONS},
-                               timeout=240) for n in SIZES}
+def runs(tmp_path_factory):
+    return {n: shared_launch(f"pipeline_twin_worker{n}", tmp_path_factory,
+                             twin_worker, n, {"iterations": ITERATIONS},
+                             timeout=240) for n in SIZES}
 
 
 def _jax_run(n, schedule, capsys, monkeypatch):

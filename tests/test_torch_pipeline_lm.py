@@ -36,9 +36,10 @@ from chainermn_tpu_torch.convert import (
     blocks_state_from_flax,
     lm_state_from_flax,
 )
-from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import shared_launch
 from torch_lm_params import lm_variables
 from torch_pipeline_workers import LM, LM_BATCH, LM_MICRO, lm_worker
+from torch_rank_workers import few_threads  # noqa: F401
 
 N = 2
 PER = LM["num_layers"] // N
@@ -47,7 +48,7 @@ GRADS = dict(rtol=1e-4, atol=1e-5)
 
 
 @pytest.fixture(scope="module")
-def setup():
+def setup(tmp_path_factory):
     module = TransformerLM(**LM, compute_dtype=jnp.float32)
     params = lm_variables(module, seed=3)["params"]
     tokens = np.random.RandomState(4).randint(
@@ -59,7 +60,8 @@ def setup():
         blocks = [params[f"block_{s * PER + i}"] for i in range(PER)]
         for k, t in blocks_state_from_flax(blocks).items():
             inputs[f"stage{s}/{k}"] = t.numpy()
-    outs = run_distributed(lm_worker, N, inputs, timeout=240)
+    outs = shared_launch("pipeline_lm_worker", tmp_path_factory, lm_worker,
+                         N, inputs, timeout=240)
     return params, tokens, outs
 
 

@@ -41,7 +41,7 @@ from chainermn_tpu.parallel.tensor import (
     stack_tp_params as jax_stack_tp_params,
     tp_mlp as jax_tp_mlp,
 )
-from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import shared_launch
 from torch_plan_workers import CALLS, plan_worker
 from torch_rank_workers import few_threads  # noqa: F401
 
@@ -84,9 +84,10 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
-def ranks(inputs):
+def ranks(inputs, tmp_path_factory):
     send = {k: v for k, v in inputs.items() if k != "pm/stage_w"}
-    return run_distributed(plan_worker, N, send, timeout=240)
+    return shared_launch("plan_worker", tmp_path_factory, plan_worker, N,
+                         send, timeout=240)
 
 
 def _mlp(inputs):

@@ -251,9 +251,9 @@ def test_schedule_refusals_as_jax():
         create_multi_node_optimizer(sgd, comm, reduction_schedule="ring")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 8"):
         create_multi_node_optimizer(sgd, comm, reduction_schedule="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 6.7"):
-        create_multi_node_optimizer(sgd, comm,
-                                    reduction_schedule="rs(data)>ag(data)")
+    with pytest.raises(ValueError, match="sharded_update"):
+        create_multi_node_optimizer(
+            sgd, comm, reduction_schedule="rs(data)>su>ag(data)")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 8"):
         RS.resolve_schedule("cpu", 1 << 20, (4,))
     with pytest.raises(ValueError, match="structural"):

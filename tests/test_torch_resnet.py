@@ -44,7 +44,7 @@ from chainermn_tpu.models.resnet import ResNet50 as JaxResNet50
 from chainermn_tpu_torch.convert import resnet_state_from_flax
 from chainermn_tpu_torch.models import ResNet18, ResNet50
 from chainermn_tpu_torch.models import resnet
-from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import shared_launch
 from torch_flax_params import random_variables
 from torch_rank_workers import (
     resnet_worker,
@@ -221,13 +221,14 @@ def test_symmetric_stride2_padding_is_caught(monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def two_ranks():
+def two_ranks(tmp_path_factory):
     v = _variables("resnet18")
     x, y = _batch(3)
     sd = resnet_state_from_flax(v["params"], v["batch_stats"])
     inputs = {"x": _nchw(x).numpy(), "y": y,
               **{"sd/" + k: t.numpy() for k, t in sd.items()}}
-    return run_distributed(resnet_worker, 2, inputs)
+    return shared_launch("resnet_worker2", tmp_path_factory, resnet_worker,
+                         2, inputs)
 
 
 @functools.lru_cache(maxsize=None)

@@ -40,6 +40,7 @@ from chainermn_tpu_torch.models.transformer import (
     stream_sample_keys,
 )
 from chainermn_tpu_torch.utils import prng
+from torch_rank_workers import few_threads  # noqa: F401
 
 SEEDS = [0, 1, 7, 12345, -1, -2**31, 2**31 - 1, 2**31, 2**32 - 1, 2**32 + 5,
          2**40 + 3]

@@ -11,7 +11,7 @@ tests/test_torch_sequence_parallel.py."""
 import numpy as np
 import pytest
 
-from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import shared_launch
 from torch_rank_workers import few_threads  # noqa: F401
 
 ARGS = ["--device", "cpu", "--sequence-parallel", "--num-layers", "2",
@@ -39,8 +39,9 @@ def _twin_worker(inputs):
 
 
 @pytest.fixture(scope="module")
-def ranks():
-    return run_distributed(_twin_worker, 2, timeout=240)
+def ranks(tmp_path_factory):
+    return shared_launch("seq_twin_worker", tmp_path_factory, _twin_worker,
+                         2, timeout=240)
 
 
 @pytest.mark.parametrize("mode", ["ring", "window"])

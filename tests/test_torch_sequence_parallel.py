@@ -52,7 +52,7 @@ from chainermn_tpu.parallel.ulysses import (
     make_ulysses_attention as jax_make_ulysses,
 )
 from chainermn_tpu_torch.convert import lm_state_from_flax
-from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import shared_launch
 from torch_rank_workers import few_threads  # noqa: F401
 from torch_seq_workers import B, D, H, LR, T, seq_worker
 
@@ -119,13 +119,15 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
-def ranks8(inputs):
-    return run_distributed(seq_worker, 8, inputs, timeout=300)
+def ranks8(inputs, tmp_path_factory):
+    return shared_launch("seq_worker8", tmp_path_factory, seq_worker, 8,
+                         inputs, timeout=300)
 
 
 @pytest.fixture(scope="module")
-def ranks4(inputs):
-    return run_distributed(seq_worker, 4, inputs, timeout=300)
+def ranks4(inputs, tmp_path_factory):
+    return shared_launch("seq_worker4", tmp_path_factory, seq_worker, 4,
+                         inputs, timeout=300)
 
 
 def _qkv(inputs, name):

@@ -47,6 +47,7 @@ from chainermn_tpu_torch.serving import (
     Scheduler,
     ServingEngine,
 )
+from torch_rank_workers import few_threads  # noqa: F401
 
 VOCAB = 32
 CFG = dict(vocab_size=VOCAB, num_layers=2, num_heads=4, d_model=16,

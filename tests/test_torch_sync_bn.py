@@ -33,7 +33,7 @@ from chainermn_tpu.links.batch_normalization import (
 )
 from chainermn_tpu_torch.communicators import create_communicator
 from chainermn_tpu_torch.links import MultiNodeBatchNormalization
-from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import shared_launch
 from torch_rank_workers import (
     sync_bn_worker,
     few_threads,  # noqa: F401
@@ -120,9 +120,10 @@ def _single(case):
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["n2", "n4"])
-def ranks(request):
-    return request.param, run_distributed(sync_bn_worker, request.param,
-                                          INPUTS)
+def ranks(request, tmp_path_factory):
+    return request.param, shared_launch(
+        f"sync_bn_worker{request.param}", tmp_path_factory, sync_bn_worker,
+        request.param, INPUTS)
 
 
 def _cat(outs, key):

@@ -29,7 +29,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from chainermn_tpu.parallel import tensor as JT
 from chainermn_tpu_torch.parallel import tensor as T
-from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import shared_launch
 from torch_cross_rank_workers import DIST_CALLS, tp_worker
 from torch_rank_workers import few_threads  # noqa: F401
 
@@ -194,11 +194,12 @@ def _jax_side(n, rs):
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     res = {}
     for n in SIZES:
         inputs, want = _jax_side(n, np.random.RandomState(20 + n))
-        res[n] = (run_distributed(tp_worker, n, inputs, timeout=120), want)
+        res[n] = (shared_launch(f"tp_worker{n}", tmp_path_factory, tp_worker,
+                                n, inputs, timeout=120), want)
     return res
 
 

@@ -22,8 +22,8 @@ import pytest
 
 import chainermn_tpu
 from chainermn_tpu import global_except_hook as jax_hook
-from chainermn_tpu_torch.testing import run_distributed
 from conftest import load_example
+from torch_comm_workers import shared_launch
 from torch_rank_workers import few_threads, restore_excepthook  # noqa: F401
 from torch_tp_workers import EXAMPLE_RUNS, tp_example_worker
 
@@ -48,9 +48,10 @@ def _jax_loss(n, flags, iterations, monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def runs():
-    return {n: run_distributed(tp_example_worker, n,
-                               {"iterations": ITERATIONS}, timeout=180)
+def runs(tmp_path_factory):
+    return {n: shared_launch(f"tp_example_worker{n}", tmp_path_factory,
+                             tp_example_worker, n,
+                             {"iterations": ITERATIONS}, timeout=180)
             for n in EXAMPLE_RUNS}
 
 

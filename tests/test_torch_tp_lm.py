@@ -37,7 +37,7 @@ from chainermn_tpu_torch.convert import lm_state_from_flax
 from chainermn_tpu_torch.models import TransformerLM
 from chainermn_tpu_torch.ops.flash_attention import flash_attention
 from chainermn_tpu_torch.serving import shard_lm_params, unshard_lm_params
-from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import shared_launch
 from torch_lm_params import lm_variables
 from torch_rank_workers import few_threads  # noqa: F401
 from torch_tp_workers import CALLS, LM_CFG, tp_lm_worker
@@ -148,12 +148,13 @@ def _dense_grads(state, inputs):
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     res = {}
     for n in SIZES:
         inputs, state, logits, grads = _jax_side(
             n, np.random.RandomState(n))
-        outs = run_distributed(tp_lm_worker, n, inputs, timeout=180)
+        outs = shared_launch(f"tp_lm_worker{n}", tmp_path_factory,
+                             tp_lm_worker, n, inputs, timeout=180)
         res[n] = (outs, inputs, state, logits, grads)
     return res
 

@@ -40,7 +40,7 @@ from chainermn_tpu_torch.convert import lm_state_from_flax
 from chainermn_tpu_torch.models import TransformerLM
 from chainermn_tpu_torch.models import generate as port_generate
 from chainermn_tpu_torch.serving import ServingEngine
-from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import run_once, shared_launch
 from torch_lm_params import lm_variables
 from torch_rank_workers import few_threads  # noqa: F401
 from torch_tp_workers import (
@@ -98,18 +98,24 @@ def setup():
 
 
 @pytest.fixture(scope="module")
-def runs(setup):
+def runs(setup, tmp_path_factory):
     *_, inputs = setup
-    return {n: run_distributed(tp_serving_worker, n, inputs, timeout=240)
+    return {n: shared_launch(f"tp_serving_worker{n}", tmp_path_factory,
+                             tp_serving_worker, n, inputs, timeout=240)
             for n in SIZES}
 
 
 @pytest.fixture(scope="module")
-def references(setup):
+def references(setup, tmp_path_factory):
     """The JAX TP engine's streams per (n, layout, mode), the port's
     mesh-less engine's per (layout, mode) (its ``'xla'`` impl gives the
     same: tests/test_torch_serving.py), and the port's ``generate``'s per
-    mode."""
+    mode; once per test run (``run_once``)."""
+    return run_once("tp_serving_references", lambda: _references(setup),
+                    tmp_path_factory)
+
+
+def _references(setup):
     jm, variables, tm, reqs, _ = setup
     jax_tp, port_single, gen = {}, {}, {}
     for mode, sampling in MODES.items():

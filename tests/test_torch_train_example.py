@@ -6,7 +6,10 @@ import math
 import pytest
 
 from chainermn_tpu_torch.examples.transformer import train_transformer_lm
-from torch_rank_workers import restore_excepthook  # noqa: F401
+from torch_rank_workers import (  # noqa: F401
+    few_threads,
+    restore_excepthook,
+)
 
 TINY = ["--device", "cpu", "--num-layers", "1", "--d-model", "32",
         "--seq-len", "48", "--batchsize", "2", "--iterations", "2"]

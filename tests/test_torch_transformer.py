@@ -36,6 +36,7 @@ from chainermn_tpu_torch.convert import lm_state_from_flax
 from chainermn_tpu_torch.models import TransformerLM
 from chainermn_tpu_torch.ops.attention import attention as port_attention
 from chainermn_tpu_torch.serving.kv_blocks import init_serving_cache
+from torch_rank_workers import few_threads  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 CFG = dict(vocab_size=64, num_layers=2, num_heads=4, d_model=32, d_ff=64,

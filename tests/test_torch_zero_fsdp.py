@@ -55,6 +55,7 @@ from chainermn_tpu_torch.convert import mlp_state_from_flax
 from chainermn_tpu_torch.parallel.fsdp import fsdp_shardings
 from chainermn_tpu_torch.parallel.zero import zero_plan_axis
 from chainermn_tpu_torch.testing import run_distributed
+from torch_comm_workers import run_once
 from torch_rank_workers import few_threads  # noqa: F401
 from torch_tp_workers import CALLS, ZERO_PARAMS, zero_fsdp_worker
 
@@ -156,16 +157,23 @@ def _fsdp_side(n):
     return inputs, want
 
 
-@pytest.fixture(scope="module")
-def runs():
+def _runs():
     res = {}
     for n in SIZES:
         zin, zp, ref, mu = _zero_side(n)
         fin, fwant = _fsdp_side(n)
         outs = run_distributed(zero_fsdp_worker, n, {**zin, **fin},
                                timeout=180)
-        res[n] = (outs, zp, ref, mu, fwant)
+        res[n] = (outs, jax.tree.map(np.asarray, zp),
+                  jax.tree.map(np.asarray, ref), mu, fwant)
     return res
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both sides once per test run (``run_once``: the xdist workers share
+    the JAX references and the rank launch)."""
+    return run_once("zero_fsdp_runs", _runs, tmp_path_factory)
 
 
 @pytest.mark.parametrize("n", SIZES)

@@ -71,6 +71,18 @@ def run_once(key: str, compute, tmp_path_factory, timeout: float = 600.0):
     return value
 
 
+def shared_launch(key: str, tmp_path_factory, worker, size: int,
+                  inputs=None, **kw):
+    """``run_distributed(worker, size, inputs, **kw)`` once per test run
+    (:func:`run_once`): under pytest-xdist the workers that run a
+    module's tests share one launch of its ranks instead of each making
+    its own."""
+    from chainermn_tpu_torch.testing import run_distributed
+
+    return run_once(key, lambda: run_distributed(worker, size, inputs, **kw),
+                    tmp_path_factory)
+
+
 def comm_2x2(name="two_dimensional", **kw):
     """A topology communicator over gloo on the 2 x 2 layout."""
     mesh = make_mesh(("inter", "intra"), (2, 2), device="cpu")

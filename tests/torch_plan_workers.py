@@ -143,8 +143,8 @@ def plan_worker(inputs: dict) -> dict:
             tokens_local=4, d_model=8), NotImplementedError, "item 8")
     out["reject/grad_reduction"] = _raises(
         lambda: ParallelPlan({"data": 8}, device="cpu",
-                             grad_reduction="flat"),
-        NotImplementedError, "6.7")
+                             grad_reduction="zero"),
+        ValueError, "sharded_update")
     tp_plan = ParallelPlan({"data": 4, "model": 2}, device="cpu")
     sp = {"w": torch.zeros(2, 4, 4), "b": torch.zeros(4)}
     full = tp_plan.param_specs(sp, {"w": P("model"), "b": P()})
